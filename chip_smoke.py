@@ -12,15 +12,28 @@ Phases, in order; any failed check exits non-zero without the ``ok`` line:
    strain/stress mix of ``tests/test_pallas_ops.py`` at the main path's
    shape and at 65,536 points, then timed with CUDA events: per call as the
    main path calls it, and as device time inside a CUDA graph;
-4. the main path at full size: the von Mises fused load step on the 25x25
-   P2 block (5,202 dofs, 3,750 Gauss points), loads (200, 400, 600), dense
+4. the von Mises path at full size: the fused load step on the 25x25 P2
+   block (5,202 dofs, 3,750 Gauss points), loads (200, 400, 600), dense
    solver; (a) with the f64 plain return map, which must give the Newton
    list [4, 5, 7], and (b) with the f32 CUDA kernel, which must converge on
    every step, agree with (a) to 1e-3 and launch the kernel once per
    constitutive evaluation; then the layers of one Newton pass timed one by
    one, and the last load step under ``torch.profiler`` (trace in
    ``chiprun_out/trace_f32_step.json``);
-5. the CG solver at 8x8 with the f64 return map: Newton list [1, 5, 7].
+5. the CG solver at 8x8 with the f64 return map: Newton list [1, 5, 7];
+6. the main path: the Mohr-Coulomb slope load step on the same 25x25 block
+   over the 52-step schedule, dense solver, from the zero state, (a) with
+   the hand-written return-map kernel and (b) with the plain f64 return
+   map.  Both Newton lists must equal the record's
+   (``docs/records/scaling_25x25_full_tpu_bcr_schedule.json``, 171
+   updates), the two final Du must agree to 1e-8, and the kernel must be
+   launched once per Newton pass (updates + 52);
+7. the Mohr-Coulomb kernel against its plain version on the card, on the
+   strain mix of ``bench.py:77-83`` at 65,536 points and on the real
+   iterate of step 50's first Newton pass, then timed as in phase 3;
+8. where a main-path step's time goes: the layers of step 50's first
+   Newton pass, and step 51 (7 updates) under ``torch.profiler`` (trace in
+   ``chiprun_out/trace_mc_step.json``).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  A copy of all measurements goes to
@@ -41,16 +54,39 @@ import torch
 import dolfinx_external_operator_torch as pt
 from dolfinx_external_operator_torch._native import cuda as native
 from dolfinx_external_operator_torch.models import von_mises as vm
+from dolfinx_external_operator_torch.ops import mohr_coulomb as mc_ops
 from dolfinx_external_operator_torch.ops import vonmises as vm_ops
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and f32
+# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, f32 and f64
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+F64_FLOPS_PER_S = 34e12
 # f32 operations of the von Mises body per point (csrc/vonmises.cuh):
 # predictor 16, deviator 6, sigma_eq 9, yield and dp 6, beta/scale/n 8,
 # stress 8, coef 5, tangent 16 x 5
 VM_FLOPS_PER_POINT = 138
+# Operations of the Mohr-Coulomb body (csrc/mohr_coulomb.cuh), counted by
+# hand, one per add, multiply, divide, square root or trig call: terms()
+# 131 (value and gradient); on Dual numbers 5x that (a value and four
+# tangents); residual = terms + 44; Jacobian = Dual terms + 170 (C Hg,
+# C grad g); 5x5 solve 125 with one right-hand side, 260 with four.  A
+# Newton iteration with 6 candidates: 825 + 125 + 5 + 6 x 195 = 2,125.  Per
+# point, besides its iterations: 190 f32 (start of the f32 phase) and
+# 1,590 f64 (trial yield 194, start of the polish 206, tangent 1,190).
+# Every iteration is counted at the f32 cost and rate, so the bound is a
+# lower bound (a polish iteration costs more, at half the rate).
+MC_ITER_OPS = 2125
+MC_FIXED_F32_OPS = 190
+MC_FIXED_F64_OPS = 1590
+# kernel vs plain on the card: the f64 polish stops once |r| <= 1e-8 of the
+# lane's scale, so a lane whose last step lands on the other side of that
+# threshold in the two versions (different f32 trig and FMA contraction)
+# differs by up to about 1e-8 in sigma, more in the tangent; a few lanes
+# in a thousand may then differ in their iteration count
+MC_TOL = {"C": 1e-6, "sig": 1e-7}
+RECORD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs", "records",
+                      "scaling_25x25_full_tpu_bcr_schedule.json")
 
 MAIN_LOADS = (200.0, 400.0, 600.0)
 F32_TOLS = {"newton_rtol": 1e-5, "newton_atol": 1e-3}
@@ -97,8 +133,8 @@ def vm_inputs(n, seed=3):
             torch.tensor(p, dtype=torch.float32, device=dev))
 
 
-def cuda_time_ms(fn, reps):
-    for _ in range(5):
+def cuda_time_ms(fn, reps, warmup=5):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -165,12 +201,15 @@ def warm_up(fp, load):
     torch.cuda.synchronize()
 
 
-def run_loads(fp, loads):
+def run_loads(fp, loads, capture=()):
     """The schedule from the zero state, Du carried from step to step;
-    wall time per step after a sync."""
+    wall time per step after a sync.  ``capture``: indices of the steps
+    whose starting state (Du, sigma_n) is returned in a dict."""
     Du, sig = fp.zero_state()
-    its, cgs, walls = [], [], []
-    for load in loads:
+    its, cgs, walls, states = [], [], [], {}
+    for k, load in enumerate(loads):
+        if k in capture:
+            states[k] = (Du.clone(), sig.clone())
         t0 = time.perf_counter()
         Du, sig, norm, it, cg = fp.run_step(Du, sig, load)
         torch.cuda.synchronize()
@@ -180,7 +219,7 @@ def run_loads(fp, loads):
         cgs.append(cg)
     check(tuple(Du.shape) == (fp.n_dofs,) and bool(torch.isfinite(Du).all()), "bad Du")
     check(bool(torch.isfinite(sig).all()), "bad sigma")
-    return Du, its, cgs, walls
+    return Du, its, cgs, walls, states
 
 
 def state_before(fp, loads):
@@ -242,6 +281,137 @@ def profile_step(fp, Du, sig_n, load, path):
             "device_events": len(dev), "top_ms": top}
 
 
+def mc_bound(niter):
+    """(bound_ms, bound_by) of the Mohr-Coulomb kernel on inputs whose
+    lanes take ``niter`` Newton iterations: bytes read and written once
+    over HBM, or the operations these lanes need over the f32 and f64
+    peaks, whichever is larger."""
+    n = niter.numel()
+    t_bytes = mc_ops.BYTES_PER_POINT * n / HBM_BYTES_PER_S * 1e3
+    f32_ops = MC_FIXED_F32_OPS * n + MC_ITER_OPS * int(niter.sum())
+    t_ops = (f32_ops / F32_FLOPS_PER_S + MC_FIXED_F64_OPS * n / F64_FLOPS_PER_S) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def mc_kernel_phase(mat, deps, sn, label):
+    """The Mohr-Coulomb kernel against the plain version on the same CUDA
+    tensors (per-lane gaps relative to the largest entry), then timed."""
+    n = deps.shape[1]
+    C_k, s_k, it_k, *_ = mc_ops.mc_return_map(deps, sn, mat)
+    C_p, (s_p, it_p, *_) = mat.tangent_stress(deps, sn)
+    C_p = C_p.reshape(16, n)
+    torch.cuda.synchronize()
+    for name, t in (("C", C_k), ("sig", s_k)):
+        check(bool(torch.isfinite(t).all()), f"mohr_coulomb kernel {name} not finite ({label})")
+    gap_C = (C_k - C_p).abs().amax(0) / C_p.abs().max()
+    gap_s = (s_k - s_p).abs().amax(0) / s_p.abs().max()
+    niter_diff = int((it_k != it_p).sum())
+    abs_err = max(float((C_k - C_p).abs().max()), float((s_k - s_p).abs().max()))
+    err_C, err_s = float(gap_C.max()), float(gap_s.max())
+    check(err_C < MC_TOL["C"], f"mohr_coulomb kernel C differs from plain by {err_C:.3e} ({label})")
+    check(err_s < MC_TOL["sig"],
+          f"mohr_coulomb kernel sigma differs from plain by {err_s:.3e} ({label})")
+    check(niter_diff <= n // 1000, f"{niter_diff} lanes differ in niter ({label})")
+    call_ms = cuda_time_ms(lambda: mc_ops.mc_return_map(deps, sn, mat), 50, warmup=3)
+    ms = graph_time_ms(lambda: mc_ops.mc_return_map(deps, sn, mat), 20)
+    plain_ms = cuda_time_ms(lambda: mat.tangent_stress(deps, sn), 2, warmup=1)
+    bound_ms, bound_by = mc_bound(it_k)
+    return {"label": label, "n": n, "rel_err_C": err_C, "rel_err_sig": err_s,
+            "lanes_C_above_1e-10": int((gap_C > 1e-10).sum()),
+            "lanes_sig_above_1e-10": int((gap_s > 1e-10).sum()),
+            "niter_diff_lanes": niter_diff, "niter_max": int(it_k.max()),
+            "niter_sum": int(it_k.sum()), "plastic_lanes": int((it_k > 0).sum()),
+            "max_abs_err": abs_err, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def bench_mix(n, seed=0):
+    """bench.py:77-83: compressive normal strains, half the points sheared
+    past yield, zero initial stress; SoA f64 on the card."""
+    rng = np.random.default_rng(seed)
+    deps = rng.normal(scale=1e-3, size=(n, 4))
+    deps[:, :3] -= 1.5e-3
+    deps[: n // 2, 3] += 6e-3
+    d = torch.tensor(deps.T.copy(), dtype=torch.float64, device="cuda")
+    return d, torch.zeros_like(d)
+
+
+def kernel_inputs(fp, Du, sig_n):
+    """The (deps, sigma_n) that the step's constitutive map receives at the
+    iterate (Du, sig_n), recorded from one call."""
+    seen = []
+    inner = fp._vkernel
+
+    def record(deps, sn):
+        seen.append((deps.contiguous(), sn.contiguous()))
+        return inner(deps, sn)
+
+    fp._vkernel = record
+    try:
+        fp._constitutive(Du, sig_n)
+    finally:
+        fp._vkernel = inner
+    return seen[0]
+
+
+def first_solve_residuals(fp, load, rounds=(0, 1, 2)):
+    """Step 1 of the schedule is linear: the residual left by the dense
+    path's first update, relative to the load vector, after each number of
+    f64 refinement rounds."""
+    Du, sig = fp.zero_state()
+    C_tang, sigma = fp._constitutive(Du, sig)
+    mask = fp.statics["bc_mask"]
+    b = torch.where(mask, Du - fp.statics["bc_vals"],
+                    -fp._residual(sigma, load, fp._assemble_f()))
+    keep, out = fp._dense_refine, {}
+    try:
+        for k in rounds:
+            fp._dense_refine = k
+            x, _ = fp._dense_solve(C_tang, b)
+            out[k] = float((b - fp._bc_matvec(C_tang, x)).norm() / b.norm())
+    finally:
+        fp._dense_refine = keep
+    return {"load_norm": float(b.norm()), "rel_residual_by_rounds": out}
+
+
+def mc_main_path(report):
+    """Phase 6: the Mohr-Coulomb slope over the 52-step schedule with the
+    kernel and with the plain map.  Returns the kernel step, its states
+    before steps 50 and 51, and the kernel's launches on the main path."""
+    with open(RECORD) as f:
+        record = json.load(f)["newton_per_step"]
+    loads = pt.SLOPE_LOADS
+    fp_k = pt.mohr_coulomb_slope_step(25, 25, route="cuda")
+    fp_p = pt.mohr_coulomb_slope_step(25, 25, route="plain")
+    check((fp_k.n_dofs, fp_k.nc * fp_k.nq, fp_k.linear_solver) == (5202, 3750, "dense"),
+          "wrong slope size or solver")
+    first = first_solve_residuals(fp_k, float(loads[0]))
+    print(f"25x25 slope step 1, dense solve: |b| {first['load_norm']:.4e}, residual / |b| by "
+          f"refinement rounds {first['rel_residual_by_rounds']} (Newton atol 1e-8)", flush=True)
+    report["mc_first_solve"] = first
+    warm_up(fp_k, loads[0])
+    warm_up(fp_p, loads[0])
+    # the main path: the kernel's count starts at 0 here and is read after it
+    mc_ops.mc_return_map.launches = 0
+    Du_k, its_k, _, wall_k, states = run_loads(fp_k, loads, capture=(49, 50))
+    launches = mc_ops.mc_return_map.launches
+    print(f"25x25 slope, kernel: newton {its_k} ({sum(its_k)}), launches {launches}, "
+          f"{sum(wall_k):.2f} s, s/step {[round(w, 4) for w in wall_k]}", flush=True)
+    Du_p, its_p, _, wall_p, _ = run_loads(fp_p, loads)
+    check(mc_ops.mc_return_map.launches == launches, "the plain path launched the kernel")
+    print(f"25x25 slope, plain: newton {its_p} ({sum(its_p)}), {sum(wall_p):.2f} s, "
+          f"s/step {[round(w, 4) for w in wall_p]}", flush=True)
+    check(its_k == record, f"kernel Newton list {its_k} != record {record}")
+    check(its_p == record, f"plain Newton list {its_p} != record {record}")
+    check(launches == sum(its_k) + len(loads), f"{launches} launches for Newton {its_k}")
+    du_err = float((Du_k - Du_p).abs().max() / Du_p.abs().max())
+    check(du_err < 1e-8, f"kernel Du differs from plain by {du_err:.3e}")
+    report["mc_main"] = {"newton_kernel": its_k, "newton_plain": its_p, "launches": launches,
+                         "wall_kernel_s": wall_k, "wall_plain_s": wall_p,
+                         "du_rel_err": du_err}
+    return fp_k, states, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -254,6 +424,11 @@ def main():
     build_s = build_kernels()
     print(f"kernel build: {build_s:.1f} s ({', '.join(native.KERNELS)})", flush=True)
     report["build_s"] = build_s
+    report["ptxas"] = {}
+    for tag, log in native.BUILD_LOG.items():
+        usage = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        report["ptxas"][tag] = usage
+        print(f"{tag}: " + " | ".join(usage), flush=True)
 
     n_main = 3750 + (-3750 % 512)  # the main path's 3,750 points padded to the tile
     shapes = [kernel_phase(n) for n in (3750, n_main, 65536)]
@@ -271,9 +446,9 @@ def main():
     warm_up(fp64, MAIN_LOADS[0])
     warm_up(fp32, MAIN_LOADS[0])
     vm_ops.vonmises_return_map.launches = 0
-    Du64, its64, _, wall64 = run_loads(fp64, MAIN_LOADS)
+    Du64, its64, _, wall64, _ = run_loads(fp64, MAIN_LOADS)
     check(vm_ops.vonmises_return_map.launches == 0, "f64 path launched the f32 kernel")
-    Du32, its32, _, wall32 = run_loads(fp32, MAIN_LOADS)
+    Du32, its32, _, wall32, _ = run_loads(fp32, MAIN_LOADS)
     launches = vm_ops.vonmises_return_map.launches
     print(f"25x25 dense f64: newton {its64}, s/step {[round(w, 4) for w in wall64]}", flush=True)
     print(f"25x25 dense f32 kernel: newton {its32}, s/step {[round(w, 4) for w in wall32]}, "
@@ -310,11 +485,39 @@ def main():
     # phase 5: CG at 8x8
     fpcg = pt.von_mises_block_step(8, 8, "f64", linear_solver="cg")
     warm_up(fpcg, MAIN_LOADS[0])
-    _, itscg, cgs, wallcg = run_loads(fpcg, MAIN_LOADS)
+    _, itscg, cgs, wallcg, _ = run_loads(fpcg, MAIN_LOADS)
     print(f"8x8 cg f64: newton {itscg}, cg {cgs}, s/step {[round(w, 4) for w in wallcg]}",
           flush=True)
     check(itscg == [1, 5, 7], f"cg Newton list {itscg} != [1, 5, 7]")
     report["cg_8x8"] = {"newton": itscg, "cg": cgs, "wall_s": wallcg}
+
+    # phases 6-8: the Mohr-Coulomb main path, its kernel, its layers
+    mat = pt.MohrCoulombMaterial()
+    fp_k, states, mc_launches = mc_main_path(report)
+    mc_shapes = [mc_kernel_phase(mat, *kernel_inputs(fp_k, *states[49]), "step 50 iterate"),
+                 mc_kernel_phase(mat, *bench_mix(65536), "bench mix")]
+    for s in mc_shapes:
+        print(f"mohr_coulomb {s['label']} n={s['n']}: rel err C {s['rel_err_C']:.2e} "
+              f"({s['lanes_C_above_1e-10']} lanes > 1e-10), sigma {s['rel_err_sig']:.2e}, "
+              f"niter differs on {s['niter_diff_lanes']} lanes (max {s['niter_max']}, "
+              f"{s['plastic_lanes']} lanes iterate); kernel {s['ms'] * 1e3:.2f} us in a "
+              f"graph, {s['call_ms'] * 1e3:.2f} us a call, plain {s['plain_ms']:.2f} ms, "
+              f"bound {s['bound_ms'] * 1e3:.3f} us ({s['bound_by']})", flush=True)
+    report["mc_shapes"] = mc_shapes
+    Du, sig = states[49]
+    report["mc_layers"] = layer_phase(fp_k, Du, sig, pt.SLOPE_LOADS[49])
+    print("25x25 slope layers, step 50 (ms): "
+          + ", ".join(f"{k[:-3]} {v:.3f}" for k, v in report["mc_layers"].items()), flush=True)
+    Du, sig = states[50]
+    prof = profile_step(fp_k, Du, sig, pt.SLOPE_LOADS[50],
+                        os.path.join(OUT_DIR, "trace_mc_step.json"))
+    idle = "not measured" if prof["idle_share"] is None else f"{prof['idle_share']:.1%}"
+    print(f"25x25 slope step 51 under the profiler: wall {prof['wall_ms']:.2f} ms, device "
+          f"busy {prof['device_busy_ms']:.2f} ms (idle {idle}), "
+          f"{prof['device_events']} device events", flush=True)
+    for name, t in prof["top_ms"][:8]:
+        print(f"  {t:9.3f} ms  {name}", flush=True)
+    report["profile_mc_step"] = prof
 
     main_shape = shapes[1]
     kernels = [{
@@ -333,6 +536,22 @@ def main():
         "bound_by": main_shape["bound_by"],
         "library_ms": None,
         "n": main_shape["n"],
+    }, {
+        "name": "mc_return_map",
+        "route": "cuda",
+        "source": "dolfinx_external_operator_torch/csrc/mohr_coulomb.cu",
+        "replaces": "dolfinx_external_operator_tpu/models/mohr_coulomb.py:224",
+        "launches": mc_launches,
+        "max_abs_err": mc_shapes[0]["max_abs_err"],
+        "max_rel_err": max(max(s["rel_err_C"], s["rel_err_sig"]) for s in mc_shapes),
+        "ms": mc_shapes[0]["ms"],
+        "kernel_ms": mc_shapes[0]["ms"],
+        "call_ms": mc_shapes[0]["call_ms"],
+        "plain_ms": mc_shapes[0]["plain_ms"],
+        "bound_ms": mc_shapes[0]["bound_ms"],
+        "bound_by": mc_shapes[0]["bound_by"],
+        "library_ms": None,
+        "n": mc_shapes[0]["n"],
     }]
     report["kernels"] = kernels
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

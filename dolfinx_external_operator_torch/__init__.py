@@ -6,10 +6,16 @@ slice on PyTorch, with every Pallas kernel of the JAX package rewritten by
 hand for NVIDIA Hopper (``csrc/``).  It imports no JAX: the numpy host
 modules it needs are its own copies.
 
-This slice holds the fused plasticity load step
+Slice 1 holds the fused plasticity load step
 (``parallel.spmd.FusedPlasticityStep``, one device, dense and CG solvers)
 driven by the von Mises return map (``models.von_mises``), whose f32 form is
 the CUDA kernel ``ops.vonmises``.
+
+Slice 2 adds the main path: the Mohr-Coulomb slope load step
+(``problems.mohr_coulomb_slope_step``, the 52-step ``SLOPE_LOADS``) with the
+Abbo-Sloan surface (``ops.abbo_sloan``), the material and its plain f64
+return map (``models.mohr_coulomb``), and the return map as the CUDA kernel
+``ops.mohr_coulomb`` (one thread per Gauss point).
 
 Entry points take ``device=None``, meaning ``"cuda"``; without a card they
 raise unless the caller passes ``device="cpu"``.
@@ -37,19 +43,28 @@ from .assembly import locate_dofs_geometrical, locate_dofs_topological  # noqa: 
 from .elements import element, quadrature_element  # noqa: E402
 from .functionspace import functionspace  # noqa: E402
 from .mesh import Mesh, create_rectangle, create_unit_square  # noqa: E402
+from .models.mohr_coulomb import MohrCoulombMaterial  # noqa: E402
 from .models.von_mises import (  # noqa: E402
     VonMisesMaterial,
     batched_kernel_f32,
     batched_kernel_f64,
     return_mapping_kernel,
 )
+from .ops.mohr_coulomb import mc_return_map  # noqa: E402
 from .ops.vonmises import vonmises_return_map, vonmises_return_map_reference  # noqa: E402
 from .parallel.spmd import FusedPlasticityStep  # noqa: E402
-from .problems import build_plasticity_block, von_mises_block_step  # noqa: E402
+from .problems import (  # noqa: E402
+    SLOPE_LOADS,
+    build_plasticity_block,
+    mohr_coulomb_slope_step,
+    von_mises_block_step,
+)
 
 __all__ = [
     "FusedPlasticityStep",
     "Mesh",
+    "MohrCoulombMaterial",
+    "SLOPE_LOADS",
     "VonMisesMaterial",
     "batched_kernel_f32",
     "batched_kernel_f64",
@@ -60,6 +75,8 @@ __all__ = [
     "functionspace",
     "locate_dofs_geometrical",
     "locate_dofs_topological",
+    "mc_return_map",
+    "mohr_coulomb_slope_step",
     "quadrature_element",
     "resolve_device",
     "return_mapping_kernel",

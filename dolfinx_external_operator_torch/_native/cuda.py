@@ -21,9 +21,10 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
-# no --use_fast_math: f32 sqrt and division stay IEEE-rounded, as on the TPU
+# no --use_fast_math: f32 sqrt, division and trig stay IEEE-accurate, as on
+# the TPU; -Xptxas -v reports registers and spills into BUILD_LOG
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 GXX_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC"]
 
 _VP = ctypes.c_void_p
@@ -34,11 +35,18 @@ _FL = ctypes.c_float
 KERNELS = {
     "vonmises": ("vonmises.cu", "vonmises.cuh", "vonmises_return_map_launch",
                  [_VP] * 6 + [_LL] + [_FL] * 4 + [_VP]),
+    "mohr_coulomb": ("mohr_coulomb.cu", "mohr_coulomb.cuh", "mohr_coulomb_launch",
+                     [_VP] * 8 + [_LL] + [_VP] * 2),
 }
 _HOST = {
     "vonmises": ("vonmises_host.cpp", "vonmises.cuh", "vonmises_return_map_host",
                  [_VP] * 6 + [_LL] + [_FL] * 4),
+    "mohr_coulomb": ("mohr_coulomb_host.cpp", "mohr_coulomb.cuh", "mohr_coulomb_host",
+                     [_VP] * 8 + [_LL] + [_VP]),
 }
+# what each compiler printed for a library built by this process (nvcc's
+# -Xptxas -v: registers, stack and spills of each kernel)
+BUILD_LOG: dict[str, str] = {}
 
 _loaded: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
@@ -68,6 +76,7 @@ def _compile(compiler: list[str], flags: list[str], sources: list[str], tag: str
     if res.returncode != 0:
         raise RuntimeError(f"kernel build failed: {' '.join(cmd)}\n{res.stdout}{res.stderr}")
     os.replace(tmp, out)
+    BUILD_LOG[tag] = res.stdout + res.stderr
     return out
 
 

@@ -15,7 +15,12 @@ import torch
 
 from . import resolve_device
 
-__all__ = ["statics_from_numpy", "state_from_numpy"]
+__all__ = ["MOHR_COULOMB_PARAMS", "mohr_coulomb_from_params", "statics_from_numpy",
+           "state_from_numpy"]
+
+# the constructor arguments of MohrCoulombMaterial, in both packages
+MOHR_COULOMB_PARAMS = ("E", "nu", "c", "phi", "psi", "theta_T", "a", "tol", "max_iter",
+                       "n_polish", "max_iter32", "tol32")
 
 # dtype of each statics entry (f64 where the JAX package is f64)
 _STATICS_DTYPES = {
@@ -44,3 +49,21 @@ def state_from_numpy(Du, sigma_n, device=None):
     dev = resolve_device(device)
     return (torch.tensor(np.asarray(Du), dtype=torch.float64, device=dev),
             torch.tensor(np.asarray(sigma_n), dtype=torch.float64, device=dev))
+
+
+def mohr_coulomb_from_params(d, device=None):
+    """The port's ``MohrCoulombMaterial`` with the 12 constants of ``d``
+    (keys ``MOHR_COULOMB_PARAMS``, e.g. the attributes of a JAX
+    ``MohrCoulombMaterial``), taken as plain Python numbers so that both
+    packages compute with identical constants.  ``device`` is checked as
+    every entry point checks it (``None`` means CUDA); the material itself
+    computes on the device of the tensors it is given."""
+    from .models.mohr_coulomb import MohrCoulombMaterial
+
+    resolve_device(device)
+    missing = set(MOHR_COULOMB_PARAMS) - set(d)
+    if missing:
+        raise KeyError(f"Mohr-Coulomb constants lack {sorted(missing)}")
+    ints = ("max_iter", "n_polish", "max_iter32")
+    return MohrCoulombMaterial(**{k: int(d[k]) if k in ints else float(d[k])
+                                  for k in MOHR_COULOMB_PARAMS})

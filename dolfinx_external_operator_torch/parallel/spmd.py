@@ -135,13 +135,15 @@ class FusedPlasticityStep:
     batched_kernel : the SoA constitutive map ``(deps (4, n), sigma_n
         (4, n)) -> (C_tang (4, 4, n), sigma (4, n))`` over all n Gauss
         points (``models.von_mises.batched_kernel_f64`` or
-        ``batched_kernel_f32``).
+        ``batched_kernel_f32``, ``MohrCoulombMaterial.batched_kernel``).
     bc_dofs, bc_vals : Dirichlet data on the displacement space.
     body_dir : direction of the unit body force; ``load`` scales it.
     device : ``None`` -> ``"cuda"`` (raises without a card), or ``"cpu"``.
     linear_solver : ``"cg"``, ``"dense"`` or ``"auto"`` (dense up to 10k
         dofs).  The JAX package's ``"bcr"``, ``"mg"`` and ``"elastic"`` are
         not ported yet and raise ``NotImplementedError``.
+    dense_refine : f64 refinement rounds after the dense path's f32 solve
+        (the JAX package's ``_dense_refine``, default 1).
     """
 
     def __init__(self, mesh: Mesh, V, S, batched_kernel, bc_dofs, bc_vals=None,
@@ -162,7 +164,7 @@ class FusedPlasticityStep:
 
     def _setup(self, st_np, batched_kernel, device, newton_atol=1e-8, newton_rtol=1e-8,
                newton_max_it=100, cg_rtol=1e-13, cg_maxiter=10000, linear_solver="cg",
-               device_mesh=None):
+               device_mesh=None, dense_refine=1):
         self.device = resolve_device(device)
         if device_mesh is not None:
             raise NotImplementedError(
@@ -202,8 +204,8 @@ class FusedPlasticityStep:
         # from where the statics landed (spmd.py:802-804)
         self._dense_fact = "lu" if dev.type == "cpu" else "chol"
         # f64 refinement rounds on top of the equilibrated f32 solve (the
-        # JAX package's default, validated Newton-iterate-identical)
-        self._dense_refine = 1
+        # JAX package's default is 1, validated Newton-iterate-identical)
+        self._dense_refine = int(dense_refine)
 
     def _setup_dense_asm(self, dofmap_p):
         """Host precompute of the duplicate-free dense-assembly map: the

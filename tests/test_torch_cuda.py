@@ -1,4 +1,4 @@
-"""Card-only tests of the port's CUDA kernel; each skips without a GPU.
+"""Card-only tests of the port's CUDA kernels; each skips without a GPU.
 
 This file imports no JAX, so that it runs on a machine that has PyTorch
 with CUDA but no JAX (``tests/conftest.py`` imports JAX, hence
@@ -12,6 +12,7 @@ import torch
 
 import dolfinx_external_operator_torch as pt
 from dolfinx_external_operator_torch.models import von_mises as vm
+from dolfinx_external_operator_torch.ops import mohr_coulomb as mc_ops
 from dolfinx_external_operator_torch.ops import vonmises as ops
 
 pytestmark = pytest.mark.cuda
@@ -77,3 +78,49 @@ def test_cuda_fused_step_through_kernel(cuda):
     assert float((Du32 - Du64).abs().max() / Du64.abs().max()) < 1e-3
     Du32_again, its32_again = _run(fp32)
     assert its32_again == its32 and torch.equal(Du32_again, Du32)
+
+
+def test_cuda_mohr_coulomb_kernel_matches_plain(cuda):
+    """K1 against the plain f64 map on the card, on the bench strain mix
+    (bench.py:77-83) at the main path's 3,750 points: C within 1e-6 and
+    sigma within 1e-7 of their largest entries, per lane, and the lanes'
+    iteration counts equal but for a few lanes that end next to the
+    polish tolerance (1e-8 of the lane's scale; chip_smoke.MC_TOL)."""
+    n = 3750
+    rng = np.random.default_rng(0)
+    deps = rng.normal(scale=1e-3, size=(n, 4))
+    deps[:, :3] -= 1.5e-3
+    deps[: n // 2, 3] += 6e-3
+    d = torch.tensor(deps.T.copy(), dtype=torch.float64, device=cuda)
+    s = torch.zeros_like(d)
+    mat = pt.MohrCoulombMaterial()
+    before = mc_ops.mc_return_map.launches
+    C, sig, niter, yielding, norm_res, dlambda = mc_ops.mc_return_map(d, s, mat)
+    C_r, (sig_r, niter_r, yielding_r, *_) = mat.tangent_stress(d, s)
+    torch.cuda.synchronize()
+    assert mc_ops.mc_return_map.launches == before + 1
+    C_r = C_r.reshape(16, n)
+    assert float(((C - C_r).abs().amax(0) / C_r.abs().max()).max()) < 1e-6
+    assert float(((sig - sig_r).abs().amax(0) / sig_r.abs().max()).max()) < 1e-7
+    assert int((niter != niter_r).sum()) <= n // 1000
+    assert float((yielding - yielding_r).abs().max()) < 1e-12
+
+
+def test_cuda_slope_step_through_kernel(cuda):
+    """The Mohr-Coulomb slope step on the card, 4x4, loads linspace(2, 14,
+    3): the kernel route gives the plain route's Newton list [1, 4, 4] and
+    Du within 1e-8, launching the kernel once per Newton pass."""
+    loads = np.linspace(2, 14, 3)
+    result = {}
+    for route in ("plain", "cuda"):
+        fp = pt.mohr_coulomb_slope_step(4, 4, route=route)
+        Du, sig = fp.zero_state()
+        before, its = mc_ops.mc_return_map.launches, []
+        for load in loads:
+            Du, sig, _, it, _ = fp.run_step(Du, sig, load)
+            its.append(it)
+        result[route] = (Du, its, mc_ops.mc_return_map.launches - before)
+    (Du_p, its_p, n_p), (Du_k, its_k, n_k) = result["plain"], result["cuda"]
+    assert its_p == its_k == [1, 4, 4]
+    assert n_p == 0 and n_k == sum(its_k) + len(its_k)
+    assert float((Du_k - Du_p).abs().max() / Du_p.abs().max()) < 1e-8

@@ -97,12 +97,15 @@ def test_plasticity_block_25x25_bitwise():
 
 
 def test_port_imports_no_jax():
-    """The port, chip_smoke's module-level code and the card-only test file
+    """The port (with the Mohr-Coulomb material, surface and kernel
+    wrapper), chip_smoke's module-level code and the card-only test file
     import no JAX."""
     code = ("import sys; import dolfinx_external_operator_torch, chip_smoke; "
             "sys.path.insert(0, 'tests'); import test_torch_cuda; "
             "from dolfinx_external_operator_torch.parallel import spmd; "
             "from dolfinx_external_operator_torch import convert, problems; "
+            "from dolfinx_external_operator_torch.models import mohr_coulomb; "
+            "from dolfinx_external_operator_torch.ops import abbo_sloan, mohr_coulomb as mc_ops; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
             "'dolfinx_external_operator_tpu'))); print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -1,0 +1,104 @@
+"""Print the measured parity of the port's Mohr-Coulomb slice against the
+JAX package, on the CPU: the numbers that ``test_torch_mohr_coulomb.py``
+and ``test_torch_slope_step.py`` bound.
+
+    JAX_PLATFORMS=cpu python tests/torch_parity_report.py
+
+Prints one JSON object: the surface's largest relative gaps (f32 and
+f64), the return map's per-lane gaps on the bench strain mix (port against
+JAX, kernel body against port), the 4x4 slope's Newton lists and Du gaps,
+and the residual that the 25x25 slope's first (linear) dense solve leaves
+after 0, 1 and 2 refinement rounds on the CPU.
+"""
+import json
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import conftest  # noqa: E402,F401  (JAX on the CPU)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+import test_torch_mohr_coulomb as tm  # noqa: E402
+import test_torch_slope_step as ts  # noqa: E402
+
+import dolfinx_external_operator_torch as pt  # noqa: E402
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def surface():
+    out = {}
+    states = tm.lode_states()
+    for dt in ("float64", "float32"):
+        tj, hj = tm.make_surface_j(tm.C_, tm.PHI, tm.A_COEF, tm.THETA_T, getattr(jnp, dt))
+        tt, ht = tm.make_surface_t(tm.C_, tm.PHI, tm.A_COEF, tm.THETA_T, getattr(torch, dt))
+        sj = jnp.asarray(states, dtype=getattr(jnp, dt))
+        f_j, df_j = jax.vmap(tj)(sj)
+        x = torch.tensor(states.T.copy(), dtype=getattr(torch, dt))
+        f_t, df_t = tt(x)
+        out[dt] = {"f": _rel(f_t, f_j), "grad": _rel(df_t.T, df_j),
+                   "hess": _rel(ht(x).permute(2, 0, 1), jax.vmap(hj)(sj))}
+    return out
+
+
+def return_map():
+    mj, mt = tm.MatJ(), tm.MatT()
+    deps, sn = tm._bench_mix(tm.N_MIX)
+    Cj, sj, stj = mj.tangent_and_stress(jnp.asarray(deps).ravel(), jnp.asarray(sn).ravel())
+    d, s = tm._soa(deps), tm._soa(sn)
+    plain = tm.ops_t.mc_return_map(d, s, mt)
+    body = tm.ops_t.mc_return_map_host(d, s, mt)
+    out = {"n": tm.N_MIX, "plastic_lanes": int((plain[2] > 0).sum()),
+           "niter_max": int(plain[2].max())}
+    for name, (C, sig, it), (C_ref, s_ref, it_ref) in (
+            ("port_vs_jax", (plain[0].T.numpy(), plain[1].T.numpy(), plain[2].numpy()),
+             (np.asarray(Cj), np.asarray(sj), np.asarray(stj["niter"]))),
+            ("body_vs_port", (body[0].T.numpy(), body[1].T.numpy(), body[2].numpy()),
+             (plain[0].T.numpy(), plain[1].T.numpy(), plain[2].numpy()))):
+        gC, gs = tm._lane_gaps(C, C_ref, 16), tm._lane_gaps(sig, s_ref, 4)
+        out[name] = {"C_max": float(gC.max()), "C_lanes_above_1e-10": int((gC > 1e-10).sum()),
+                     "sig_max": float(gs.max()), "sig_lanes_above_1e-10": int((gs > 1e-10).sum()),
+                     "niter_diff_lanes": int((np.asarray(it) != np.asarray(it_ref)).sum())}
+    return out
+
+
+def slope_4x4():
+    out = {}
+    for solver, refine in (("dense", 2), ("cg", None), ("dense_one_round", 1)):
+        name = solver.split("_")[0]
+        du_j, _, its_j = ts._schedule(ts._jax_step(name, refine))
+        du_t, _, its_t = ts._schedule(ts._port_step(name, refine))
+        out[solver] = {"newton_jax": its_j, "newton_port": its_t,
+                       "du_rel": [_rel(a, b) for a, b in zip(du_t, du_j)]}
+    return out
+
+
+def first_solve_25x25():
+    torch.set_num_threads(4)
+    fp = pt.mohr_coulomb_slope_step(25, 25, route="plain", device="cpu")
+    Du, sig = fp.zero_state()
+    C_tang, sigma = fp._constitutive(Du, sig)
+    mask = fp.statics["bc_mask"]
+    b = torch.where(mask, Du - fp.statics["bc_vals"],
+                    -fp._residual(sigma, float(pt.SLOPE_LOADS[0]), fp._assemble_f()))
+    out = {"load_norm": float(b.norm())}
+    for k in (0, 1, 2):
+        fp._dense_refine = k
+        x, _ = fp._dense_solve(C_tang, b)
+        out[f"rounds_{k}"] = float((b - fp._bc_matvec(C_tang, x)).norm() / b.norm())
+    return out
+
+
+if __name__ == "__main__":
+    torch.set_num_threads(2)
+    print(json.dumps({"surface": surface(), "return_map": return_map(),
+                      "slope_4x4": slope_4x4(), "first_solve_25x25_cpu": first_solve_25x25()}))
