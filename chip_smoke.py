@@ -7,11 +7,13 @@ Phases, in order; any failed check exits non-zero without the ``ok`` line:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every hand-written kernel from ``dolfinx_external_operator_torch/
-   csrc`` (one ``nvcc`` per source, all started together);
+   csrc`` (one ``nvcc`` per source, all started together) and print each
+   kernel function's registers and spills;
 3. each kernel against its plain PyTorch version on the card, on the
    strain/stress mix of ``tests/test_pallas_ops.py`` at the main path's
    shape and at 65,536 points, then timed with CUDA events: per call as the
-   main path calls it, and as device time inside a CUDA graph;
+   main path calls it, and as device time inside a CUDA graph; beside it,
+   an empty kernel's time in a CUDA graph, the floor under any launch;
 4. the von Mises path at full size: the fused load step on the 25x25 P2
    block (5,202 dofs, 3,750 Gauss points), loads (200, 400, 600), dense
    solver; (a) with the f64 plain return map, which must give the Newton
@@ -30,7 +32,11 @@ Phases, in order; any failed check exits non-zero without the ``ok`` line:
    launched once per Newton pass (updates + 52);
 7. the Mohr-Coulomb kernel against its plain version on the card, on the
    strain mix of ``bench.py:77-83`` at 65,536 points and on the real
-   iterate of step 50's first Newton pass, then timed as in phase 3;
+   iterate of step 50's first Newton pass, then timed as in phase 3, and
+   each of its two passes' device time from the profiler's trace of 20
+   calls (``chiprun_out/trace_mc_passes_*.json``); the lanes that pass A
+   listed, and how far the iteration counts of the 4 points that a warp of
+   pass B takes at once spread;
 8. where a main-path step's time goes: the layers of step 50's first
    Newton pass, and step 51 (7 updates) under ``torch.profiler`` (trace in
    ``chiprun_out/trace_mc_step.json``).
@@ -43,6 +49,7 @@ no CUDA device is present.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -66,8 +73,10 @@ F64_FLOPS_PER_S = 34e12
 # predictor 16, deviator 6, sigma_eq 9, yield and dp 6, beta/scale/n 8,
 # stress 8, coef 5, tangent 16 x 5
 VM_FLOPS_PER_POINT = 138
-# Operations of the Mohr-Coulomb body (csrc/mohr_coulomb.cuh), counted by
-# hand, one per add, multiply, divide, square root or trig call: terms()
+# Operations of the Mohr-Coulomb algorithm (csrc/mohr_coulomb.cuh), counted
+# by hand on one point's work done once (what a tile of the kernel repeats
+# on several threads, the 5x5 solve and the Dual values, is not counted),
+# one per add, multiply, divide, square root or trig call: terms()
 # 131 (value and gradient); on Dual numbers 5x that (a value and four
 # tangents); residual = terms + 44; Jacobian = Dual terms + 170 (C Hg,
 # C grad g); 5x5 solve 125 with one right-hand side, 260 with four.  A
@@ -118,6 +127,43 @@ def build_kernels():
         for fut in futures.values():
             fut.result()
     return time.perf_counter() - t0
+
+
+def kernel_name(mangled):
+    """The last name of an Itanium-mangled kernel symbol (``_ZN...E``)."""
+    rest, names = mangled[3:] if mangled.startswith("_ZN") else mangled[2:], []
+    while (m := re.match(r"\d+", rest)):
+        k = int(m.group())
+        names.append(rest[m.end():m.end() + k])
+        rest = rest[m.end() + k:]
+    return names[-1] if names else mangled
+
+
+def ptxas_usage(log):
+    """Per kernel function of an ``nvcc -Xptxas -v`` log: registers,
+    spill stores and loads and stack frame, in bytes."""
+    usage, name = {}, None
+    for line in log.splitlines():
+        if (m := re.search(r"Compiling entry function '([^']+)'", line)):
+            name = kernel_name(m.group(1))
+            usage[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                                      r"(\d+) bytes spill loads", line)):
+            usage[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            usage[name]["registers"] = int(m.group(1))
+    return usage
+
+
+def empty_graph_ms(reps=200):
+    """An empty kernel's time inside a CUDA graph: the launch floor."""
+    fn = native.cuda_function("empty")
+
+    def run():
+        check(fn(torch.cuda.current_stream().cuda_stream) == 0, "empty kernel launch failed")
+
+    return graph_time_ms(run, reps)
 
 
 def vm_inputs(n, seed=3):
@@ -256,15 +302,16 @@ def layer_phase(fp, Du, sig_n, load):
     }
 
 
-def profile_step(fp, Du, sig_n, load, path):
-    """One load step under torch.profiler: wall time, the card's busy time
-    (kernels, copies and fills in the trace) and the kernels that take it."""
+def traced(fn, path):
+    """Run ``fn`` under torch.profiler and write its trace to ``path``:
+    the wall seconds, the milliseconds of the card's events (kernels,
+    copies and fills) by name, and their count."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fp.run_step(Du, sig_n, load)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     prof.export_chrome_trace(path)
@@ -274,11 +321,29 @@ def profile_step(fp, Du, sig_n, load, path):
     by_name = {}
     for e in dev:
         by_name[e["name"][:100]] = by_name.get(e["name"][:100], 0.0) + e["dur"] * 1e-3
+    return wall, by_name, len(dev)
+
+
+def profile_step(fp, Du, sig_n, load, path):
+    """One load step under torch.profiler: wall time, the card's busy time
+    and the kernels that take it."""
+    wall, by_name, events = traced(lambda: fp.run_step(Du, sig_n, load), path)
     busy_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
-            "idle_share": 1.0 - busy_ms / (wall * 1e3) if dev else None,
-            "device_events": len(dev), "top_ms": top}
+            "idle_share": 1.0 - busy_ms / (wall * 1e3) if events else None,
+            "device_events": events, "top_ms": top}
+
+
+def pass_times_ms(fn, path, reps=20):
+    """Device milliseconds per call of the Mohr-Coulomb kernel's two passes
+    (by kernel name) in the profiler's trace of ``reps`` calls of ``fn``."""
+    fn()
+    _, by_name, _ = traced(lambda: [fn() for _ in range(reps)], path)
+    times = [sum(ms for name, ms in by_name.items() if kernel in name) / reps
+             for kernel in ("mc_trial_pass", "mc_plastic_pass")]
+    check(all(t > 0.0 for t in times), f"no pass of the kernel in the trace: {sorted(by_name)}")
+    return times
 
 
 def mc_bound(niter):
@@ -293,12 +358,27 @@ def mc_bound(niter):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def tile_spread(it_k, work, listed):
+    """How the listed lanes' iteration counts spread over the groups of 4
+    list entries that one warp of pass B takes at once: the histogram of
+    niter, and the share of the warps' lockstep iterations that do work."""
+    lst = work[mc_ops.LIST_OFFSET:mc_ops.LIST_OFFSET + listed].long()
+    it = it_k[lst].long()
+    groups = torch.nn.functional.pad(it, (0, -listed % 4)).view(-1, 4)
+    lockstep = int(groups.amax(1).sum()) * 4
+    return {"niter_hist": torch.bincount(it).tolist() if listed else [],
+            "warp_groups": groups.shape[0],
+            "lockstep_share": int(it.sum()) / lockstep if lockstep else None}
+
+
 def mc_kernel_phase(mat, deps, sn, label):
     """The Mohr-Coulomb kernel against the plain version on the same CUDA
-    tensors (per-lane gaps relative to the largest entry), then timed."""
+    tensors (per-lane gaps relative to the largest entry), then timed,
+    whole and pass by pass."""
     n = deps.shape[1]
-    C_k, s_k, it_k, *_ = mc_ops.mc_return_map(deps, sn, mat)
-    C_p, (s_p, it_p, *_) = mat.tangent_stress(deps, sn)
+    first = mc_ops.mc_return_map(deps, sn, mat)
+    C_k, s_k, it_k, y_k, *_ = first
+    C_p, (s_p, it_p, y_p, *_) = mat.tangent_stress(deps, sn)
     C_p = C_p.reshape(16, n)
     torch.cuda.synchronize()
     for name, t in (("C", C_k), ("sig", s_k)):
@@ -312,17 +392,35 @@ def mc_kernel_phase(mat, deps, sn, label):
     check(err_s < MC_TOL["sig"],
           f"mohr_coulomb kernel sigma differs from plain by {err_s:.3e} ({label})")
     check(niter_diff <= n // 1000, f"{niter_diff} lanes differ in niter ({label})")
+    check(float((y_k - y_p).abs().max()) < 1e-12, f"mohr_coulomb yielding differs ({label})")
+    # pass A's list: the plastic lanes and the elastic ones that take a
+    # Newton step
+    outs, work = mc_ops._outputs(n, deps.device), mc_ops._workspace(n, deps.device)
+    mc_ops._launch(deps, sn, mat, outs, work)
+    torch.cuda.synchronize()
+    listed, plastic = int(work[0]), int((y_k > 0).sum())
+    check(listed == int(((y_k > 0) | (it_k > 0)).sum()),
+          f"pass A listed {listed} lanes, {plastic} plastic ({label})")
+    check(all(torch.equal(a, b) for a, b in zip(outs, first)),
+          f"mohr_coulomb kernel not bitwise repeatable ({label})")
     call_ms = cuda_time_ms(lambda: mc_ops.mc_return_map(deps, sn, mat), 50, warmup=3)
     ms = graph_time_ms(lambda: mc_ops.mc_return_map(deps, sn, mat), 20)
+    pass_a_ms, pass_b_ms = pass_times_ms(
+        lambda: mc_ops.mc_return_map(deps, sn, mat),
+        os.path.join(OUT_DIR, f"trace_mc_passes_{label.replace(' ', '_')}.json"))
     plain_ms = cuda_time_ms(lambda: mat.tangent_stress(deps, sn), 2, warmup=1)
     bound_ms, bound_by = mc_bound(it_k)
-    return {"label": label, "n": n, "rel_err_C": err_C, "rel_err_sig": err_s,
-            "lanes_C_above_1e-10": int((gap_C > 1e-10).sum()),
-            "lanes_sig_above_1e-10": int((gap_s > 1e-10).sum()),
-            "niter_diff_lanes": niter_diff, "niter_max": int(it_k.max()),
-            "niter_sum": int(it_k.sum()), "plastic_lanes": int((it_k > 0).sum()),
-            "max_abs_err": abs_err, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    res = {"label": label, "n": n, "rel_err_C": err_C, "rel_err_sig": err_s,
+           "lanes_C_above_1e-10": int((gap_C > 1e-10).sum()),
+           "lanes_sig_above_1e-10": int((gap_s > 1e-10).sum()),
+           "niter_diff_lanes": niter_diff, "niter_max": int(it_k.max()),
+           "niter_sum": int(it_k.sum()), "iterating_lanes": int((it_k > 0).sum()),
+           "plastic_lanes": plastic, "listed_lanes": listed,
+           **tile_spread(it_k, work, listed),
+           "max_abs_err": abs_err, "ms": ms, "call_ms": call_ms, "pass_a_ms": pass_a_ms,
+           "pass_b_ms": pass_b_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by}
+    return res
 
 
 def bench_mix(n, seed=0):
@@ -426,9 +524,12 @@ def main():
     report["build_s"] = build_s
     report["ptxas"] = {}
     for tag, log in native.BUILD_LOG.items():
-        usage = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        usage = ptxas_usage(log)
         report["ptxas"][tag] = usage
-        print(f"{tag}: " + " | ".join(usage), flush=True)
+        for fn, u in usage.items():
+            print(f"{tag} {fn}: {u.get('registers')} registers, {u.get('spill_stores')} B spill "
+                  f"stores, {u.get('spill_loads')} B spill loads, {u.get('stack')} B stack",
+                  flush=True)
 
     n_main = 3750 + (-3750 % 512)  # the main path's 3,750 points padded to the tile
     shapes = [kernel_phase(n) for n in (3750, n_main, 65536)]
@@ -438,6 +539,10 @@ def main():
               f"{s['call_ms'] * 1e3:.2f} us a call, plain "
               f"{s['plain_ms'] * 1e3:.2f} us, bound {s['bound_ms'] * 1e3:.3f} us", flush=True)
     report["vonmises_shapes"] = shapes
+    floor_ms = empty_graph_ms()
+    print(f"empty kernel in a graph: {floor_ms * 1e3:.2f} us (von Mises kernel at n={n_main}: "
+          f"{shapes[1]['ms'] * 1e3:.2f} us)", flush=True)
+    report["empty_graph_ms"] = floor_ms
 
     # phase 4: the main path; counts start at 0 here and are read after it
     fp64 = pt.von_mises_block_step(25, 25, "f64", linear_solver="dense")
@@ -500,9 +605,14 @@ def main():
         print(f"mohr_coulomb {s['label']} n={s['n']}: rel err C {s['rel_err_C']:.2e} "
               f"({s['lanes_C_above_1e-10']} lanes > 1e-10), sigma {s['rel_err_sig']:.2e}, "
               f"niter differs on {s['niter_diff_lanes']} lanes (max {s['niter_max']}, "
-              f"{s['plastic_lanes']} lanes iterate); kernel {s['ms'] * 1e3:.2f} us in a "
-              f"graph, {s['call_ms'] * 1e3:.2f} us a call, plain {s['plain_ms']:.2f} ms, "
-              f"bound {s['bound_ms'] * 1e3:.3f} us ({s['bound_by']})", flush=True)
+              f"{s['plastic_lanes']} plastic, {s['iterating_lanes']} iterate, "
+              f"{s['listed_lanes']} listed for pass B); kernel "
+              f"{s['ms'] * 1e3:.2f} us in a graph (traced: pass A {s['pass_a_ms'] * 1e3:.2f}, "
+              f"pass B {s['pass_b_ms'] * 1e3:.2f}), {s['call_ms'] * 1e3:.2f} us a call, plain "
+              f"{s['plain_ms']:.2f} ms, bound {s['bound_ms'] * 1e3:.3f} us ({s['bound_by']})",
+              flush=True)
+        print(f"  niter of the listed lanes {s['niter_hist']}, {s['warp_groups']} warp groups, "
+              f"lockstep share {s['lockstep_share']}", flush=True)
     report["mc_shapes"] = mc_shapes
     Du, sig = states[49]
     report["mc_layers"] = layer_phase(fp_k, Du, sig, pt.SLOPE_LOADS[49])
@@ -536,6 +646,7 @@ def main():
         "bound_by": main_shape["bound_by"],
         "library_ms": None,
         "n": main_shape["n"],
+        "empty_graph_ms": floor_ms,
     }, {
         "name": "mc_return_map",
         "route": "cuda",
@@ -546,6 +657,8 @@ def main():
         "max_rel_err": max(max(s["rel_err_C"], s["rel_err_sig"]) for s in mc_shapes),
         "ms": mc_shapes[0]["ms"],
         "kernel_ms": mc_shapes[0]["ms"],
+        "pass_a_ms": mc_shapes[0]["pass_a_ms"],
+        "pass_b_ms": mc_shapes[0]["pass_b_ms"],
         "call_ms": mc_shapes[0]["call_ms"],
         "plain_ms": mc_shapes[0]["plain_ms"],
         "bound_ms": mc_shapes[0]["bound_ms"],

@@ -4,9 +4,10 @@ Each kernel source under ``csrc/`` is compiled at first use into a shared
 library with a plain C interface and loaded with ``ctypes``: ``nvcc`` for
 the CUDA kernels (``sm_90a``), ``g++`` for the CPU build of a kernel's
 per-point body that the tests compare with the plain PyTorch version.  The
-library's file name carries a hash of its sources and flags, so an edited
-source is always rebuilt and two processes never write the same file.
-A failed build raises.
+library's file name carries a hash of its flags and of every file it is
+built from (the tables below list each source with the headers it
+includes), so an edited source or header is always rebuilt and two
+processes never write the same file.  A failed build raises.
 """
 
 from __future__ import annotations
@@ -30,19 +31,22 @@ GXX_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC"]
 _VP = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _FL = ctypes.c_float
+_INT = ctypes.c_int
 
-# name -> (source, header, C function, argtypes)
+# name -> (files it is built from, the compiled one first; C function;
+# argtypes)
 KERNELS = {
-    "vonmises": ("vonmises.cu", "vonmises.cuh", "vonmises_return_map_launch",
+    "vonmises": (("vonmises.cu", "vonmises.cuh"), "vonmises_return_map_launch",
                  [_VP] * 6 + [_LL] + [_FL] * 4 + [_VP]),
-    "mohr_coulomb": ("mohr_coulomb.cu", "mohr_coulomb.cuh", "mohr_coulomb_launch",
-                     [_VP] * 8 + [_LL] + [_VP] * 2),
+    "mohr_coulomb": (("mohr_coulomb.cu", "mohr_coulomb.cuh"), "mohr_coulomb_launch",
+                     [_VP] * 9 + [_LL] + [_VP] * 2),
+    "empty": (("empty.cu",), "empty_launch", [_VP]),
 }
 _HOST = {
-    "vonmises": ("vonmises_host.cpp", "vonmises.cuh", "vonmises_return_map_host",
+    "vonmises": (("vonmises_host.cpp", "vonmises.cuh"), "vonmises_return_map_host",
                  [_VP] * 6 + [_LL] + [_FL] * 4),
-    "mohr_coulomb": ("mohr_coulomb_host.cpp", "mohr_coulomb.cuh", "mohr_coulomb_host",
-                     [_VP] * 8 + [_LL] + [_VP]),
+    "mohr_coulomb": (("mohr_coulomb_host.cpp", "mohr_coulomb.cuh"), "mohr_coulomb_host",
+                     [_VP] * 8 + [_LL] + [_VP] + [_INT]),
 }
 # what each compiler printed for a library built by this process (nvcc's
 # -Xptxas -v: registers, stack and spills of each kernel)
@@ -59,7 +63,9 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set NVCC or CUDA_HOME, or put nvcc on PATH")
 
 
-def _compile(compiler: list[str], flags: list[str], sources: list[str], tag: str) -> str:
+def _compile(compiler: list[str], flags: list[str], sources, tag: str) -> str:
+    """Build ``sources[0]`` (which includes the rest) from ``CSRC_DIR``
+    into a shared library under ``BUILD_DIR``; returns its path."""
     digest = hashlib.sha256()
     for part in flags:
         digest.update(part.encode())
@@ -91,8 +97,8 @@ def cuda_function(name: str):
     """The ``extern "C"`` launcher of kernel ``name``, built with nvcc."""
     key = ("cuda", name)
     if key not in _loaded:
-        src, hdr, fn, argtypes = KERNELS[name]
-        path = _compile([find_nvcc()], NVCC_FLAGS, [src, hdr], f"{name}_cuda")
+        sources, fn, argtypes = KERNELS[name]
+        path = _compile([find_nvcc()], NVCC_FLAGS, sources, f"{name}_cuda")
         _loaded[key] = _bind(path, fn, argtypes, ctypes.c_int)
     return _loaded[key]
 
@@ -101,10 +107,10 @@ def host_function(name: str):
     """The CPU build of kernel ``name``'s per-point body, built with g++."""
     key = ("host", name)
     if key not in _loaded:
-        src, hdr, fn, argtypes = _HOST[name]
+        sources, fn, argtypes = _HOST[name]
         cxx = shutil.which(os.environ.get("CXX", "g++"))
         if cxx is None:
             raise RuntimeError("no C++ compiler found: set CXX or put g++ on PATH")
-        path = _compile([cxx], GXX_FLAGS, [src, hdr], f"{name}_host")
+        path = _compile([cxx], GXX_FLAGS, sources, f"{name}_host")
         _loaded[key] = _bind(path, fn, argtypes, None)
     return _loaded[key]

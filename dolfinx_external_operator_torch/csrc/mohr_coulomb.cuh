@@ -1,7 +1,7 @@
 // Mohr-Coulomb return map with consistent tangent for one Gauss point.
 //
-// The per-point body shared by the CUDA kernel (mohr_coulomb.cu) and the
-// CPU build (mohr_coulomb_host.cpp) that the tests hold against the plain
+// The arithmetic shared by the CUDA kernel (mohr_coulomb.cu) and the CPU
+// build (mohr_coulomb_host.cpp) that the tests hold against the plain
 // PyTorch version (models/mohr_coulomb.py::MohrCoulombMaterial.
 // tangent_stress).  It is the algorithm of the JAX package's
 // models/mohr_coulomb.py:224-361 with the surface of ops/abbo_sloan.py:
@@ -13,10 +13,24 @@
 //      the shortest), stagnation exit, cap max_iter32;
 //   3. f64 polish from the f32 iterate (elastic lanes: from the exact f64
 //      trial state), 3 candidate steps, to |r| <= tol * scale, cap 60;
-//   4. tangent dy*/deps = J(y*)^-1 [C; 0] by one 5x4 solve.
+//   4. tangent dy*/deps = J(y*)^-1 [C; 0], one 5x5 solve per column.
 //
 // Each point runs its own loops to its own exit, as each lane of the JAX
 // package's vmap(while_loop) does.
+//
+// The work of one Newton iteration is split into roles that a group of
+// kRoles workers shares (the Group types below):
+//   - the Jacobian: role k < 4 evaluates terms() of the potential on a value
+//     with one tangent along sigma's axis k, giving grad g and column k of
+//     I + dlambda C Hg; with non-associative flow, role 4 evaluates grad f;
+//   - the 5x5 solve: every worker, redundantly (it needs no exchange);
+//   - the line search: role a evaluates candidate a;
+//   - the tangent: role b < 4 solves for column b of [C; 0].
+// A role writes only its own slot and reads only values that every worker
+// holds, so the roles may run in any order or at once.  On the card the
+// group is a tile of 8 threads that exchange by shuffles and ballots
+// (mohr_coulomb.cu); in the CPU build SerialGroup runs the roles one after
+// another and exchanges through arrays.
 //
 // Where trouble lies, and what this file does about it:
 // - Silent promotion to double in the f32 phase.  Every literal in a
@@ -26,16 +40,22 @@
 //   package folds in Python (sin_a / 3.0, -1.0 + eps_clip, 1.0 - 1e-3) are
 //   folded in double on the host before that rounding.
 // - The Hessian of the potential.  terms() is written once, generic over
-//   its scalar type S, and evaluated on Dual<T> (one value, four tangents)
-//   to give g, grad g and Hg = d(grad g)/d sig in one pass, with the
-//   tangent rules of jax.jvp: no tangent through the f32 seed of the f64
-//   trig (stop_gradient), selects select tangents, max/min pass the tangent
-//   of the larger/smaller operand and half of each at a tie (jnp.clip,
-//   jnp.maximum).
+//   its scalar type S, and evaluated on Dual1<T> (a value and one tangent)
+//   to give g, grad g and one column of Hg = d(grad g)/d sig in one pass,
+//   with the tangent rules of jax.jvp: no tangent through the f32 seed of
+//   the f64 trig (stop_gradient), selects select tangents, max/min pass the
+//   tangent of the larger/smaller operand and half of each at a tie
+//   (jnp.clip, jnp.maximum).  The value part does not depend on the
+//   tangent, so every role computes the same grad g.
 // - The one-hot pick of the line search.  The JAX package picks the
 //   candidate with a one-hot dot product, so a component that is not finite
 //   in any other candidate (0 * inf) makes that component of the pick NaN.
-//   newton() keeps a mask of such components and does the same.
+//   newton() gathers a mask of such candidates per component and does the
+//   same.
+// - Elastic lanes.  Their Jacobian is I (the JAX package's and the plain
+//   version's I + 0 * C Hg, for a finite Hg), so no Hessian is evaluated,
+//   and the tangent J^-1 [C; 0] is C itself: solve_small of I against C
+//   returns C bit for bit.
 // - Trig.  The f32 phase uses the C library's (host) or CUDA's (device)
 //   asinf, sinf, cosf; the plain versions use PyTorch's and XLA's.  These
 //   differ in the last bits; the f64 polish absorbs it, but a lane that
@@ -68,6 +88,9 @@ constexpr int kOffG = kOffF + kSurfaceKeys;
 constexpr int kOffShared = kOffG + kSurfaceKeys;  // inv_sqrt3, c0, sinT, sin3T
 constexpr int kOffTol = kOffShared + 4;  // tol, tol32, max_iter32, n_polish_max, assoc
 constexpr int kParams = kOffTol + 5;
+
+// Workers of a group: 6 candidates of the f32 line search, rounded up.
+constexpr int kRoles = 8;
 
 template <typename T>
 struct Surface {
@@ -158,23 +181,37 @@ MC_HD T m_nan() {
   return static_cast<T>(NAN);
 }
 
+// index of the lowest set bit of m != 0
+MC_HD int lowest_bit(unsigned m) {
+#ifdef __CUDA_ARCH__
+  return __ffs(m) - 1;
+#else
+  return __builtin_ctz(m);
+#endif
+}
+
+// v[a] for a runtime a, by selects (no indexed array on the card)
+template <typename T, int N>
+MC_HD T pick(const T (&v)[N], int a) {
+  T r = v[0];
+#pragma unroll
+  for (int j = 1; j < N; ++j) r = a == j ? v[j] : r;
+  return r;
+}
+
 // ---------------------------------------------------------------------------
-// forward-mode dual numbers: a value and its tangents along sigma's 4 axes
+// forward-mode dual numbers: a value and its tangent along one direction
 // ---------------------------------------------------------------------------
 
 template <typename T>
-struct Dual {
+struct Dual1 {
   T v;
-  T d[4];
+  T d;
 };
 
 template <typename T>
-MC_HD Dual<T> lift(T c) {  // a constant: zero tangents
-  Dual<T> r;
-  r.v = c;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) r.d[k] = T(0);
-  return r;
+MC_HD Dual1<T> lift(T c) {  // a constant: zero tangent
+  return {c, T(0)};
 }
 
 template <typename T>
@@ -182,147 +219,82 @@ MC_HD T val(T x) {
   return x;
 }
 template <typename T>
-MC_HD T val(const Dual<T>& x) {
+MC_HD T val(const Dual1<T>& x) {
   return x.v;
 }
 
 // JAX's jvp rules: d(a*b) = da*b + a*db; d(a/b) = da/b + (-db*a)/(b*b)
 template <typename T>
-MC_HD Dual<T> operator+(const Dual<T>& a, const Dual<T>& b) {
-  Dual<T> r;
-  r.v = a.v + b.v;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) r.d[k] = a.d[k] + b.d[k];
-  return r;
+MC_HD Dual1<T> operator+(const Dual1<T>& a, const Dual1<T>& b) {
+  return {a.v + b.v, a.d + b.d};
 }
 template <typename T>
-MC_HD Dual<T> operator-(const Dual<T>& a, const Dual<T>& b) {
-  Dual<T> r;
-  r.v = a.v - b.v;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) r.d[k] = a.d[k] - b.d[k];
-  return r;
+MC_HD Dual1<T> operator-(const Dual1<T>& a, const Dual1<T>& b) {
+  return {a.v - b.v, a.d - b.d};
 }
 template <typename T>
-MC_HD Dual<T> operator-(const Dual<T>& a) {
-  Dual<T> r;
-  r.v = -a.v;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) r.d[k] = -a.d[k];
-  return r;
+MC_HD Dual1<T> operator-(const Dual1<T>& a) {
+  return {-a.v, -a.d};
 }
 template <typename T>
-MC_HD Dual<T> operator*(const Dual<T>& a, const Dual<T>& b) {
-  Dual<T> r;
-  r.v = a.v * b.v;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) r.d[k] = a.d[k] * b.v + a.v * b.d[k];
-  return r;
+MC_HD Dual1<T> operator*(const Dual1<T>& a, const Dual1<T>& b) {
+  return {a.v * b.v, a.d * b.v + a.v * b.d};
 }
 template <typename T>
-MC_HD Dual<T> operator/(const Dual<T>& a, const Dual<T>& b) {
-  Dual<T> r;
-  r.v = a.v / b.v;
+MC_HD Dual1<T> operator/(const Dual1<T>& a, const Dual1<T>& b) {
   const T inv_b2 = T(1) / (b.v * b.v);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) r.d[k] = a.d[k] / b.v + (-b.d[k] * a.v) * inv_b2;
-  return r;
+  return {a.v / b.v, a.d / b.v + (-b.d * a.v) * inv_b2};
 }
 template <typename T>
-MC_HD Dual<T> operator+(const Dual<T>& a, T c) {
-  Dual<T> r = a;
-  r.v = a.v + c;
-  return r;
+MC_HD Dual1<T> operator+(const Dual1<T>& a, T c) {
+  return {a.v + c, a.d};
 }
 template <typename T>
-MC_HD Dual<T> operator+(T c, const Dual<T>& a) {
-  Dual<T> r = a;
-  r.v = c + a.v;
-  return r;
+MC_HD Dual1<T> operator+(T c, const Dual1<T>& a) {
+  return {c + a.v, a.d};
 }
 template <typename T>
-MC_HD Dual<T> operator-(const Dual<T>& a, T c) {
-  Dual<T> r = a;
-  r.v = a.v - c;
-  return r;
+MC_HD Dual1<T> operator-(const Dual1<T>& a, T c) {
+  return {a.v - c, a.d};
 }
 template <typename T>
-MC_HD Dual<T> operator-(T c, const Dual<T>& a) {
-  Dual<T> r;
-  r.v = c - a.v;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) r.d[k] = -a.d[k];
-  return r;
+MC_HD Dual1<T> operator-(T c, const Dual1<T>& a) {
+  return {c - a.v, -a.d};
 }
 template <typename T>
-MC_HD Dual<T> operator*(const Dual<T>& a, T c) {
-  Dual<T> r;
-  r.v = a.v * c;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) r.d[k] = a.d[k] * c;
-  return r;
+MC_HD Dual1<T> operator*(const Dual1<T>& a, T c) {
+  return {a.v * c, a.d * c};
 }
 template <typename T>
-MC_HD Dual<T> operator*(T c, const Dual<T>& a) {
-  Dual<T> r;
-  r.v = c * a.v;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) r.d[k] = c * a.d[k];
-  return r;
+MC_HD Dual1<T> operator*(T c, const Dual1<T>& a) {
+  return {c * a.v, c * a.d};
 }
 template <typename T>
-MC_HD Dual<T> operator/(const Dual<T>& a, T c) {
-  Dual<T> r;
-  r.v = a.v / c;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) r.d[k] = a.d[k] / c;
-  return r;
+MC_HD Dual1<T> operator/(const Dual1<T>& a, T c) {
+  return {a.v / c, a.d / c};
 }
 template <typename T>
-MC_HD Dual<T> operator/(T c, const Dual<T>& b) {
-  Dual<T> r;
-  r.v = c / b.v;
+MC_HD Dual1<T> operator/(T c, const Dual1<T>& b) {
   const T inv_b2 = T(1) / (b.v * b.v);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) r.d[k] = (-b.d[k] * c) * inv_b2;
-  return r;
+  return {c / b.v, (-b.d * c) * inv_b2};
 }
 
 template <typename T>
-MC_HD Dual<T> m_sqrt(const Dual<T>& a) {  // d sqrt = da * (0.5 / sqrt(a))
-  Dual<T> r;
-  r.v = m_sqrt(a.v);
-  const T s = T(0.5) / r.v;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) r.d[k] = a.d[k] * s;
-  return r;
+MC_HD Dual1<T> m_sqrt(const Dual1<T>& a) {  // d sqrt = da * (0.5 / sqrt(a))
+  const T r = m_sqrt(a.v);
+  return {r, a.d * (T(0.5) / r)};
 }
 template <typename T>
-MC_HD Dual<T> m_asin(const Dual<T>& a) {  // d asin = da / sqrt(1 - a^2)
-  Dual<T> r;
-  r.v = m_asin(a.v);
-  const T s = T(1) / m_sqrt(T(1) - a.v * a.v);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) r.d[k] = a.d[k] * s;
-  return r;
+MC_HD Dual1<T> m_asin(const Dual1<T>& a) {  // d asin = da / sqrt(1 - a^2)
+  return {m_asin(a.v), a.d * (T(1) / m_sqrt(T(1) - a.v * a.v))};
 }
 template <typename T>
-MC_HD Dual<T> m_sin(const Dual<T>& a) {
-  Dual<T> r;
-  r.v = m_sin(a.v);
-  const T c = m_cos(a.v);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) r.d[k] = a.d[k] * c;
-  return r;
+MC_HD Dual1<T> m_sin(const Dual1<T>& a) {
+  return {m_sin(a.v), a.d * m_cos(a.v)};
 }
 template <typename T>
-MC_HD Dual<T> m_cos(const Dual<T>& a) {
-  Dual<T> r;
-  r.v = m_cos(a.v);
-  const T s = m_sin(a.v);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) r.d[k] = -(a.d[k] * s);
-  return r;
+MC_HD Dual1<T> m_cos(const Dual1<T>& a) {
+  return {m_cos(a.v), -(a.d * m_sin(a.v))};
 }
 
 // select, and max/min against a constant as lax.max/lax.min: NaN in, NaN
@@ -332,7 +304,7 @@ MC_HD T select(bool c, T a, T b) {
   return c ? a : b;
 }
 template <typename T>
-MC_HD Dual<T> select(bool c, const Dual<T>& a, const Dual<T>& b) {
+MC_HD Dual1<T> select(bool c, const Dual1<T>& a, const Dual1<T>& b) {
   return c ? a : b;
 }
 template <typename T>
@@ -344,22 +316,14 @@ MC_HD T min_c(T x, T c) {
   return x > c ? c : x;
 }
 template <typename T>
-MC_HD Dual<T> max_c(const Dual<T>& x, T c) {
+MC_HD Dual1<T> max_c(const Dual1<T>& x, T c) {
   const T w = x.v > c ? T(1) : (x.v == c ? T(0.5) : T(0));
-  Dual<T> r;
-  r.v = x.v < c ? c : x.v;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) r.d[k] = x.d[k] * w;
-  return r;
+  return {x.v < c ? c : x.v, x.d * w};
 }
 template <typename T>
-MC_HD Dual<T> min_c(const Dual<T>& x, T c) {
+MC_HD Dual1<T> min_c(const Dual1<T>& x, T c) {
   const T w = x.v < c ? T(1) : (x.v == c ? T(0.5) : T(0));
-  Dual<T> r;
-  r.v = x.v > c ? c : x.v;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) r.d[k] = x.d[k] * w;
-  return r;
+  return {x.v > c ? c : x.v, x.d * w};
 }
 
 template <typename S>
@@ -367,7 +331,7 @@ MC_HD S zero_like(S) {
   return S(0);
 }
 template <typename T>
-MC_HD Dual<T> zero_like(const Dual<T>&) {
+MC_HD Dual1<T> zero_like(const Dual1<T>&) {
   return lift(T(0));
 }
 
@@ -465,7 +429,7 @@ MC_HD void terms(const S sig[4], const Surface<T>& p, const Consts<T>& k, S& f, 
 }
 
 // ---------------------------------------------------------------------------
-// residual, Jacobian, small solve
+// residual, small solve
 // ---------------------------------------------------------------------------
 
 // C @ v over 4 entries, summed in column order
@@ -495,46 +459,9 @@ MC_HD void residual(const T y[5], const T d[4], const T sn[4], bool plastic, con
   r[4] = plastic ? ff : y[4];
 }
 
-// J(y) = [[I + dl C Hg, C grad g], [grad f^T, 0]] or I_5 (:193-214)
-template <typename T>
-MC_HD void jacobian(const T y[5], bool plastic, const Consts<T>& k, T J[5][5]) {
-  Dual<T> sd[4], gd, dgd[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    sd[i] = lift(y[i]);
-    sd[i].d[i] = T(1);
-  }
-  terms<T, Dual<T>>(sd, k.g, k, gd, dgd);
-  T dg[4], Hg[4][4], df[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    dg[i] = dgd[i].v;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) Hg[i][j] = dgd[i].d[j];
-  }
-  if (k.assoc) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) df[i] = dg[i];
-  } else {
-    T ff;
-    terms<T, T>(y, k.f, k, ff, df);
-  }
-  const T dlp = plastic ? y[4] : T(0);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const T col[4] = {Hg[0][j], Hg[1][j], Hg[2][j], Hg[3][j]};
-      J[i][j] = (i == j ? T(1) : T(0)) + dlp * row_dot(k.C + 4 * i, col);
-    }
-    J[i][4] = plastic ? row_dot(k.C + 4 * i, dg) : T(0);
-    J[4][i] = plastic ? df[i] : T(0);
-  }
-  J[4][4] = plastic ? T(0) : T(1);
-}
-
 // A x = B for one 5x5 system and M right-hand sides: unrolled elimination
-// with pairwise max-bubbling pivoting (mohr_coulomb.py:59-102)
+// with pairwise max-bubbling pivoting (mohr_coulomb.py:59-102).  Columns of
+// B are independent: M = 1 on column j gives column j of M = 4 bit for bit.
 template <typename T, int M>
 MC_HD void solve_small(const T A[5][5], const T B[5][M], T X[5][M]) {
   constexpr int N = 5;
@@ -584,72 +511,194 @@ MC_HD T norm5(const T r[5]) {
   return m_sqrt(r[0] * r[0] + r[1] * r[1] + r[2] * r[2] + r[3] * r[3] + r[4] * r[4]);
 }
 
+// ---------------------------------------------------------------------------
+// the roles
+// ---------------------------------------------------------------------------
+
+template <typename T>
+MC_HD Surface<T> pick_surface(bool first, const Surface<T>& a, const Surface<T>& b) {
+  Surface<T> s;
+  s.sin_a = first ? a.sin_a : b.sin_a;
+  s.sin_a_3 = first ? a.sin_a_3 : b.sin_a_3;
+  s.c_cos_a = first ? a.c_cos_a : b.c_cos_a;
+  s.asa2 = first ? a.asa2 : b.asa2;
+  s.Ap = first ? a.Ap : b.Ap;
+  s.Bp = first ? a.Bp : b.Bp;
+  s.Cp = first ? a.Cp : b.Cp;
+  s.Am = first ? a.Am : b.Am;
+  s.Bm = first ? a.Bm : b.Bm;
+  s.Cm = first ? a.Cm : b.Cm;
+  return s;
+}
+
+// Jacobian role r of a plastic point (mohr_coulomb.py:193-214): for r < 4,
+// column r of I + dlambda C Hg and the potential's gradient; role 4 gives
+// the yield surface's gradient in grad (its column is unused).
+template <typename T>
+MC_HD void hg_column(const T y[5], int r, const Consts<T>& k, T col[4], T grad[4]) {
+  const Surface<T> s = pick_surface(r == 4, k.f, k.g);
+  Dual1<T> sd[4], val_d, dd[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) sd[i] = {y[i], i == r ? T(1) : T(0)};
+  terms<T, Dual1<T>>(sd, s, k, val_d, dd);
+  T h[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    grad[i] = dd[i].v;
+    h[i] = dd[i].d;  // Hg[i][r]
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) col[i] = (i == r ? T(1) : T(0)) + y[4] * row_dot(k.C + 4 * i, h);
+}
+
+// Line-search role a: the candidate y + alpha_a dy, its residual and |r|
+// (out: y (5), r (5), |r|).
+template <typename T, int NA>
+MC_HD void candidate(const T y[5], const T dy[5][1], const T (&alphas)[NA], int a, const T d[4],
+                     const T sn[4], bool plastic, const Consts<T>& k, T out[11]) {
+  const T al = pick(alphas, a);
+#pragma unroll
+  for (int i = 0; i < 5; ++i) out[i] = y[i] + al * dy[i][0];
+  residual(out, d, sn, plastic, k, out + 5);
+  out[10] = norm5(out + 5);
+}
+
+// Tangent role b: column b of J^-1 [C; 0] (mohr_coulomb.py:344-361).
+template <typename T>
+MC_HD void tangent_column(const T J[5][5], int b, const Consts<T>& k, T x[5]) {
+  T B[5][1], X[5][1];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const T row[4] = {k.C[4 * a], k.C[4 * a + 1], k.C[4 * a + 2], k.C[4 * a + 3]};
+    B[a][0] = pick(row, b);
+  }
+  B[4][0] = T(0);
+  solve_small<T, 1>(J, B, X);
+#pragma unroll
+  for (int a = 0; a < 5; ++a) x[a] = X[a][0];
+}
+
+// ---------------------------------------------------------------------------
+// the group: workers that share a point's roles
+// ---------------------------------------------------------------------------
+//
+// A group G provides
+//   Slots<T, W>           W values per role; at(r) -> role r's values;
+//   compute(count, f)     f(r) for every role r < count; f writes only
+//                         slot r (on the card, a worker past count repeats
+//                         the last role, so that the tile never diverges);
+//   store(count, f)       f(r) for r < count only (f writes memory);
+//   ballot(count, pred)   bit r set where pred(r), for r < count;
+//   from(s, src, i)       value i of role src's slot, on every worker.
+
+// The roles one after another, in order or in reverse order, exchanging
+// through arrays.
+template <bool Reverse>
+struct SerialGroup {
+  template <typename T, int W>
+  struct Slots {
+    T v[kRoles][W];
+    MC_HD T* at(int r) { return v[r]; }
+  };
+  template <typename F>
+  MC_HD void compute(int count, F&& f) {
+    for (int j = 0; j < count; ++j) f(Reverse ? count - 1 - j : j);
+  }
+  template <typename F>
+  MC_HD void store(int count, F&& f) {
+    compute(count, f);
+  }
+  template <typename F>
+  MC_HD unsigned ballot(int count, F&& pred) {
+    unsigned m = 0u;
+    for (int j = 0; j < count; ++j) {
+      const int r = Reverse ? count - 1 - j : j;
+      m |= pred(r) ? 1u << r : 0u;
+    }
+    return m;
+  }
+  template <typename T, int W>
+  MC_HD T from(Slots<T, W>& s, int src, int i) {
+    return s.v[src][i];
+  }
+};
+
+// J(y) of a plastic point: [[I + dl C Hg, C grad g], [grad f^T, 0]]
+template <typename T, typename G>
+MC_HD void jacobian(G& g, const T y[5], const Consts<T>& k, T J[5][5]) {
+  typename G::template Slots<T, 8> s;  // column (4), gradient (4)
+  g.compute(k.assoc ? 4 : 5, [&](int r) { hg_column(y, r, k, s.at(r), s.at(r) + 4); });
+  T dg[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) dg[i] = g.from(s, 0, 4 + i);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) J[i][j] = g.from(s, j, i);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    J[i][4] = row_dot(k.C + 4 * i, dg);
+    J[4][i] = k.assoc ? dg[i] : g.from(s, 4, 4 + i);
+  }
+  J[4][4] = T(0);
+}
+
 // Damped Newton to |r| <= tol * scale, k.max_it steps or a stalled step
 // (mohr_coulomb.py:255-295 and :305-338).  y, res and norm are updated in
-// place; returns the number of steps.
-template <typename T, int NA>
-MC_HD int newton(T y[5], T res[5], T& norm, const T (&alphas)[NA], T scale, const T d[4],
-                 const T sn[4], bool plastic, const Consts<T>& k) {
+// place; returns the number of steps.  Every branch depends only on values
+// that every worker of the group holds.
+template <bool Plastic, typename T, int NA, typename G>
+MC_HD int newton(G& g, T y[5], T res[5], T& norm, const T (&alphas)[NA], T scale, const T d[4],
+                 const T sn[4], const Consts<T>& k) {
   int it = 0;
   bool stalled = false;
   while (!stalled && norm / scale > k.tol && it < k.max_it) {
     T J[5][5], B[5][1], dy[5][1];
-    jacobian(y, plastic, k, J);
+    if constexpr (Plastic) {
+      jacobian(g, y, k, J);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 5; ++i) {
+#pragma unroll
+        for (int j = 0; j < 5; ++j) J[i][j] = i == j ? T(1) : T(0);
+      }
+    }
 #pragma unroll
     for (int i = 0; i < 5; ++i) B[i][0] = -res[i];
     solve_small<T, 1>(J, B, dy);
-    // candidates in order; keep the first that lowers |r|, else the last
-    T y_sel[5], r_sel[5], n_sel = T(0);
-    T ya[5], ra[5], na = T(0);
-    int sel = -1;
-    // bit a set: candidate a holds a value that is not finite there
-    unsigned bad_y[5] = {0u, 0u, 0u, 0u, 0u}, bad_r[5] = {0u, 0u, 0u, 0u, 0u}, bad_n = 0u;
+    // candidates side by side; keep the first that lowers |r|, else the last
+    typename G::template Slots<T, 11> c;
+    g.compute(NA, [&](int a) { candidate(y, dy, alphas, a, d, sn, Plastic, k, c.at(a)); });
+    const T old = norm;
+    const unsigned improving = g.ballot(NA, [&](int a) { return c.at(a)[10] < old; });
+    const int sel = improving != 0u ? lowest_bit(improving) : NA - 1;
+    T v[11];
 #pragma unroll
-    for (int a = 0; a < NA; ++a) {
-#pragma unroll
-      for (int i = 0; i < 5; ++i) ya[i] = y[i] + alphas[a] * dy[i][0];
-      residual(ya, d, sn, plastic, k, ra);
-      na = norm5(ra);
-#pragma unroll
-      for (int i = 0; i < 5; ++i) {
-        bad_y[i] |= m_finite(ya[i]) ? 0u : 1u << a;
-        bad_r[i] |= m_finite(ra[i]) ? 0u : 1u << a;
-      }
-      bad_n |= m_finite(na) ? 0u : 1u << a;
-      if (sel < 0 && na < norm) {
-        sel = a;
-#pragma unroll
-        for (int i = 0; i < 5; ++i) {
-          y_sel[i] = ya[i];
-          r_sel[i] = ra[i];
-        }
-        n_sel = na;
-      }
-    }
-    if (sel < 0) {
-      sel = NA - 1;
-#pragma unroll
-      for (int i = 0; i < 5; ++i) {
-        y_sel[i] = ya[i];
-        r_sel[i] = ra[i];
-      }
-      n_sel = na;
-    }
-    // the one-hot pick: 0 * (inf or NaN) of another candidate is NaN
+    for (int i = 0; i < 11; ++i) v[i] = g.from(c, sel, i);
+    // the one-hot pick: 0 * (inf or NaN) of another candidate is NaN; one
+    // ballot finds whether any candidate holds such a value
     const unsigned others = ~(1u << sel);
+    const unsigned any_bad = g.ballot(NA, [&](int a) {
+      bool bad = false;
+#pragma unroll
+      for (int i = 0; i < 11; ++i) bad = bad | !m_finite(c.at(a)[i]);
+      return bad;
+    });
+    if ((any_bad & others) != 0u) {
+#pragma unroll
+      for (int i = 0; i < 11; ++i) {
+        const unsigned bad = g.ballot(NA, [&](int a) { return !m_finite(c.at(a)[i]); });
+        if ((bad & others) != 0u) v[i] = m_nan<T>();
+      }
+    }
 #pragma unroll
     for (int i = 0; i < 5; ++i) {
-      if (bad_y[i] & others) y_sel[i] = m_nan<T>();
-      if (bad_r[i] & others) r_sel[i] = m_nan<T>();
+      y[i] = v[i];
+      res[i] = v[5 + i];
     }
-    if (bad_n & others) n_sel = m_nan<T>();
-    stalled = n_sel >= norm * k.stall;
-#pragma unroll
-    for (int i = 0; i < 5; ++i) {
-      y[i] = y_sel[i];
-      res[i] = r_sel[i];
-    }
-    norm = n_sel;
+    norm = v[10];
+    stalled = norm >= old * k.stall;
     ++it;
   }
   return it;
@@ -659,80 +708,151 @@ MC_HD int newton(T y[5], T res[5], T& norm, const T (&alphas)[NA], T scale, cons
 // one Gauss point
 // ---------------------------------------------------------------------------
 
-MC_HD void mc_point(const double* __restrict__ deps, const double* __restrict__ sig_n,
-                    double* __restrict__ C_out, double* __restrict__ sig_out,
-                    int* __restrict__ niter_out, double* __restrict__ yielding_out,
-                    double* __restrict__ norm_out, double* __restrict__ dlambda_out,
-                    long long i, long long n, const Params& P) {
-  const Consts<double>& k64 = P.c64;
-  const Consts<float>& k32 = P.c32;
+struct Trial {
   double d[4], sn[4], Cd[4], sig_tr[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    d[j] = deps[j * n + i];
-    sn[j] = sig_n[j * n + i];
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    Cd[j] = row_dot(k64.C + 4 * j, d);
-    sig_tr[j] = sn[j] + Cd[j];
-  }
-  double f_tr, df_tr[4];
-  terms<double, double>(sig_tr, k64.f, k64, f_tr, df_tr);
-  const bool plastic = f_tr > 0.0;
-  const double f_pl = plastic ? f_tr : 0.0;
-  // convergence scale: |C deps| and the trial yield value
-  const double scale0 =
-      max_c(m_sqrt(Cd[0] * Cd[0] + Cd[1] * Cd[1] + Cd[2] * Cd[2] + Cd[3] * Cd[3] + f_pl * f_pl),
-            1e-30);
+  double f_tr;    // f(sig_tr); the point is plastic where f_tr > 0
+  double scale0;  // convergence scale: |C deps| and the trial yield value
+};
 
-  // f32 phase from the trial state
-  float d32[4], s32[4], y32[5], r32[5];
+MC_HD Trial load_trial(const double* __restrict__ deps, const double* __restrict__ sig_n,
+                       long long i, long long n, const Consts<double>& k) {
+  Trial t;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    d32[j] = static_cast<float>(d[j]);
-    s32[j] = static_cast<float>(sn[j]);
-    y32[j] = static_cast<float>(sig_tr[j]);
+    t.d[j] = deps[j * n + i];
+    t.sn[j] = sig_n[j * n + i];
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    t.Cd[j] = row_dot(k.C + 4 * j, t.d);
+    t.sig_tr[j] = t.sn[j] + t.Cd[j];
+  }
+  return t;
+}
+
+MC_HD double trial_yield(const Trial& t, const Consts<double>& k) {
+  double f, df[4];
+  terms<double, double>(t.sig_tr, k.f, k, f, df);
+  return f;
+}
+
+MC_HD void set_yield(Trial& t, double f_tr) {
+  t.f_tr = f_tr;
+  const double f_pl = f_tr > 0.0 ? f_tr : 0.0;
+  const double* c = t.Cd;
+  t.scale0 = max_c(m_sqrt(c[0] * c[0] + c[1] * c[1] + c[2] * c[2] + c[3] * c[3] + f_pl * f_pl),
+                   1e-30);
+}
+
+// The f32 phase's start: the inputs rounded to f32, y = (sig_tr, 0) and its
+// residual; returns |r|.
+MC_HD float start32(const Trial& t, bool plastic, const Consts<float>& k, float d32[4],
+                    float s32[4], float y32[5], float r32[5]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    d32[j] = static_cast<float>(t.d[j]);
+    s32[j] = static_cast<float>(t.sn[j]);
+    y32[j] = static_cast<float>(t.sig_tr[j]);
   }
   y32[4] = 0.0f;
-  residual(y32, d32, s32, plastic, k32, r32);
-  float n32 = norm5(r32);
+  residual(y32, d32, s32, plastic, k, r32);
+  return norm5(r32);
+}
+
+// The f32 phase and the f64 polish: y, |r| and the iterations of both.
+template <bool Plastic, typename G>
+MC_HD int solve_point(G& g, const Trial& t, const Params& P, double y[5], double& nrm) {
+  const Consts<float>& k32 = P.c32;
+  const Consts<double>& k64 = P.c64;
+  float d32[4], s32[4], y32[5], r32[5];
+  float n32 = start32(t, Plastic, k32, d32, s32, y32, r32);
   const float alphas32[6] = {1.0f, 0.5f, 0.25f, 0.0625f, 0.015625f, 0.0009765625f};
-  const int it32 = newton(y32, r32, n32, alphas32, static_cast<float>(scale0), d32, s32,
-                          plastic, k32);
+  const int it32 =
+      newton<Plastic>(g, y32, r32, n32, alphas32, static_cast<float>(t.scale0), d32, s32, k32);
 
   // f64 polish; elastic lanes restart from the exact trial state
+  double r[5];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) y[j] = Plastic ? static_cast<double>(y32[j]) : t.sig_tr[j];
+  y[4] = Plastic ? static_cast<double>(y32[4]) : 0.0;
+  residual(y, t.d, t.sn, Plastic, k64, r);
+  nrm = norm5(r);
+  const double alphas64[3] = {1.0, 0.25, 0.0009765625};
+  return it32 + newton<Plastic>(g, y, r, nrm, alphas64, t.scale0, t.d, t.sn, k64);
+}
+
+struct Outputs {
+  double* __restrict__ C;
+  double* __restrict__ sig;
+  int* __restrict__ niter;
+  double* __restrict__ yielding;
+  double* __restrict__ norm_res;
+  double* __restrict__ dlambda;
+};
+
+MC_HD void store_state(const Outputs& o, const double y[5], int it, double nrm, long long i,
+                       long long n) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a) o.sig[a * n + i] = y[a];
+  o.niter[i] = it;
+  o.norm_res[i] = nrm;
+  o.dlambda[i] = y[4];
+}
+
+// An elastic point (f_tr <= 0): J = I in both phases and the tangent is C.
+// Writes everything but yielding.
+template <typename G>
+MC_HD void elastic_point(G& g, const Trial& t, const Params& P, const Outputs& o, long long i,
+                         long long n) {
+  double y[5], nrm;
+  const int it = solve_point<false>(g, t, P, y, nrm);
+  g.store(1, [&](int) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) o.C[e * n + i] = P.c64.C[e];
+    store_state(o, y, it, nrm, i, n);
+  });
+}
+
+// An elastic point whose start residuals already meet both phases'
+// tolerances takes no Newton step: elastic_point's result without its
+// loops.  Writes it (all but yielding) and returns true; returns false,
+// writing nothing, for a point that needs a step.
+MC_HD bool elastic_at_rest(const Trial& t, const Params& P, const Outputs& o, long long i,
+                           long long n) {
+  const Consts<float>& k32 = P.c32;
+  const Consts<double>& k64 = P.c64;
+  float d32[4], s32[4], y32[5], r32[5];
+  const float n32 = start32(t, false, k32, d32, s32, y32, r32);
+  if (n32 / static_cast<float>(t.scale0) > k32.tol && k32.max_it > 0) return false;
   double y[5], r[5];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) y[j] = plastic ? static_cast<double>(y32[j]) : sig_tr[j];
-  y[4] = plastic ? static_cast<double>(y32[4]) : 0.0;
-  residual(y, d, sn, plastic, k64, r);
-  double nrm = norm5(r);
-  const double alphas64[3] = {1.0, 0.25, 0.0009765625};
-  const int it64 = newton(y, r, nrm, alphas64, scale0, d, sn, plastic, k64);
+  for (int j = 0; j < 4; ++j) y[j] = t.sig_tr[j];
+  y[4] = 0.0;
+  residual(y, t.d, t.sn, false, k64, r);
+  const double nrm = norm5(r);
+  if (nrm / t.scale0 > k64.tol && k64.max_it > 0) return false;
+#pragma unroll
+  for (int e = 0; e < 16; ++e) o.C[e * n + i] = k64.C[e];
+  store_state(o, y, 0, nrm, i, n);
+  return true;
+}
 
-  // tangent: J(y*) X = [C; 0]
-  double J[5][5], B[5][4], X[5][4];
-  jacobian(y, plastic, k64, J);
+// A plastic point (f_tr > 0), its roles shared by the group.  Writes
+// everything but yielding.
+template <typename G>
+MC_HD void plastic_point(G& g, const Trial& t, const Params& P, const Outputs& o, long long i,
+                         long long n) {
+  double y[5], nrm;
+  const int it = solve_point<true>(g, t, P, y, nrm);
+  double J[5][5];
+  jacobian(g, y, P.c64, J);
+  g.store(4, [&](int b) {
+    double x[5];
+    tangent_column(J, b, P.c64, x);
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-#pragma unroll
-    for (int b = 0; b < 4; ++b) B[a][b] = k64.C[4 * a + b];
-  }
-#pragma unroll
-  for (int b = 0; b < 4; ++b) B[4][b] = 0.0;
-  solve_small<double, 4>(J, B, X);
-
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-#pragma unroll
-    for (int b = 0; b < 4; ++b) C_out[(4 * a + b) * n + i] = X[a][b];
-    sig_out[a * n + i] = y[a];
-  }
-  niter_out[i] = it32 + it64;
-  yielding_out[i] = f_tr;
-  norm_out[i] = nrm;
-  dlambda_out[i] = y[4];
+    for (int a = 0; a < 4; ++a) o.C[(4 * a + b) * n + i] = x[a];
+  });
+  g.store(1, [&](int) { store_state(o, y, it, nrm, i, n); });
 }
 
 }  // namespace mc

@@ -4,8 +4,10 @@ The wrapper of the hand-written kernel K1 (``csrc/mohr_coulomb.cu``, body
 ``csrc/mohr_coulomb.cuh``), which replaces the per-Gauss-point return map
 that the JAX package compiles with XLA (``models/mohr_coulomb.py:224-361``
 with ``ops/abbo_sloan.py:118-166``).  On a CUDA tensor ``mc_return_map``
-launches the kernel, one thread per Gauss point; on a CPU tensor it runs the
-plain PyTorch version, ``MohrCoulombMaterial.tangent_stress``.  There is no
+launches the kernel's two passes: pass A, one thread per Gauss point,
+finishes the elastic points and lists the plastic ones; pass B runs each
+plastic point on a tile of 8 threads.  On a CPU tensor it runs the plain
+PyTorch version, ``MohrCoulombMaterial.tangent_stress``.  There is no
 fallback from the kernel to the plain version: a failed build or launch
 raises.
 
@@ -25,6 +27,8 @@ __all__ = ["mc_return_map", "mc_return_map_host", "BYTES_PER_POINT"]
 # read: deps, sig_n (8 f64); written: C (16), sig (4), yielding, norm_res,
 # dlambda (f64) and niter (int32)
 BYTES_PER_POINT = 8 * 8 + (16 + 4 + 3) * 8 + 4
+# the workspace: the plastic lanes' count, the next list entry, the list
+LIST_OFFSET = 2
 
 
 def _check(deps, sig_n, device_type):
@@ -56,43 +60,63 @@ def _params(material):
     return (ctypes.c_double * p.size)(*p.tolist())
 
 
+def _workspace(n, device):
+    """The kernel's int32 scratch of ``n + 2`` entries: the listed lanes'
+    count, the next list entry for pass B, then the list (pass A's order,
+    which varies from run to run and changes no output)."""
+    if n + LIST_OFFSET > torch.iinfo(torch.int32).max:
+        raise ValueError(f"{n} points do not fit the kernel's int32 lane list")
+    return torch.empty(n + LIST_OFFSET, dtype=torch.int32, device=device)
+
+
+def _launch(deps, sig_n, material, outs, work):
+    """Launch both passes on the current stream into ``outs`` (as
+    ``_outputs`` gives them) with ``work`` (``_workspace``), and count the
+    launch on ``mc_return_map.launches``.  ``mc_return_map`` calls it; a
+    caller that reads pass A's list in ``work`` (tests, ``chip_smoke.py``)
+    may call it too."""
+    from .._native.cuda import cuda_function
+
+    n = _check(deps, sig_n, "cuda")
+    # the launcher runs on the runtime's current device
+    if deps.device.index != torch.cuda.current_device():
+        raise ValueError(f"inputs lie on {deps.device}, but the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    fn = cuda_function("mohr_coulomb")
+    params = _params(material)
+    err = fn(deps.data_ptr(), sig_n.data_ptr(), *(t.data_ptr() for t in outs), work.data_ptr(),
+             n, ctypes.cast(params, ctypes.c_void_p), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"mohr_coulomb kernel launch failed: cudaError {err}")
+    mc_return_map.launches += 1
+
+
 def mc_return_map(deps, sig_n, material):
     """deps, sig_n (4, N) f64 -> (C (16, N), sig (4, N), niter (N,) int32,
     yielding, norm_res, dlambda (N,) f64) for a ``MohrCoulombMaterial``.
 
     CUDA tensors go through the kernel (any N: it masks the ragged edge);
     CPU tensors through the plain version.  ``mc_return_map.launches``
-    counts kernel launches."""
+    counts kernel calls (one per call, both passes)."""
     if deps.device.type == "cpu":
         n = _check(deps, sig_n, "cpu")
         C_t, (sig, niter, yielding, norm_res, dlambda) = material.tangent_stress(deps, sig_n)
         return C_t.reshape(16, n), sig, niter, yielding, norm_res, dlambda
     if deps.device.type != "cuda":
         raise ValueError(f"unsupported device {deps.device}")
-    from .._native.cuda import cuda_function
-
     n = _check(deps, sig_n, "cuda")
-    launch = cuda_function("mohr_coulomb")
     outs = _outputs(n, deps.device)
-    # the launcher runs on the runtime's current device
-    if deps.device.index != torch.cuda.current_device():
-        raise ValueError(f"inputs lie on {deps.device}, but the current device is "
-                         f"cuda:{torch.cuda.current_device()}")
-    params = _params(material)
-    err = launch(deps.data_ptr(), sig_n.data_ptr(), *(t.data_ptr() for t in outs), n,
-                 ctypes.cast(params, ctypes.c_void_p), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"mohr_coulomb kernel launch failed: cudaError {err}")
-    mc_return_map.launches += 1
+    _launch(deps, sig_n, material, outs, _workspace(n, deps.device))
     return outs
 
 
 mc_return_map.launches = 0
 
 
-def mc_return_map_host(deps, sig_n, material):
+def mc_return_map_host(deps, sig_n, material, reverse=False):
     """The kernel body itself, built for the CPU with g++ (tests only):
-    same contract as ``mc_return_map`` on CPU tensors."""
+    same contract as ``mc_return_map`` on CPU tensors.  ``reverse`` runs
+    each point's roles in reverse order, which must give the same bits."""
     from .._native.cuda import host_function
 
     n = _check(deps, sig_n, "cpu")
@@ -100,5 +124,5 @@ def mc_return_map_host(deps, sig_n, material):
     outs = _outputs(n, deps.device)
     params = _params(material)
     fn(deps.data_ptr(), sig_n.data_ptr(), *(t.data_ptr() for t in outs), n,
-       ctypes.cast(params, ctypes.c_void_p))
+       ctypes.cast(params, ctypes.c_void_p), int(reverse))
     return outs

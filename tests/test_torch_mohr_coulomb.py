@@ -5,8 +5,11 @@
 * ``solve_small`` on random 5x5 systems;
 * the plain f64 return map and tangent (what a CPU tensor runs) on the
   bench strain mix (``bench.py:77-83``), unsorted and in sorted chunks;
-* the CPU (g++) build of the CUDA kernel's own per-point body
-  (``csrc/mohr_coulomb.cuh``) against the plain version;
+* the CPU (g++) build of the CUDA kernel's own body
+  (``csrc/mohr_coulomb.cuh``) against the plain version, on the bench mix
+  and on all-elastic, all-plastic and ragged inputs, and with each
+  point's roles run forward and in reverse (the same bits: no role reads
+  what another writes, which on the card would be a race in a tile);
 * the material properties of ``test_mohr_coulomb.py`` on the port.
 
 The return map's f32 phase uses each library's f32 asin/sin/cos (PyTorch's,
@@ -174,6 +177,74 @@ def test_kernel_body_matches_plain(mix):
     # of the triple-angle Newton's f32 seed
     assert np.abs(body[3].numpy() - plain[3].numpy()).max() < 1e-13
     assert np.abs(body[5].numpy() - plain[5].numpy()).max() < 1e-12
+
+
+def _edge_input(case):
+    """Point-major (deps, sigma_n) of a kernel edge case."""
+    if case == "all_elastic":
+        rng = np.random.default_rng(5)
+        return rng.normal(scale=1e-5, size=(64, 4)), np.zeros((64, 4))
+    if case == "elastic_iterating":
+        # a tiny strain on a large compressive stress: elastic, but the f32
+        # start residual (rounding of sigma_n) exceeds tol32 * |C deps|
+        rng = np.random.default_rng(9)
+        sn = rng.normal(scale=5.0, size=(64, 4))
+        sn[:, :3] -= 100.0
+        return rng.normal(scale=1e-6, size=(64, 4)), sn
+    if case == "all_plastic":
+        deps, sn = _bench_mix(256, seed=6)
+        deps[:, 3] += 1.2e-2
+        return deps, sn
+    n = int(case[1:])  # ragged: n points, the first sheared past yield
+    deps, sn = _bench_mix(n, seed=7)
+    deps[0, 3] += 6e-3
+    return deps, sn
+
+
+@pytest.mark.parametrize("case", ["all_elastic", "elastic_iterating", "all_plastic", "n1",
+                                  "n33"])
+def test_kernel_body_edge_inputs(mats, case):
+    """The g++ build against the plain version where pass A finishes every
+    lane, where pass B takes every lane (plastic, or elastic lanes that
+    take Newton steps), and at ragged sizes: equal iteration counts, C and
+    sigma within the bench mix's bounds."""
+    _, mt = mats
+    deps, sn = _edge_input(case)
+    d, s = _soa(deps), _soa(sn)
+    plain = ops_t.mc_return_map(d, s, mt)
+    body = ops_t.mc_return_map_host(d, s, mt)
+    plastic = plain[3] > 0.0
+    if case in ("all_elastic", "elastic_iterating"):
+        assert not bool(plastic.any())
+        assert np.array_equal(body[0].numpy(), np.repeat(mt.C_elas.reshape(16, 1), 64, axis=1))
+        assert bool((plain[2] > 0).all()) == (case == "elastic_iterating")
+    elif case == "all_plastic":
+        assert bool(plastic.all())
+    else:
+        assert bool(plastic[0])
+    assert torch.equal(body[3] > 0.0, plastic)
+    assert np.array_equal(body[2].numpy(), plain[2].numpy())
+    gap_C = _lane_gaps(body[0].T.numpy(), plain[0].T.numpy(), 16)
+    gap_s = _lane_gaps(body[1].T.numpy(), plain[1].T.numpy(), 4)
+    assert gap_C.max() < GAP_C and gap_s.max() < GAP_SIG
+    assert int((gap_C > 1e-10).sum()) <= GAP_LANES and int((gap_s > 1e-10).sum()) <= GAP_LANES
+    assert np.abs(body[3].numpy() - plain[3].numpy()).max() < 1e-13
+    assert np.abs(body[5].numpy() - plain[5].numpy()).max() < 1e-12
+    assert bool(torch.isfinite(body[4]).all()) and float(body[4].max()) < 1e-6
+
+
+@pytest.mark.parametrize("psi_deg", [30, 20])
+def test_kernel_body_role_order(psi_deg):
+    """Each point's roles forward and in reverse give the same bits, on
+    the bench mix with associative flow (4 Jacobian roles) and without
+    (a fifth role evaluates the yield surface's gradient)."""
+    mt = MatT(psi=psi_deg * np.pi / 180)
+    d, s = (_soa(a) for a in _bench_mix(512, seed=8))
+    fwd = ops_t.mc_return_map_host(d, s, mt)
+    rev = ops_t.mc_return_map_host(d, s, mt, reverse=True)
+    assert int((fwd[2] > 0).sum()) > 200
+    for a, b in zip(fwd, rev):
+        assert torch.equal(a, b)
 
 
 def test_sorted_chunks_match_jax_and_unsorted(mats):

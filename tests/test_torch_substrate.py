@@ -97,18 +97,41 @@ def test_plasticity_block_25x25_bitwise():
 
 
 def test_port_imports_no_jax():
-    """The port (with the Mohr-Coulomb material, surface and kernel
-    wrapper), chip_smoke's module-level code and the card-only test file
-    import no JAX."""
+    """The port (with the Mohr-Coulomb material, surface, kernel wrapper
+    and its comparison script), chip_smoke's module-level code and the
+    card-only test file import no JAX."""
     code = ("import sys; import dolfinx_external_operator_torch, chip_smoke; "
             "sys.path.insert(0, 'tests'); import test_torch_cuda; "
             "from dolfinx_external_operator_torch.parallel import spmd; "
             "from dolfinx_external_operator_torch import convert, problems; "
             "from dolfinx_external_operator_torch.models import mohr_coulomb; "
             "from dolfinx_external_operator_torch.ops import abbo_sloan, mohr_coulomb as mc_ops; "
+            "from dolfinx_external_operator_torch.tools import k1_compare; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
             "'dolfinx_external_operator_tpu'))); print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_kernel_tables_list_every_included_file():
+    """Each library's file name hashes the files its table entry lists, so
+    every file that a listed source includes with ``#include "..."`` must be
+    listed too: an edited header then rebuilds the library."""
+    import re
+
+    from dolfinx_external_operator_torch._native import cuda as native
+
+    def included(name, seen):
+        seen.add(name)
+        with open(os.path.join(native.CSRC_DIR, name)) as f:
+            for inc in re.findall(r'^\s*#include\s+"([^"]+)"', f.read(), re.M):
+                if inc not in seen:
+                    included(inc, seen)
+        return seen
+
+    tables = {**{("cuda", k): v for k, v in native.KERNELS.items()},
+              **{("host", k): v for k, v in native._HOST.items()}}
+    for key, (sources, _, _) in tables.items():
+        assert included(sources[0], set()) == set(sources), key
