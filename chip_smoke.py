@@ -39,7 +39,21 @@ Phases, in order; any failed check exits non-zero without the ``ok`` line:
    pass B takes at once spread;
 8. where a main-path step's time goes: the layers of step 50's first
    Newton pass, and step 51 (7 updates) under ``torch.profiler`` (trace in
-   ``chiprun_out/trace_mc_step.json``).
+   ``chiprun_out/trace_mc_step.json``);
+9. the same slope with the block-cyclic-reduction (BCR) solver and the
+   kernel over the 52 steps: the record's Newton list (171 updates, 223
+   kernel calls); its refinement rounds beside the record's 335, and one
+   update's BCR solve beside the dense path's at step 50's first iterate
+   (CUDA events, in turns);
+10. the 100x100 slope (80,802 dofs, 60,000 Gauss points) with
+   ``linear_solver="auto"``, which picks BCR, and the kernel over the first
+   49 loads (the record stops before the collapse at load 22.9): the
+   Newton list of ``docs/records/scaling_100x100_full_tpu_bcr.json`` (239
+   updates, 288 kernel calls), rounds beside the record's 369, peak
+   memory, the levels that fell back to the LU inverse; the layers of step
+   48's first Newton pass (factor and apply beside their bounds), step 48
+   under the profiler (``chiprun_out/trace_bcr_100x100_step.json``), and
+   the kernel against its plain version at that iterate.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  A copy of all measurements goes to
@@ -63,6 +77,7 @@ from dolfinx_external_operator_torch._native import cuda as native
 from dolfinx_external_operator_torch.models import von_mises as vm
 from dolfinx_external_operator_torch.ops import mohr_coulomb as mc_ops
 from dolfinx_external_operator_torch.ops import vonmises as vm_ops
+from dolfinx_external_operator_torch.parallel import bcr
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, f32 and f64
 # outside the tensor cores
@@ -94,8 +109,9 @@ MC_FIXED_F64_OPS = 1590
 # differs by up to about 1e-8 in sigma, more in the tangent; a few lanes
 # in a thousand may then differ in their iteration count
 MC_TOL = {"C": 1e-6, "sig": 1e-7}
-RECORD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs", "records",
-                      "scaling_25x25_full_tpu_bcr_schedule.json")
+RECORDS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs", "records")
+RECORD = os.path.join(RECORDS, "scaling_25x25_full_tpu_bcr_schedule.json")
+RECORD_100 = os.path.join(RECORDS, "scaling_100x100_full_tpu_bcr.json")
 
 MAIN_LOADS = (200.0, 400.0, 600.0)
 F32_TOLS = {"newton_rtol": 1e-5, "newton_atol": 1e-3}
@@ -452,15 +468,20 @@ def kernel_inputs(fp, Du, sig_n):
     return seen[0]
 
 
+def newton_rhs(fp, Du, sig_n, load):
+    """C_tang and the Newton right-hand side -r at the iterate (Du, sig_n)."""
+    C_tang, sigma = fp._constitutive(Du, sig_n)
+    st = fp.statics
+    r = torch.where(st["bc_mask"], Du - st["bc_vals"],
+                    fp._residual(sigma, load, fp._assemble_f()))
+    return C_tang, -r
+
+
 def first_solve_residuals(fp, load, rounds=(0, 1, 2)):
     """Step 1 of the schedule is linear: the residual left by the dense
     path's first update, relative to the load vector, after each number of
     f64 refinement rounds."""
-    Du, sig = fp.zero_state()
-    C_tang, sigma = fp._constitutive(Du, sig)
-    mask = fp.statics["bc_mask"]
-    b = torch.where(mask, Du - fp.statics["bc_vals"],
-                    -fp._residual(sigma, load, fp._assemble_f()))
+    C_tang, b = newton_rhs(fp, *fp.zero_state(), load)
     keep, out = fp._dense_refine, {}
     try:
         for k in rounds:
@@ -508,6 +529,155 @@ def mc_main_path(report):
                          "wall_kernel_s": wall_k, "wall_plain_s": wall_p,
                          "du_rel_err": du_err}
     return fp_k, states, launches
+
+
+def bcr_counts(m, B):
+    """Operations, bytes and blocks of one BCR factorization and one apply
+    as the port runs them (parallel/bcr.py).  Per level of ``no`` odd and
+    ``ne`` even blocks: each odd block a Cholesky (B^3/3), the inverse
+    from it (2B^3/3), V L and V U (2B^3 each); each even block six (B, B)
+    products (A, C, the two of the D update, the new L and U); the root's
+    inversion.  The factorization reads the bands once (3mB^2) and writes
+    A and C (ne each), V, VL and VU (no each) and the root once; the apply
+    reads each of those once and does one (B, B) matvec with each."""
+    bands, ops, blocks = 3 * m, 0, 0
+    while m > 1:
+        no, ne = m // 2, m - m // 2
+        ops += (5 * no + 12 * ne) * B ** 3
+        blocks += 2 * ne + 3 * no
+        m = ne
+    ops += B ** 3
+    blocks += 1
+    return {"factor_ops": ops, "factor_bytes": 4 * B * B * (bands + blocks),
+            "apply_ops": 2 * B * B * blocks, "apply_bytes": 4 * B * B * blocks}
+
+
+def bound(ops, nbytes, flops_per_s=F32_FLOPS_PER_S):
+    t_ops, t_bytes = ops / flops_per_s * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def bcr_25x25_phase(report, fp_dense, state):
+    """Phase 9: the 25x25 slope with BCR and the kernel over the 52 steps;
+    one update's solve beside the dense path's at the iterate ``state``."""
+    with open(RECORD) as f:
+        rec = json.load(f)
+    fp = pt.mohr_coulomb_slope_step(25, 25, route="cuda", linear_solver="bcr")
+    check(fp.linear_solver == "bcr" and (fp._bcr["m"], fp._bcr["B"]) == (26, 204),
+          "25x25 BCR plan")
+    warm_up(fp, pt.SLOPE_LOADS[0])
+    fp.bcr_stats.update(factorizations=0, inv_levels=0)
+    mc_ops.mc_return_map.launches = 0
+    _, its, rounds, walls, _ = run_loads(fp, pt.SLOPE_LOADS)
+    launches = mc_ops.mc_return_map.launches
+    stats = dict(fp.bcr_stats)
+    check(its == rec["newton_per_step"], f"25x25 BCR Newton list {its} != record")
+    check(launches == sum(its) + len(its), f"{launches} launches for Newton {its}")
+    print(f"25x25 slope, BCR + kernel: newton {sum(its)}, launches {launches}, rounds "
+          f"{sum(abs(r) for r in rounds)} (record {rec['cg_total']}; signed {rounds}), "
+          f"levels on the LU inverse {stats['inv_levels']} of {stats['factorizations']} "
+          f"factorizations, {sum(walls):.2f} s, s/step {[round(w, 4) for w in walls]}", flush=True)
+    C_tang, b = newton_rhs(fp_dense, *state, pt.SLOPE_LOADS[49])
+    _, k = fp._bcr_solve(C_tang, b, fp.cg_rtol)
+    times = {"dense_ms": [], "bcr_ms": []}
+    for name in ("dense_ms", "bcr_ms", "bcr_ms", "dense_ms"):
+        fn = ((lambda: fp_dense._dense_solve(C_tang, b)) if name == "dense_ms"
+              else (lambda: fp._bcr_solve(C_tang, b, fp.cg_rtol)))
+        times[name].append(cuda_time_ms(fn, 10, warmup=2))
+    print(f"25x25 step 50, one update's solve (CUDA events, in turns): dense "
+          f"{times['dense_ms']} ms (2 refinement rounds), BCR {times['bcr_ms']} ms "
+          f"({k} rounds)", flush=True)
+    report["bcr_25x25"] = {"newton": its, "rounds": rounds, "launches": launches,
+                           "wall_s": walls, "solve_ms": times, "solve_rounds": k,
+                           "stats": stats}
+    return launches
+
+
+def bcr_layers(fp, Du, sig_n, load):
+    """The layers of one BCR Newton pass at the iterate (Du, sig_n): CUDA
+    events around the eager calls, as the path makes them."""
+    plan, m, B = fp._bcr, fp._bcr["m"], fp._bcr["B"]
+    C_tang, b = newton_rhs(fp, Du, sig_n, load)
+    Tflat = fp._bcr_bands(C_tang)
+    T, d = bcr.equilibrate(Tflat, plan["diag_slot"], m, B)
+    fact = bcr.bcr_factor(T, m, B)
+    return {
+        "constitutive_ms": cuda_time_ms(lambda: fp._constitutive(Du, sig_n), 5, warmup=1),
+        "band_assembly_ms": cuda_time_ms(lambda: fp._bcr_bands(C_tang), 5, warmup=1),
+        "equilibrate_ms": cuda_time_ms(lambda: bcr.equilibrate(Tflat, plan["diag_slot"], m, B),
+                                       5, warmup=1),
+        "factor_ms": cuda_time_ms(lambda: bcr.bcr_factor(T, m, B), 5, warmup=1),
+        "apply_ms": cuda_time_ms(lambda: fp._bcr_apply(fact, d, b), 20, warmup=2),
+        "refine_matvec_ms": cuda_time_ms(lambda: fp._bc_matvec(C_tang, Du), 20, warmup=2),
+        "solve_ms": cuda_time_ms(lambda: fp._bcr_solve(C_tang, b, fp.cg_rtol), 3, warmup=1),
+    }
+
+
+def bcr_100x100_phase(report, mat):
+    """Phase 10: the 100x100 slope through ``auto`` (BCR) with the kernel
+    over the record's 49 loads; then where step 48's time goes."""
+    with open(RECORD_100) as f:
+        rec = json.load(f)
+    loads = pt.SLOPE_LOADS[:rec["steps"]]
+    t0 = time.perf_counter()
+    fp = pt.mohr_coulomb_slope_step(100, 100)
+    setup_s = time.perf_counter() - t0
+    check((fp.n_dofs, fp.nc * fp.nq, fp.linear_solver) == (80802, 60000, "bcr"),
+          f"100x100: {fp.n_dofs} dofs, solver {fp.linear_solver}")
+    m, B = fp._bcr["m"], fp._bcr["B"]
+    check((m, B) == (101, 804), f"100x100 BCR plan m={m} B={B}")
+    warm_up(fp, loads[0])
+    torch.cuda.reset_peak_memory_stats()
+    fp.bcr_stats.update(factorizations=0, inv_levels=0)
+    mc_ops.mc_return_map.launches = 0
+    _, its, rounds, walls, states = run_loads(fp, loads, capture=(47,))
+    launches = mc_ops.mc_return_map.launches
+    peak = torch.cuda.max_memory_allocated()
+    stats = dict(fp.bcr_stats)
+    print(f"100x100 slope, auto -> {fp.linear_solver} (m={m}, B={B}), setup {setup_s:.1f} s: "
+          f"newton {its} ({sum(its)}), launches {launches}, rounds "
+          f"{sum(abs(r) for r in rounds)} (record {rec['cg_total']}; signed {rounds}), "
+          f"{sum(walls):.2f} s, {sum(walls) / len(walls):.3f} s/step, peak memory "
+          f"{peak / 2**30:.2f} GiB, levels on the LU inverse {stats['inv_levels']} of "
+          f"{stats['factorizations']} factorizations", flush=True)
+    print(f"  s/step {[round(w, 3) for w in walls]}", flush=True)
+    check(its == rec["newton_per_step"], f"100x100 Newton list {its} != record")
+    check(launches == sum(its) + len(its), f"{launches} launches for Newton {its}")
+    out = {"newton": its, "rounds": rounds, "launches": launches, "wall_s": walls,
+           "setup_s": setup_s, "peak_bytes": peak, "stats": stats, "m": m, "B": B}
+    report["bcr_100x100"] = out
+
+    Du, sig = states[47]
+    load = loads[47]
+    counts = bcr_counts(m, B)
+    layers = bcr_layers(fp, Du, sig, load)
+    f_bound, f_by = bound(counts["factor_ops"], counts["factor_bytes"])
+    a_bound, a_by = bound(counts["apply_ops"], counts["apply_bytes"])
+    out.update(layers=layers, counts=counts, factor_bound_ms=f_bound, factor_bound_by=f_by,
+               apply_bound_ms=a_bound, apply_bound_by=a_by)
+    print("100x100 layers, step 48 (ms, CUDA events): "
+          + ", ".join(f"{k[:-3]} {v:.3f}" for k, v in layers.items()), flush=True)
+    print(f"  factor {layers['factor_ms']:.2f} ms against {f_bound:.2f} ms ({f_by}: "
+          f"{counts['factor_ops']:.3e} operations, {counts['factor_bytes'] / 1e9:.2f} GB); apply "
+          f"{layers['apply_ms']:.3f} ms against {a_bound:.3f} ms ({a_by}: "
+          f"{counts['apply_bytes'] / 1e9:.2f} GB)", flush=True)
+    prof = profile_step(fp, Du, sig, load, os.path.join(OUT_DIR, "trace_bcr_100x100_step.json"))
+    idle = "not measured" if prof["idle_share"] is None else f"{prof['idle_share']:.1%}"
+    print(f"100x100 step 48 under the profiler: wall {prof['wall_ms']:.1f} ms, device busy "
+          f"{prof['device_busy_ms']:.1f} ms (idle {idle}), {prof['device_events']} device events",
+          flush=True)
+    for name, t in prof["top_ms"][:10]:
+        print(f"  {t:9.3f} ms  {name}", flush=True)
+    out["profile"] = prof
+    k1 = mc_kernel_phase(mat, *kernel_inputs(fp, Du, sig), "100x100 step 48 iterate")
+    print(f"mohr_coulomb 100x100 step 48 iterate n={k1['n']}: {k1['plastic_lanes']} plastic, "
+          f"{k1['listed_lanes']} listed for pass B; kernel {k1['ms'] * 1e3:.2f} us in a graph "
+          f"(traced: pass A {k1['pass_a_ms'] * 1e3:.2f}, pass B {k1['pass_b_ms'] * 1e3:.2f}), "
+          f"plain {k1['plain_ms']:.2f} ms, bound {k1['bound_ms'] * 1e3:.3f} us; rel err C "
+          f"{k1['rel_err_C']:.2e}, sigma {k1['rel_err_sig']:.2e}, niter differs on "
+          f"{k1['niter_diff_lanes']} lanes", flush=True)
+    out["k1"] = k1
+    return launches
 
 
 def main():
@@ -629,6 +799,10 @@ def main():
         print(f"  {t:9.3f} ms  {name}", flush=True)
     report["profile_mc_step"] = prof
 
+    # phases 9-10: the BCR solver at 25x25 and at 100x100
+    bcr_launches = bcr_25x25_phase(report, fp_k, states[49])
+    launches_100 = bcr_100x100_phase(report, mat)
+
     main_shape = shapes[1]
     kernels = [{
         "name": "vonmises_return_map",
@@ -653,6 +827,8 @@ def main():
         "source": "dolfinx_external_operator_torch/csrc/mohr_coulomb.cu",
         "replaces": "dolfinx_external_operator_tpu/models/mohr_coulomb.py:224",
         "launches": mc_launches,
+        "launches_by_path": {"slope_25x25_dense": mc_launches, "slope_25x25_bcr": bcr_launches,
+                             "slope_100x100_bcr": launches_100},
         "max_abs_err": mc_shapes[0]["max_abs_err"],
         "max_rel_err": max(max(s["rel_err_C"], s["rel_err_sig"]) for s in mc_shapes),
         "ms": mc_shapes[0]["ms"],

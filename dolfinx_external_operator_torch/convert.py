@@ -5,7 +5,9 @@ the same keys, shapes and layouts; these helpers take them as numpy (for
 example ``np.asarray(fp.statics[k])`` of a JAX step, or a mid-schedule
 ``(Du, sigma)``) and give the port's tensors.  With
 ``FusedPlasticityStep.from_statics`` a run can continue on the port from a
-state the JAX package produced.
+state the JAX package produced.  A JAX step's BCR lattice map
+(``fp.statics["bcr"]`` and ``fp._bcr_plan``) comes across with
+``bcr_statics_from_numpy``.
 """
 
 from __future__ import annotations
@@ -15,8 +17,8 @@ import torch
 
 from . import resolve_device
 
-__all__ = ["MOHR_COULOMB_PARAMS", "mohr_coulomb_from_params", "statics_from_numpy",
-           "state_from_numpy"]
+__all__ = ["MOHR_COULOMB_PARAMS", "bcr_statics_from_numpy", "mohr_coulomb_from_params",
+           "statics_from_numpy", "state_from_numpy"]
 
 # the constructor arguments of MohrCoulombMaterial, in both packages
 MOHR_COULOMB_PARAMS = ("E", "nu", "c", "phi", "psi", "theta_T", "a", "tol", "max_iter",
@@ -42,6 +44,25 @@ def statics_from_numpy(d, device=None):
         raise KeyError(f"statics lack {sorted(missing)}")
     return {k: torch.tensor(np.asarray(d[k]), dtype=dt, device=dev)
             for k, dt in _STATICS_DTYPES.items()}
+
+
+# the arrays of the BCR lattice map
+_BCR_ARRAYS = ("dst", "diag_fix", "diag_slot", "perm_l2o", "perm_o2l")
+
+
+def bcr_statics_from_numpy(arrays, plan):
+    """The BCR solver's lattice map as ``statics["bcr"]`` of
+    ``FusedPlasticityStep.from_statics``: ``arrays`` keyed as the JAX
+    package's ``fp.statics["bcr"]`` (numpy or convertible), ``plan`` its
+    ``fp._bcr_plan`` ``(m, B, n, sentinel)``.  The result is keyed as
+    ``parallel.bcr.build_bcr_statics`` returns it."""
+    missing = set(_BCR_ARRAYS) - set(arrays)
+    if missing:
+        raise KeyError(f"BCR statics lack {sorted(missing)}")
+    m, B, n, sentinel = (int(v) for v in plan)
+    out = {k: np.asarray(arrays[k]) for k in _BCR_ARRAYS}
+    out.update(m=m, B=B, n=n, sentinel=sentinel)
+    return out
 
 
 def state_from_numpy(Du, sigma_n, device=None):

@@ -1,14 +1,15 @@
 """Fused plasticity load step on one device (PyTorch).
 
 The port of ``dolfinx_external_operator_tpu/parallel/spmd.py::
-FusedPlasticityStep`` for one device and the ``"cg"``, ``"dense"`` and
-``"auto"`` linear solvers.  Per Newton pass:
+FusedPlasticityStep`` for one device and the ``"cg"``, ``"dense"``,
+``"bcr"`` and ``"auto"`` linear solvers.  Per Newton pass:
 
   deps = B @ u_cell                    (einsum over precomputed B-matrices)
   C_tang, sigma = batched return map   (the SoA constitutive kernel)
   r = scatter(B^T sigma) - load        (deterministic gather-table sum)
-  K dx = -r                            (safeguarded Jacobi-CG, or the dense
-                                        f32 factorization + f64 refinement)
+  K dx = -r                            (safeguarded Jacobi-CG, or an f32
+                                        factorization, dense or block-cyclic
+                                        reduction, + f64 refinement)
 
 PyTorch runs eagerly, so the JAX package's ``lax.while_loop``s are Python
 loops: the Newton loop reads the residual norm on the host once per pass
@@ -29,6 +30,7 @@ import torch
 
 from .. import resolve_device
 from ..convert import statics_from_numpy
+from . import bcr as _bcr
 from ..elements import Element
 from ..mesh import Mesh
 from ..quadrature import make_quadrature
@@ -39,8 +41,7 @@ _F = torch.float64
 
 # solvers of the JAX package that are still to be ported, with their
 # ROADMAP queue 1 item
-_NOT_PORTED = {"bcr": "item 5 (BCR direct solver)",
-               "mg": "item 6 (AMG-CG and lagged-elastic solvers)",
+_NOT_PORTED = {"mg": "item 6 (AMG-CG and lagged-elastic solvers)",
                "elastic": "item 6 (AMG-CG and lagged-elastic solvers)"}
 
 
@@ -139,11 +140,14 @@ class FusedPlasticityStep:
     bc_dofs, bc_vals : Dirichlet data on the displacement space.
     body_dir : direction of the unit body force; ``load`` scales it.
     device : ``None`` -> ``"cuda"`` (raises without a card), or ``"cpu"``.
-    linear_solver : ``"cg"``, ``"dense"`` or ``"auto"`` (dense up to 10k
-        dofs).  The JAX package's ``"bcr"``, ``"mg"`` and ``"elastic"`` are
-        not ported yet and raise ``NotImplementedError``.
+    linear_solver : ``"cg"``, ``"dense"``, ``"bcr"`` (block-cyclic
+        reduction, lattice meshes only) or ``"auto"`` (dense up to 10k dofs,
+        BCR up to 130k).  The JAX package's ``"mg"`` and ``"elastic"`` are
+        not ported yet and raise ``NotImplementedError``; so does ``"auto"``
+        where the JAX package would fall back to ``"mg"``.
     dense_refine : f64 refinement rounds after the dense path's f32 solve
-        (the JAX package's ``_dense_refine``, default 1).
+        (the JAX package's ``_dense_refine``, default 1); the other solvers
+        ignore it.
     """
 
     def __init__(self, mesh: Mesh, V, S, batched_kernel, bc_dofs, bc_vals=None,
@@ -155,10 +159,12 @@ class FusedPlasticityStep:
     @classmethod
     def from_statics(cls, statics, batched_kernel, device=None, **opts):
         """A step built on given statics (numpy arrays keyed as the JAX
-        package's ``fp.statics``), e.g. those of a JAX step."""
+        package's ``fp.statics``), e.g. those of a JAX step.  The BCR solver
+        needs ``statics["bcr"]``, the lattice map of ``bcr.build_bcr_statics``
+        (``convert.bcr_statics_from_numpy`` carries a JAX step's across)."""
         self = cls.__new__(cls)
         self.mesh = self.V = self.S = None
-        self._setup({k: np.asarray(v) for k, v in statics.items()},
+        self._setup({k: v if k == "bcr" else np.asarray(v) for k, v in statics.items()},
                     batched_kernel, device, **opts)
         return self
 
@@ -179,16 +185,17 @@ class FusedPlasticityStep:
         self.n_dofs = int(st_np["bc_mask"].shape[0])
         self.nc_pad, self.nq = st_np["B"].shape[:2]
         self.nc = self.nc_pad if self.mesh is None else self.mesh.num_cells
-        if linear_solver == "auto":
-            # the JAX package's crossover (spmd.py:162); above it "auto"
-            # picks BCR or AMG-CG, which are not ported yet
+        auto = linear_solver == "auto"
+        if auto:
+            # the JAX package's crossovers (spmd.py:162-167); above 130k
+            # dofs "auto" picks AMG-CG, which is not ported yet
             linear_solver = "dense" if self.n_dofs <= 10_000 else (
                 "bcr" if self.n_dofs <= 130_000 else "mg")
         if linear_solver in _NOT_PORTED:
             raise NotImplementedError(
                 f"linear_solver={linear_solver!r} is not ported yet: ROADMAP queue 1 "
                 f"{_NOT_PORTED[linear_solver]}")
-        if linear_solver not in ("cg", "dense"):
+        if linear_solver not in ("cg", "dense", "bcr"):
             raise ValueError(f"unknown linear_solver {linear_solver!r}")
         self.linear_solver = linear_solver
         self.statics = statics_from_numpy(st_np, self.device)
@@ -200,6 +207,9 @@ class FusedPlasticityStep:
         self._dense_asm = None
         if linear_solver == "dense":
             self._setup_dense_asm(st_np["dofmap"].astype(np.int64))
+        self._bcr = None
+        if linear_solver == "bcr":
+            self._setup_bcr(st_np, auto)
         # dense-path factorization: "lu" on the CPU, "chol" on the card,
         # from where the statics landed (spmd.py:802-804)
         self._dense_fact = "lu" if dev.type == "cpu" else "chol"
@@ -224,6 +234,59 @@ class FusedPlasticityStep:
             # flat index into the (n + 1, n + 1) matrix
             "flat": torch.as_tensor(uniq, device=dev),
         }
+
+    def _setup_bcr(self, st_np, auto):
+        """Host build of the block-cyclic-reduction map (spmd.py:455-474):
+        the lattice detection and the (cell, a, b) -> row-band slot map,
+        deduplicated as the dense map is (the JAX package's ``segment_sum``
+        into ``sentinel + 1`` slots would need a gather table of
+        ``sentinel`` rows): the element-stiffness entries are summed per
+        unique slot through a padded gather table and written once into a
+        zeroed flat band array."""
+        if self.mesh is not None:
+            info = _bcr.build_bcr_statics(self.mesh, self.V, st_np["bc_mask"])
+        elif "bcr" in st_np:
+            info = st_np["bcr"]
+        else:
+            raise ValueError(
+                "linear_solver='bcr' without a mesh needs statics['bcr'] (the lattice map "
+                "of bcr.build_bcr_statics; convert.bcr_statics_from_numpy carries a JAX "
+                "step's across)")
+        if info is None:
+            if auto:
+                raise NotImplementedError(
+                    "linear_solver='auto' picks BCR at this size, and the mesh is not "
+                    "lattice-structured: the JAX package falls back to AMG-CG ('mg'), which "
+                    f"is not ported yet: ROADMAP queue 1 {_NOT_PORTED['mg']}")
+            raise ValueError(
+                "linear_solver='bcr' requires a lattice-structured mesh (structured-"
+                "rectangle P1/P2; see bcr._lattice_node_perm)")
+        m, B, n, sentinel = (int(info[k]) for k in ("m", "B", "n", "sentinel"))
+        dst = np.asarray(info["dst"], dtype=np.int64).ravel()
+        keep = np.flatnonzero(dst < sentinel)  # padded cells point at the sentinel
+        uniq, inv = np.unique(dst[keep], return_inverse=True)
+        seg = np.full(dst.size, -1, dtype=np.int64)
+        seg[keep] = inv
+        dev = self.device
+        keep_ext = np.concatenate([~st_np["bc_mask"], [False]])
+
+        def t(a):
+            return torch.as_tensor(np.asarray(a, dtype=np.int64), device=dev)
+
+        self._bcr = {
+            "m": m, "B": B, "n": n, "size": sentinel,
+            "table": t(_segment_table(seg, uniq.size)),
+            "slots": t(uniq),
+            "diag_fix": t(info["diag_fix"]),
+            "diag_slot": t(info["diag_slot"]),
+            "perm_l2o": t(info["perm_l2o"]),
+            "perm_o2l": t(info["perm_o2l"]),
+            # bc mask of each cell dof (padded cells: all masked), f32
+            "keep32": torch.as_tensor(keep_ext[st_np["dofmap"]], dtype=torch.float32,
+                                      device=dev),
+        }
+        # levels of the factorizations that fell back to the LU inverse
+        self.bcr_stats = {"factorizations": 0, "inv_levels": 0}
 
     def _assemble_dense_f32(self, K_cell32):
         """Global (n, n) f32 matrix from per-cell (nk, nk) blocks."""
@@ -333,12 +396,9 @@ class FusedPlasticityStep:
         place of the JAX package's blocked triangular inverse, which was a
         TPU workaround; a non-SPD tangent (``info != 0``) takes the
         pivoted-LU inverse instead, as the JAX package does."""
-        st = self.statics
-        mask = st["bc_mask"]
+        mask = self.statics["bc_mask"]
         f32 = torch.float32
-        K_cell = torch.einsum("cqik,cqij,cqjl,cq->ckl", st["B"].to(f32), C_tang.to(f32),
-                              st["B"].to(f32), st["wdet"].to(f32))
-        K = self._assemble_dense_f32(K_cell)
+        K = self._assemble_dense_f32(self._k_cell32(C_tang))
         keep32 = (~mask).to(f32)
         K = K * keep32[:, None] * keep32[None, :] + torch.diag(mask.to(f32))
         d = 1.0 / torch.sqrt(torch.clamp(torch.abs(torch.diagonal(K)), min=1e-30).to(_F))
@@ -365,6 +425,47 @@ class FusedPlasticityStep:
         for _ in range(self._dense_refine):
             x = x + solve32(b - self._bc_matvec(C_tang, x))
         return x, 0
+
+    def _k_cell32(self, C_tang):
+        """Element stiffness in f32 (it only feeds an f32 factorization)."""
+        st = self.statics
+        f32 = torch.float32
+        return torch.einsum("cqik,cqij,cqjl,cq->ckl", st["B"].to(f32), C_tang.to(f32),
+                            st["B"].to(f32), st["wdet"].to(f32))
+
+    def _bcr_bands(self, C_tang):
+        """The flat f32 row bands ``[L | D | U]`` of the bc-masked tangent in
+        lattice numbering, with identity bc and padding rows
+        (spmd.py:745-763)."""
+        plan = self._bcr
+        km = plan["keep32"]
+        K_cell = self._k_cell32(C_tang) * km[:, :, None] * km[:, None, :]
+        Tflat = torch.zeros(plan["size"], dtype=torch.float32, device=self.device)
+        Tflat[plan["slots"]] = _segment_sum(K_cell.reshape(-1), plan["table"])
+        Tflat[plan["diag_fix"]] += 1.0  # unique slots
+        return Tflat
+
+    def _bcr_apply(self, fact, d, rr):
+        """One f32 application of the factorization in the original dof
+        numbering: permute into the lattice, scale, solve, scale back."""
+        plan = self._bcr
+        d64 = d.to(_F)
+        r_lat = torch.cat([rr[plan["perm_l2o"]], rr.new_zeros(plan["m"] * plan["B"] - plan["n"])])
+        x_lat = _bcr.bcr_apply(fact, d * r_lat.to(torch.float32))
+        return (d64 * x_lat.to(_F))[:plan["n"]][plan["perm_o2l"]]
+
+    def _bcr_solve(self, C_tang, b, rtol):
+        """Block-cyclic-reduction direct solve (spmd.py:724-775): the f32
+        factorization of the lattice block-tridiagonal tangent inside f64
+        iterative refinement on the exact element-by-element operator.
+        Returns (dx, signed refinement rounds)."""
+        plan = self._bcr
+        T, d = _bcr.equilibrate(self._bcr_bands(C_tang), plan["diag_slot"], plan["m"],
+                                plan["B"])
+        fact = _bcr.bcr_factor(T, plan["m"], plan["B"], self.bcr_stats)
+        self.bcr_stats["factorizations"] += 1
+        return _bcr.ir_direct(lambda x: self._bc_matvec(C_tang, x),
+                              lambda rr: self._bcr_apply(fact, d, rr), b, rtol)
 
     # ------------------------------------------------------------------
     def _newton(self, Du, sigma_n, load, max_it, cg_rtol, norm0_ref):
@@ -393,6 +494,8 @@ class FusedPlasticityStep:
                 break
             if self.linear_solver == "dense":
                 dx, cg_k = self._dense_solve(C_tang, -r)
+            elif self.linear_solver == "bcr":
+                dx, cg_k = self._bcr_solve(C_tang, -r, cg_rtol)
             else:
                 dx, cg_k = self._cg_solve(C_tang, -r, cg_rtol, self.cg_maxiter)
             Du = Du + dx

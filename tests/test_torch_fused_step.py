@@ -205,7 +205,7 @@ def test_auto_resolves_to_dense():
     assert fp.linear_solver == "dense" and fp._dense_fact == "lu"
 
 
-@pytest.mark.parametrize("solver", ["bcr", "mg", "elastic"])
+@pytest.mark.parametrize("solver", ["mg", "elastic"])
 def test_unported_solvers_raise(solver):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pt.von_mises_block_step(2, 2, "f64", device="cpu", linear_solver=solver)

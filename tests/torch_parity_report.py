@@ -7,8 +7,12 @@ and ``test_torch_slope_step.py`` bound.
 Prints one JSON object: the surface's largest relative gaps (f32 and
 f64), the return map's per-lane gaps on the bench strain mix (port against
 JAX, kernel body against port), the 4x4 slope's Newton lists and Du gaps,
-and the residual that the 25x25 slope's first (linear) dense solve leaves
-after 0, 1 and 2 refinement rounds on the CPU.
+the residual that the 25x25 slope's first (linear) dense solve leaves
+after 0, 1 and 2 refinement rounds on the CPU, and the BCR solver's
+parity: the 12x12 slope over ``test_torch_bcr.LOADS`` (Newton lists, Du
+gaps, signed refinement rounds, port against JAX and against the port's
+dense step) and the 25x25 slope over the 52 steps (Newton lists and
+rounds of both packages).
 """
 import json
 import os
@@ -24,6 +28,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+import test_torch_bcr as tb  # noqa: E402
 import test_torch_mohr_coulomb as tm  # noqa: E402
 import test_torch_slope_step as ts  # noqa: E402
 
@@ -98,7 +103,29 @@ def first_solve_25x25():
     return out
 
 
+def bcr_slope():
+    """The BCR step of both packages on the 12x12 slope (8 loads) and the
+    25x25 slope (the 52-step schedule), and the port's dense step at
+    12x12 (two refinement rounds)."""
+    out, du_port = {}, {}
+    for N, loads in ((12, tb.LOADS), (25, pt.SLOPE_LOADS)):
+        du_j, its_j, cg_j = tb._schedule(tb.StepJ(*tb._jax_slope(N), linear_solver="bcr"), loads)
+        du_t, its_t, cg_t = tb._schedule(
+            pt.mohr_coulomb_slope_step(N, N, route="plain", device="cpu", linear_solver="bcr"),
+            loads)
+        du_port[N] = du_t
+        out[f"{N}x{N}"] = {"newton_jax": its_j, "newton_port": its_t,
+                           "rounds_jax": cg_j, "rounds_port": cg_t,
+                           "du_rel": [_rel(a, b) for a, b in zip(du_t, du_j)]}
+    du_d, its_d, _ = tb._schedule(pt.mohr_coulomb_slope_step(
+        12, 12, route="plain", device="cpu", linear_solver="dense", dense_refine=2))
+    out["12x12"].update(newton_port_dense=its_d,
+                        du_rel_dense=[_rel(a, b) for a, b in zip(du_port[12], du_d)])
+    return out
+
+
 if __name__ == "__main__":
     torch.set_num_threads(2)
     print(json.dumps({"surface": surface(), "return_map": return_map(),
-                      "slope_4x4": slope_4x4(), "first_solve_25x25_cpu": first_solve_25x25()}))
+                      "slope_4x4": slope_4x4(), "first_solve_25x25_cpu": first_solve_25x25(),
+                      "bcr_slope": bcr_slope()}))
