@@ -21,7 +21,7 @@ Phases, in order; any failed check exits non-zero without the ``ok`` line:
    every step, agree with (a) to 1e-3 and launch the kernel once per
    constitutive evaluation; then the layers of one Newton pass timed one by
    one, and the last load step under ``torch.profiler`` (trace in
-   ``chiprun_out/trace_f32_step.json``);
+   ``trace_f32_step.json.gz``);
 5. the CG solver at 8x8 with the f64 return map: Newton list [1, 5, 7];
 6. the main path: the Mohr-Coulomb slope load step on the same 25x25 block
    over the 52-step schedule, dense solver, from the zero state, (a) with
@@ -34,12 +34,12 @@ Phases, in order; any failed check exits non-zero without the ``ok`` line:
    strain mix of ``bench.py:77-83`` at 65,536 points and on the real
    iterate of step 50's first Newton pass, then timed as in phase 3, and
    each of its two passes' device time from the profiler's trace of 20
-   calls (``chiprun_out/trace_mc_passes_*.json``); the lanes that pass A
+   calls (``trace_mc_passes_*.json.gz``); the lanes that pass A
    listed, and how far the iteration counts of the 4 points that a warp of
    pass B takes at once spread;
 8. where a main-path step's time goes: the layers of step 50's first
    Newton pass, and step 51 (7 updates) under ``torch.profiler`` (trace in
-   ``chiprun_out/trace_mc_step.json``);
+   ``trace_mc_step.json.gz``);
 9. the same slope with the block-cyclic-reduction (BCR) solver and the
    kernel over the 52 steps: the record's Newton list (171 updates, 223
    kernel calls); its refinement rounds beside the record's 335, and one
@@ -52,18 +52,39 @@ Phases, in order; any failed check exits non-zero without the ``ok`` line:
    updates, 288 kernel calls), rounds beside the record's 369, peak
    memory, the levels that fell back to the LU inverse; the layers of step
    48's first Newton pass (factor and apply beside their bounds), step 48
-   under the profiler (``chiprun_out/trace_bcr_100x100_step.json``), and
-   the kernel against its plain version at that iterate.
+   under the profiler (``trace_bcr_100x100_step.json.gz``), and
+   the kernel against its plain version at that iterate;
+11. ``entry()``'s program: the 25x25 slope with ``linear_solver="mg"``
+   (AMG-CG, the banded lattice layout) and the kernel over the 52 steps:
+   the record's Newton list (171 updates, 223 kernel calls), inner
+   iterations per update, the levels, peak memory; where step 50's update
+   goes (``mg_setup``, one cycle, the f32 level-0 matvec beside its bound,
+   the f64 refinement matvec; cycle and matvec also from a CUDA graph);
+   one update's solve beside the dense path's (CUDA events, in turns); step
+   51 under the profiler (``trace_mg_step.json.gz``); the first 10
+   steps run again, Du bitwise equal;
+12. the same slope with ``linear_solver="elastic"`` (the lagged f32
+   inverse as the preconditioner): 171 updates, 223 kernel calls, inner
+   iterations, s/step;
+13. the 100x100 slope with AMG-CG through ``run_step_host(forcing=False)``,
+   the protocol of ``docs/records/scaling_100x100_full_tpu.json``, over its
+   first ``MG_100_STEPS`` loads: that record's Newton counts, the host
+   build's time, inner iterations per update beside the record's, peak
+   memory, one solve beside a BCR solve of the same system (in turns), and
+   the layers of that update.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  A copy of all measurements goes to
 ``chiprun_out/chip_smoke.json``.  Exits non-zero, printing no result, when
-no CUDA device is present.
+no CUDA device is present.  The profiler traces (``trace_*.json.gz``) go
+beside the measurements.
 """
 
+import gzip
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -77,7 +98,7 @@ from dolfinx_external_operator_torch._native import cuda as native
 from dolfinx_external_operator_torch.models import von_mises as vm
 from dolfinx_external_operator_torch.ops import mohr_coulomb as mc_ops
 from dolfinx_external_operator_torch.ops import vonmises as vm_ops
-from dolfinx_external_operator_torch.parallel import bcr
+from dolfinx_external_operator_torch.parallel import bcr, mg
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, f32 and f64
 # outside the tensor cores
@@ -112,6 +133,10 @@ MC_TOL = {"C": 1e-6, "sig": 1e-7}
 RECORDS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs", "records")
 RECORD = os.path.join(RECORDS, "scaling_25x25_full_tpu_bcr_schedule.json")
 RECORD_100 = os.path.join(RECORDS, "scaling_100x100_full_tpu_bcr.json")
+RECORD_100_MG = os.path.join(RECORDS, "scaling_100x100_full_tpu.json")
+# load steps of the 100x100 AMG-CG phase: all of the record's (the next
+# load is the collapse, where Newton fails)
+MG_100_STEPS = 49
 
 MAIN_LOADS = (200.0, 400.0, 600.0)
 F32_TOLS = {"newton_rtol": 1e-5, "newton_atol": 1e-3}
@@ -206,6 +231,17 @@ def cuda_time_ms(fn, reps, warmup=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def wall_time_ms(fn, reps):
+    """Host time per call, from the first call's start to the card's end
+    of the last: for work that is mostly the host's (a graph's capture)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
 
 
 def graph_time_ms(fn, reps):
@@ -319,9 +355,10 @@ def layer_phase(fp, Du, sig_n, load):
 
 
 def traced(fn, path):
-    """Run ``fn`` under torch.profiler and write its trace to ``path``:
-    the wall seconds, the milliseconds of the card's events (kernels,
-    copies and fills) by name, and their count."""
+    """Run ``fn`` under torch.profiler and write its trace, gzipped, to
+    ``path`` + ``.gz``: the wall seconds, the milliseconds of the card's
+    events (kernels, copies and fills) by name, their count, and the count
+    of the host's launch calls (kernels, graphs, copies and fills)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -333,29 +370,34 @@ def traced(fn, path):
     prof.export_chrome_trace(path)
     with open(path) as f:
         events = json.load(f)["traceEvents"]
+    with open(path, "rb") as f, gzip.open(path + ".gz", "wb") as g:
+        shutil.copyfileobj(f, g)
+    os.remove(path)
     dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    host_launches = sum(1 for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                        and re.search("Launch|Memcpy|Memset", e.get("name", "")))
     by_name = {}
     for e in dev:
         by_name[e["name"][:100]] = by_name.get(e["name"][:100], 0.0) + e["dur"] * 1e-3
-    return wall, by_name, len(dev)
+    return wall, by_name, len(dev), host_launches
 
 
 def profile_step(fp, Du, sig_n, load, path):
     """One load step under torch.profiler: wall time, the card's busy time
     and the kernels that take it."""
-    wall, by_name, events = traced(lambda: fp.run_step(Du, sig_n, load), path)
+    wall, by_name, events, launches = traced(lambda: fp.run_step(Du, sig_n, load), path)
     busy_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / (wall * 1e3) if events else None,
-            "device_events": events, "top_ms": top}
+            "device_events": events, "host_launches": launches, "top_ms": top}
 
 
 def pass_times_ms(fn, path, reps=20):
     """Device milliseconds per call of the Mohr-Coulomb kernel's two passes
     (by kernel name) in the profiler's trace of ``reps`` calls of ``fn``."""
     fn()
-    _, by_name, _ = traced(lambda: [fn() for _ in range(reps)], path)
+    _, by_name, _, _ = traced(lambda: [fn() for _ in range(reps)], path)
     times = [sum(ms for name, ms in by_name.items() if kernel in name) / reps
              for kernel in ("mc_trial_pass", "mc_plastic_pass")]
     check(all(t > 0.0 for t in times), f"no pass of the kernel in the trace: {sorted(by_name)}")
@@ -680,6 +722,270 @@ def bcr_100x100_phase(report, mat):
     return launches
 
 
+def mg_counts(plan, gamma, nc, nk):
+    """Bytes and operations of ``mg_setup`` and of one cycle as the port
+    runs them (banded level 0).  Each level's operator has ``nnz`` values:
+    bands x rows (banded), n^2 (dense), rows x ELL width.  A cycle applies
+    the level-0 operator 6 times (2 pre-smoothing, the residual, 3
+    post-smoothing), each level k below it 6 times per visit plus
+    gamma_k - 1 residuals on level k + 1, and the coarse inverse once per
+    visit of the coarsest level (visits multiply by gamma_k level by
+    level); it reads each level's values and the coarse inverse once, r in
+    and z out.  Setup reads the (nc, nk, nk) element blocks, writes every
+    level's values (ELL, bands, dense) and the coarse inverse, and does the
+    per-cell triple product (nk x nk1 by nk x nk), 8 power iterations per
+    level and the (nL, nL) inverse; f32 throughout."""
+    levels = plan["levels"]
+    L = len(levels)
+    gammas = (gamma,) if isinstance(gamma, int) else tuple(gamma)
+
+    def nnz(lvl):
+        return {"dia": lvl.get("dia", {}).get("nb", 0) * lvl["n"], "dense": lvl["n"] ** 2,
+                "ell": lvl["n"] * lvl["cols"].shape[1]}[lvl["kind"]]
+
+    nnz0 = plan["dia0"]["nb"] * plan["n0"]
+    nL = levels[-1]["n"]
+    ops, visits = 6 * nnz0, 1
+    for k in range(1, L):
+        g = gammas[min(k - 1, len(gammas) - 1)]
+        ops += visits * (6 * nnz(levels[k - 1]) + (g - 1) * nnz(levels[k]))
+        visits *= g
+    ops = 2 * (ops + visits * nL * nL)
+    values = nnz0 + sum(nnz(lvl) for lvl in levels) + nL * nL
+    ell = sum(lvl["n"] * lvl["cols"].shape[1] for lvl in levels)
+    nk1 = plan["transfers"][0]["W"].shape[2]
+    setup_ops = (2 * nc * nk * nk1 * (nk + nk1) + 8 * 2 * (nnz0 + sum(nnz(lvl) for lvl in levels))
+                 + 2 * nL ** 3)
+    return {"cycle_ops": ops, "cycle_bytes": 4 * (values + 2 * plan["n0"]),
+            "setup_ops": setup_ops, "setup_bytes": 4 * (nc * nk * nk + values + ell)}
+
+
+def mg_layers(fp, Du, sig_n, load):
+    """Where one AMG-CG update's time goes at the iterate (Du, sig_n): CUDA
+    events around the eager calls (``mg_setup``, one cycle, the f32
+    level-0 matvec and the f64 refinement matvec), and the cycle and the
+    level-0 matvec replayed from a CUDA graph (device time without the
+    host's launches); one ``mg.cuda_graphed`` call on the host's clock (its
+    eager warm-up cycle and the capture, as every mg solve makes them); one
+    whole solve and its inner iterations; bounds from ``mg_counts``, and for the level-0
+    matvec its bands and x read once, its result written once, or its
+    multiply-adds at the f32 peak."""
+    plan = fp._mg
+    C_tang, b = newton_rhs(fp, Du, sig_n, load)
+    K_cell = fp._k_cell_masked(C_tang)
+    K32 = K_cell.to(torch.float32)
+    rt = mg.mg_setup(plan, K32)
+    r = b.to(torch.float32)
+    if fp._mg_mv0_mode == "dia":
+        r = torch.where(plan["mask0_lat"], 0.0, r[plan["perm0_l2o"]])
+    mv64 = mg.ebe_matvec(K_cell, plan["ebe"])
+    n, nb = fp.n_dofs, plan["dia0"]["nb"]
+    counts = mg_counts(plan, fp._mg_gamma, *K32.shape[:2])
+    bounds = {"mv0": bound(2 * nb * n, 4 * n * (nb + 2)),
+              "vcycle": bound(counts["cycle_ops"], counts["cycle_bytes"]),
+              "mg_setup": bound(counts["setup_ops"], counts["setup_bytes"])}
+
+    def cycle():
+        return mg.vcycle(plan, rt, r, gamma_coarse=fp._mg_gamma)
+
+    mask = plan["mask0_lat"] if fp._mg_mv0_mode == "dia" else fp.statics["bc_mask"]
+
+    def M32(x):
+        return torch.where(mask, x, mg.vcycle(plan, rt, torch.where(mask, 0.0, x),
+                                              gamma_coarse=fp._mg_gamma))
+
+    out = {
+        "mg_setup_ms": cuda_time_ms(lambda: mg.mg_setup(plan, K32), 5, warmup=1),
+        "vcycle_ms": cuda_time_ms(cycle, 20, warmup=3),
+        "vcycle_graph_ms": graph_time_ms(cycle, 10),
+        "mv0_f32_ms": cuda_time_ms(lambda: rt["mv0"](r), 50, warmup=5),
+        "mv0_f32_graph_ms": graph_time_ms(lambda: rt["mv0"](r), 50),
+        "refine_mv64_ms": cuda_time_ms(lambda: mv64(b), 50, warmup=5),
+        "capture_ms": wall_time_ms(lambda: mg.cuda_graphed(M32, r), 3),
+        "solve_ms": cuda_time_ms(lambda: fp._mg_solve(C_tang, b, fp.cg_rtol), 3, warmup=1),
+        "solve_inner": fp._mg_solve(C_tang, b, fp.cg_rtol)[1],
+        "mv0_bands": nb, "counts": counts,
+    }
+    for name, (ms, by) in bounds.items():
+        out[f"{name}_bound_ms"], out[f"{name}_bound_by"] = ms, by
+    return out
+
+
+def print_mg_layers(title, layers):
+    print(f"{title} (ms, CUDA events; capture on the host's clock): "
+          + ", ".join(f"{k[:-3]} {v:.4f}" for k, v in layers.items()
+                      if k.endswith("_ms") and "bound" not in k)
+          + f"; the solve's inner iterations {layers['solve_inner']}", flush=True)
+    print("  bounds (ms): " + ", ".join(
+        f"{k[:-9]} {layers[k]:.4g} ({layers[k[:-3] + '_by']})"
+        for k in layers if k.endswith("_bound_ms")), flush=True)
+
+
+def mg_25x25_phase(report, fp_dense, state):
+    """Phase 11: ``entry()``'s program, the 25x25 slope with AMG-CG (dia
+    mode) and the kernel over the 52 steps; where step 50's update goes;
+    one update's solve beside the dense path's at the iterate ``state``;
+    step 51 profiled; the first 10 steps again, bitwise."""
+    with open(RECORD) as f:
+        rec = json.load(f)["newton_per_step"]
+    loads = pt.SLOPE_LOADS
+    fp = pt.mohr_coulomb_slope_step(25, 25, route="cuda", linear_solver="mg")
+    check(fp.linear_solver == "mg" and fp._mg_mv0_mode == "dia" and fp.mg_sizes[0] == 5202,
+          f"25x25 mg: {fp.linear_solver}, {fp._mg_mv0_mode}, {fp.mg_sizes}")
+    warm_up(fp, loads[0])
+    torch.cuda.reset_peak_memory_stats()
+    mc_ops.mc_return_map.launches = 0
+    _, its, inner, walls, states = run_loads(fp, loads, capture=(10, 49, 50))
+    launches = mc_ops.mc_return_map.launches
+    peak = torch.cuda.max_memory_allocated()
+    print(f"25x25 slope, mg (dia) + kernel: newton {sum(its)}, launches {launches}, inner "
+          f"{sum(inner)} ({sum(inner) / sum(its):.1f} per update), levels {fp.mg_sizes} "
+          f"({[lvl['kind'] for lvl in fp._mg['levels']]}), {sum(walls):.2f} s, "
+          f"{sum(walls) / len(walls):.4f} s/step, peak memory {peak / 2**30:.3f} GiB", flush=True)
+    print(f"  inner per step {inner}", flush=True)
+    print(f"  s/step {[round(w, 4) for w in walls]}", flush=True)
+    check(its == rec, f"25x25 mg Newton list {its} != record {rec}")
+    check(launches == sum(its) + len(its), f"{launches} launches for Newton {its}")
+    out = {"newton": its, "inner": inner, "launches": launches, "wall_s": walls,
+           "peak_bytes": peak, "levels": fp.mg_sizes,
+           "kinds": [lvl["kind"] for lvl in fp._mg["levels"]]}
+    report["mg_25x25"] = out
+
+    Du, sig = states[49]
+    layers = mg_layers(fp, Du, sig, loads[49])
+    out["layers"] = layers
+    print_mg_layers("25x25 mg layers, step 50", layers)
+    C_tang, b = newton_rhs(fp_dense, *state, loads[49])
+    _, k = fp._mg_solve(C_tang, b, fp.cg_rtol)
+    times = {"dense_ms": [], "mg_ms": []}
+    for name in ("dense_ms", "mg_ms", "mg_ms", "dense_ms"):
+        fn = ((lambda: fp_dense._dense_solve(C_tang, b)) if name == "dense_ms"
+              else (lambda: fp._mg_solve(C_tang, b, fp.cg_rtol)))
+        times[name].append(cuda_time_ms(fn, 5, warmup=1))
+    print(f"25x25 step 50, one update's solve (CUDA events, in turns): dense {times['dense_ms']} "
+          f"ms, mg {times['mg_ms']} ms ({k} inner iterations)", flush=True)
+    out.update(solve_ms=times, solve_inner=k)
+
+    Du, sig = states[50]
+    prof = profile_step(fp, Du, sig, loads[50], os.path.join(OUT_DIR, "trace_mg_step.json"))
+    _, _, _, it51, k51 = fp.run_step(Du, sig, loads[50])
+    idle = "not measured" if prof["idle_share"] is None else f"{prof['idle_share']:.1%}"
+    print(f"25x25 mg step 51 under the profiler: wall {prof['wall_ms']:.1f} ms, device busy "
+          f"{prof['device_busy_ms']:.1f} ms (idle {idle}), {prof['device_events']} device events "
+          f"and {prof['host_launches']} launch calls of the host for {it51} updates and {k51} "
+          f"inner iterations ({prof['device_events'] / max(k51, 1):.0f} and "
+          f"{prof['host_launches'] / max(k51, 1):.0f} per inner iteration)", flush=True)
+    for name, t in prof["top_ms"][:8]:
+        print(f"  {t:9.3f} ms  {name}", flush=True)
+    out["profile"] = dict(prof, updates=it51, inner=k51)
+
+    Du10, _ = states[10]
+    Du_again, *_ = run_loads(fp, loads[:10])
+    check(torch.equal(Du_again, Du10), "25x25 mg: the first 10 steps run twice differ")
+    print("25x25 mg: the first 10 steps run a second time give Du bitwise equal", flush=True)
+    return launches
+
+
+def elastic_25x25_phase(report):
+    """Phase 12: the 25x25 slope with the lagged-elastic solver and the
+    kernel over the 52 steps."""
+    with open(RECORD) as f:
+        rec = json.load(f)["newton_per_step"]
+    t0 = time.perf_counter()
+    fp = pt.mohr_coulomb_slope_step(25, 25, route="cuda", linear_solver="elastic")
+    setup_s = time.perf_counter() - t0
+    # the warm-up step refreshes the lagged preconditioner: the schedule
+    # starts again from the elastic one
+    first = fp._el_precond
+    warm_up(fp, pt.SLOPE_LOADS[0])
+    fp._el_precond = first
+    mc_ops.mc_return_map.launches = 0
+    _, its, inner, walls, states = run_loads(fp, pt.SLOPE_LOADS, capture=(49,))
+    launches = mc_ops.mc_return_map.launches
+    print(f"25x25 slope, elastic + kernel: newton {sum(its)}, launches {launches}, inner "
+          f"{sum(inner)} ({sum(inner) / sum(its):.1f} per update), setup {setup_s:.2f} s, "
+          f"{sum(walls):.2f} s, {sum(walls) / len(walls):.4f} s/step", flush=True)
+    print(f"  inner per step {inner}", flush=True)
+    check(its == rec, f"25x25 elastic Newton list {its} != record {rec}")
+    check(launches == sum(its) + len(its), f"{launches} launches for Newton {its}")
+    # the end-of-step refresh at step 50's first tangent: the SPD inverse
+    # does n^3 operations (Cholesky, triangular inverse and the product,
+    # n^3 / 3 each); it reads the f32 element blocks and writes the inverse
+    C_tang, _ = fp._constitutive(*states[49])
+    n, (nc, nk) = fp.n_dofs, fp.statics["dofmap"].shape
+    refresh_bound, refresh_by = bound(n ** 3, 4 * (nc * nk * nk + n * n + n))
+    refresh_ms = cuda_time_ms(lambda: fp._refresh_elastic(C_tang), 5, warmup=1)
+    print(f"  end-of-step refresh at step 50: {refresh_ms:.3f} ms against {refresh_bound:.4g} ms "
+          f"({refresh_by})", flush=True)
+    report["elastic_25x25"] = {"newton": its, "inner": inner, "launches": launches,
+                               "wall_s": walls, "setup_s": setup_s, "refresh_ms": refresh_ms,
+                               "refresh_bound_ms": refresh_bound, "refresh_bound_by": refresh_by}
+    return launches
+
+
+def mg_100x100_phase(report, steps=MG_100_STEPS):
+    """Phase 13: the 100x100 slope with AMG-CG through ``run_step_host(
+    forcing=False)``, the protocol of the AMG-CG record, over its first
+    ``steps`` loads; one solve at the last step's first iterate beside one
+    BCR solve of the same system, in turns."""
+    with open(RECORD_100_MG) as f:
+        rec = json.load(f)
+    loads = pt.SLOPE_LOADS[:steps]
+    t0 = time.perf_counter()
+    fp = pt.mohr_coulomb_slope_step(100, 100, route="cuda", linear_solver="mg")
+    build_s = time.perf_counter() - t0
+    check((fp.n_dofs, fp.nc * fp.nq, fp._mg_mv0_mode) == (80802, 60000, "dia"),
+          f"100x100 mg: {fp.n_dofs} dofs, {fp._mg_mv0_mode}")
+    torch.cuda.reset_peak_memory_stats()
+    mc_ops.mc_return_map.launches = 0
+    Du, sig = fp.zero_state()
+    its, inner, walls = [], [], []
+    for k, load in enumerate(loads):
+        if k == steps - 1:
+            state = (Du.clone(), sig.clone())
+        t = time.perf_counter()
+        Du, sig, norm, it, cg = fp.run_step_host(Du, sig, load, forcing=False)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        check(np.isfinite(float(norm)), f"non-finite residual at load {load}")
+        its.append(int(it))
+        inner.append(int(cg))
+    launches = mc_ops.mc_return_map.launches
+    peak = torch.cuda.max_memory_allocated()
+    ref = rec["newton_per_step"][:steps]
+    print(f"100x100 slope, mg (dia) + kernel, host-driven, {steps} steps: host build "
+          f"{build_s:.1f} s, levels {fp.mg_sizes} ({[lvl['kind'] for lvl in fp._mg['levels']]}), "
+          f"newton {its} ({sum(its)}), launches {launches}, inner {inner} "
+          f"({sum(inner) / sum(its):.1f} per update; the record {rec['cg_total']} / "
+          f"{rec['newton_total']} = {rec['cg_total'] / rec['newton_total']:.1f}), "
+          f"{sum(walls):.2f} s, {sum(walls) / len(walls):.3f} s/step, peak memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    print(f"  s/step {[round(w, 3) for w in walls]}", flush=True)
+    check(its == ref, f"100x100 mg Newton list {its} != the record's first {steps} {ref}")
+    check(launches == sum(its) + len(its), f"{launches} launches for Newton {its}")
+    out = {"newton": its, "inner": inner, "launches": launches, "wall_s": walls,
+           "build_s": build_s, "peak_bytes": peak, "levels": fp.mg_sizes, "steps": steps}
+    report["mg_100x100"] = out
+
+    fp_bcr = pt.mohr_coulomb_slope_step(100, 100, route="cuda", linear_solver="bcr")
+    C_tang, b = newton_rhs(fp, *state, loads[-1])
+    _, k_mg = fp._mg_solve(C_tang, b, fp.cg_rtol)
+    _, k_bcr = fp_bcr._bcr_solve(C_tang, b, fp.cg_rtol)
+    times = {"bcr_ms": [], "mg_ms": []}
+    for name in ("bcr_ms", "mg_ms", "mg_ms", "bcr_ms"):
+        fn = ((lambda: fp_bcr._bcr_solve(C_tang, b, fp.cg_rtol)) if name == "bcr_ms"
+              else (lambda: fp._mg_solve(C_tang, b, fp.cg_rtol)))
+        times[name].append(cuda_time_ms(fn, 2, warmup=1))
+    print(f"100x100 step {steps}, one update's solve (CUDA events, in turns): BCR "
+          f"{times['bcr_ms']} ms ({k_bcr} rounds), mg {times['mg_ms']} ms ({k_mg} inner "
+          f"iterations)", flush=True)
+    out.update(solve_ms=times, solve_inner=k_mg, solve_bcr_rounds=k_bcr)
+    layers = mg_layers(fp, *state, loads[-1])
+    out["layers"] = layers
+    print_mg_layers(f"100x100 mg layers, step {steps}", layers)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -802,6 +1108,11 @@ def main():
     # phases 9-10: the BCR solver at 25x25 and at 100x100
     bcr_launches = bcr_25x25_phase(report, fp_k, states[49])
     launches_100 = bcr_100x100_phase(report, mat)
+    # phases 11-13: AMG-CG at 25x25 (entry()'s program), the lagged-elastic
+    # solver at 25x25, AMG-CG at 100x100
+    mg_launches = mg_25x25_phase(report, fp_k, states[49])
+    elastic_launches = elastic_25x25_phase(report)
+    mg_launches_100 = mg_100x100_phase(report)
 
     main_shape = shapes[1]
     kernels = [{
@@ -828,7 +1139,9 @@ def main():
         "replaces": "dolfinx_external_operator_tpu/models/mohr_coulomb.py:224",
         "launches": mc_launches,
         "launches_by_path": {"slope_25x25_dense": mc_launches, "slope_25x25_bcr": bcr_launches,
-                             "slope_100x100_bcr": launches_100},
+                             "slope_100x100_bcr": launches_100, "slope_25x25_mg": mg_launches,
+                             "slope_25x25_elastic": elastic_launches,
+                             "slope_100x100_mg": mg_launches_100},
         "max_abs_err": mc_shapes[0]["max_abs_err"],
         "max_rel_err": max(max(s["rel_err_C"], s["rel_err_sig"]) for s in mc_shapes),
         "ms": mc_shapes[0]["ms"],

@@ -17,6 +17,10 @@ Abbo-Sloan surface (``ops.abbo_sloan``), the material and its plain f64
 return map (``models.mohr_coulomb``), and the return map as the CUDA kernel
 ``ops.mohr_coulomb`` (one thread per Gauss point).
 
+The fused step's other solvers: block-cyclic reduction on lattice meshes
+(``parallel.bcr``), and CG preconditioned by aggregation AMG
+(``parallel.mg``) or by a lagged elastic inverse.
+
 Entry points take ``device=None``, meaning ``"cuda"``; without a card they
 raise unless the caller passes ``device="cpu"``.
 """

@@ -7,7 +7,8 @@ example ``np.asarray(fp.statics[k])`` of a JAX step, or a mid-schedule
 ``FusedPlasticityStep.from_statics`` a run can continue on the port from a
 state the JAX package produced.  A JAX step's BCR lattice map
 (``fp.statics["bcr"]`` and ``fp._bcr_plan``) comes across with
-``bcr_statics_from_numpy``.
+``bcr_statics_from_numpy``, its AMG hierarchy (``fp.statics["mg"]`` and the
+static ``fp._mg_*`` attributes) with ``mg_statics_from_numpy``.
 """
 
 from __future__ import annotations
@@ -17,8 +18,8 @@ import torch
 
 from . import resolve_device
 
-__all__ = ["MOHR_COULOMB_PARAMS", "bcr_statics_from_numpy", "mohr_coulomb_from_params",
-           "statics_from_numpy", "state_from_numpy"]
+__all__ = ["MOHR_COULOMB_PARAMS", "bcr_statics_from_numpy", "mg_statics_from_numpy",
+           "mohr_coulomb_from_params", "statics_from_numpy", "state_from_numpy"]
 
 # the constructor arguments of MohrCoulombMaterial, in both packages
 MOHR_COULOMB_PARAMS = ("E", "nu", "c", "phi", "psi", "theta_T", "a", "tol", "max_iter",
@@ -62,6 +63,36 @@ def bcr_statics_from_numpy(arrays, plan):
     m, B, n, sentinel = (int(v) for v in plan)
     out = {k: np.asarray(arrays[k]) for k in _BCR_ARRAYS}
     out.update(m=m, B=B, n=n, sentinel=sentinel)
+    return out
+
+
+def mg_statics_from_numpy(arrays, *, dia0_offsets, dia1_offsets, t0_stencil, lat_shapes,
+                          cheb_degree, gamma_coarse, mv0_mode):
+    """The AMG hierarchy as ``statics["mg"]`` of
+    ``FusedPlasticityStep.from_statics``: ``arrays`` is a JAX step's
+    ``fp.statics["mg"]`` (nested dicts and lists of arrays, numpy or
+    convertible), the keywords its static attributes ``fp._mg_dia_offsets``,
+    ``_mg_dia1_offsets``, ``_mg_t0_stencil``, ``_mg_lat_shapes``,
+    ``_mg_cheb_degree``, ``_mg_gamma`` and ``_mg_mv0_mode`` (the mode the
+    step resolved to).  The result is keyed as
+    ``parallel.mg.build_mg_statics`` returns it, plus ``gamma_coarse`` and
+    ``mv0_mode``."""
+    missing = {"levels", "transfers", "coarse_rows"} - set(arrays)
+    if missing:
+        raise KeyError(f"mg statics lack {sorted(missing)}")
+
+    def host(v):
+        if isinstance(v, dict):
+            return {k: host(x) for k, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            return [host(x) for x in v]
+        return np.asarray(v)
+
+    out = host(dict(arrays))
+    static = {"dia0_offsets": dia0_offsets, "dia1_offsets": dia1_offsets,
+              "t0_stencil": t0_stencil, "lat_shapes": lat_shapes}
+    out.update({k: v for k, v in static.items() if v is not None})
+    out.update(cheb_degree=int(cheb_degree), gamma_coarse=gamma_coarse, mv0_mode=mv0_mode)
     return out
 
 

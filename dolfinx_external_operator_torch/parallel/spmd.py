@@ -1,29 +1,34 @@
 """Fused plasticity load step on one device (PyTorch).
 
 The port of ``dolfinx_external_operator_tpu/parallel/spmd.py::
-FusedPlasticityStep`` for one device and the ``"cg"``, ``"dense"``,
-``"bcr"`` and ``"auto"`` linear solvers.  Per Newton pass:
+FusedPlasticityStep`` for one device and every linear solver of the JAX
+package: ``"cg"``, ``"dense"``, ``"bcr"``, ``"mg"``, ``"elastic"`` and
+``"auto"``.  Per Newton pass:
 
   deps = B @ u_cell                    (einsum over precomputed B-matrices)
   C_tang, sigma = batched return map   (the SoA constitutive kernel)
   r = scatter(B^T sigma) - load        (deterministic gather-table sum)
-  K dx = -r                            (safeguarded Jacobi-CG, or an f32
+  K dx = -r                            (safeguarded Jacobi-CG; an f32
                                         factorization, dense or block-cyclic
-                                        reduction, + f64 refinement)
+                                        reduction, + f64 refinement; or f32
+                                        PCG, preconditioned by AMG or by a
+                                        lagged elastic inverse, inside f64
+                                        refinement)
 
 PyTorch runs eagerly, so the JAX package's ``lax.while_loop``s are Python
 loops: the Newton loop reads the residual norm on the host once per pass
-and CG once per iteration.  Both keep the JAX semantics exactly (see
-``_newton``).
+and the Krylov loops once per iteration.  They keep the JAX semantics
+exactly (see ``_newton``).
 
 Scatter-adds never use ``index_add_``, whose CUDA form uses atomics: each
-dof sums a fixed, padded table of its (cell, local dof) contributions in
-increasing order, so results are bitwise repeatable on every device.
+destination sums a fixed, padded table of its contributions in increasing
+order (``scatter.py``), so results are bitwise repeatable on every device.
 """
 
 from __future__ import annotations
 
 import math
+import warnings
 
 import numpy as np
 import torch
@@ -31,6 +36,8 @@ import torch
 from .. import resolve_device
 from ..convert import statics_from_numpy
 from . import bcr as _bcr
+from . import mg as _mg
+from .scatter import dedup_table, dedup_write, segment_sum, segment_table
 from ..elements import Element
 from ..mesh import Mesh
 from ..quadrature import make_quadrature
@@ -38,11 +45,6 @@ from ..quadrature import make_quadrature
 __all__ = ["FusedPlasticityStep", "host_statics"]
 
 _F = torch.float64
-
-# solvers of the JAX package that are still to be ported, with their
-# ROADMAP queue 1 item
-_NOT_PORTED = {"mg": "item 6 (AMG-CG and lagged-elastic solvers)",
-               "elastic": "item 6 (AMG-CG and lagged-elastic solvers)"}
 
 
 def host_statics(mesh: Mesh, V, S, bc_dofs, bc_vals=None, body_dir=(0.0, -1.0)):
@@ -101,30 +103,6 @@ def host_statics(mesh: Mesh, V, S, bc_dofs, bc_vals=None, body_dir=(0.0, -1.0)):
     }
 
 
-def _segment_table(seg, n_segments):
-    """Padded gather table for a deterministic segment sum: row ``s`` lists,
-    in increasing order, the positions ``i`` with ``seg[i] == s``; the pad
-    entry is ``len(seg)``, which points at an appended zero.  Segment ids
-    outside ``[0, n_segments)`` (padded cells) are dropped."""
-    seg = np.asarray(seg, dtype=np.int64).ravel()
-    pad = seg.size
-    keep = np.flatnonzero((seg >= 0) & (seg < n_segments))
-    order = keep[np.argsort(seg[keep], kind="stable")]
-    s_sorted = seg[order]
-    counts = np.bincount(s_sorted, minlength=n_segments)
-    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    slot = np.arange(order.size) - starts[s_sorted]
-    table = np.full((n_segments, max(int(counts.max(initial=0)), 1)), pad, dtype=np.int64)
-    table[s_sorted, slot] = order
-    return table
-
-
-def _segment_sum(vals, table):
-    """``vals`` flat (m,) -> (n_segments,) sums by ``_segment_table``."""
-    ext = torch.cat([vals, vals.new_zeros(1)])
-    return ext[table].sum(dim=1)
-
-
 class FusedPlasticityStep:
     """Fused Newton load step for vector-displacement / quadrature-stress
     plasticity on one device.
@@ -141,13 +119,25 @@ class FusedPlasticityStep:
     body_dir : direction of the unit body force; ``load`` scales it.
     device : ``None`` -> ``"cuda"`` (raises without a card), or ``"cpu"``.
     linear_solver : ``"cg"``, ``"dense"``, ``"bcr"`` (block-cyclic
-        reduction, lattice meshes only) or ``"auto"`` (dense up to 10k dofs,
-        BCR up to 130k).  The JAX package's ``"mg"`` and ``"elastic"`` are
-        not ported yet and raise ``NotImplementedError``; so does ``"auto"``
-        where the JAX package would fall back to ``"mg"``.
+        reduction, lattice meshes only), ``"mg"`` (aggregation AMG as the
+        preconditioner of mixed-precision CG), ``"elastic"`` (a dense f32
+        inverse of the tangent, lagged one load step, as the
+        preconditioner) or ``"auto"`` (dense up to 10k dofs, BCR up to 130k,
+        AMG-CG above that and wherever BCR finds no lattice).
     dense_refine : f64 refinement rounds after the dense path's f32 solve
         (the JAX package's ``_dense_refine``, default 1); the other solvers
         ignore it.
+    mg_opts : options of the AMG hierarchy (``parallel.mg.build_mg_statics``)
+        and of its cycle: ``mv0_mode`` (``"auto"``: the banded lattice
+        layout ``"dia"`` where the mesh is a lattice, else ``"node"``; or
+        ``"dia"``, ``"node"``, ``"scalar"``), ``gamma_coarse`` (default
+        ``(1, 2)``), ``galerkin_levels`` (default all levels up to 30k dofs,
+        1 above), ``coarse_target``, ``max_levels``, ``smooth_sa``,
+        ``cheb_degree``, ``agg_reach``.
+    fused_forcing : Eisenstat-Walker tolerances inside the Newton loop:
+        False (default) solves every update to ``cg_rtol``; True caps the
+        forcing term at 1e-4; a float is the cap.  The factorizing solvers
+        (dense) ignore it.
     """
 
     def __init__(self, mesh: Mesh, V, S, batched_kernel, bc_dofs, bc_vals=None,
@@ -161,16 +151,18 @@ class FusedPlasticityStep:
         """A step built on given statics (numpy arrays keyed as the JAX
         package's ``fp.statics``), e.g. those of a JAX step.  The BCR solver
         needs ``statics["bcr"]``, the lattice map of ``bcr.build_bcr_statics``
-        (``convert.bcr_statics_from_numpy`` carries a JAX step's across)."""
+        (``convert.bcr_statics_from_numpy`` carries a JAX step's across);
+        the AMG solver needs ``statics["mg"]``, the hierarchy
+        (``convert.mg_statics_from_numpy``)."""
         self = cls.__new__(cls)
         self.mesh = self.V = self.S = None
-        self._setup({k: v if k == "bcr" else np.asarray(v) for k, v in statics.items()},
+        self._setup({k: v if k in ("bcr", "mg") else np.asarray(v) for k, v in statics.items()},
                     batched_kernel, device, **opts)
         return self
 
     def _setup(self, st_np, batched_kernel, device, newton_atol=1e-8, newton_rtol=1e-8,
                newton_max_it=100, cg_rtol=1e-13, cg_maxiter=10000, linear_solver="cg",
-               device_mesh=None, dense_refine=1):
+               device_mesh=None, dense_refine=1, mg_opts=None, fused_forcing=False):
         self.device = resolve_device(device)
         if device_mesh is not None:
             raise NotImplementedError(
@@ -181,35 +173,43 @@ class FusedPlasticityStep:
         self.newton_max_it = newton_max_it
         self.cg_rtol = cg_rtol
         self.cg_maxiter = cg_maxiter
+        # Eisenstat-Walker cap inside the Newton loop (spmd.py:189-198):
+        # True = 1e-4, which keeps the slope's Newton counts those of exact
+        # solves, where the classic 0.1 inflates them
+        self.fused_forcing = 1e-4 if fused_forcing is True else fused_forcing
 
         self.n_dofs = int(st_np["bc_mask"].shape[0])
         self.nc_pad, self.nq = st_np["B"].shape[:2]
         self.nc = self.nc_pad if self.mesh is None else self.mesh.num_cells
         auto = linear_solver == "auto"
         if auto:
-            # the JAX package's crossovers (spmd.py:162-167); above 130k
-            # dofs "auto" picks AMG-CG, which is not ported yet
+            # the JAX package's crossovers (spmd.py:162-167)
             linear_solver = "dense" if self.n_dofs <= 10_000 else (
                 "bcr" if self.n_dofs <= 130_000 else "mg")
-        if linear_solver in _NOT_PORTED:
-            raise NotImplementedError(
-                f"linear_solver={linear_solver!r} is not ported yet: ROADMAP queue 1 "
-                f"{_NOT_PORTED[linear_solver]}")
-        if linear_solver not in ("cg", "dense", "bcr"):
+        if linear_solver not in ("cg", "dense", "bcr", "mg", "elastic"):
             raise ValueError(f"unknown linear_solver {linear_solver!r}")
-        self.linear_solver = linear_solver
         self.statics = statics_from_numpy(st_np, self.device)
 
         # deterministic scatter: dof <- its (cell, local dof) slots
         dev = self.device
-        self._scatter_table = torch.as_tensor(
-            _segment_table(st_np["dofmap"], self.n_dofs), device=dev)
+        self._scatter_table = torch.as_tensor(segment_table(st_np["dofmap"], self.n_dofs),
+                                              device=dev)
+        # bc mask of each cell dof (padded cells: all masked)
+        keep_ext = np.concatenate([~st_np["bc_mask"], [False]])
+        self._keep_cell = torch.as_tensor(keep_ext[st_np["dofmap"]], dtype=_F, device=dev)
         self._dense_asm = None
-        if linear_solver == "dense":
-            self._setup_dense_asm(st_np["dofmap"].astype(np.int64))
+        if linear_solver in ("dense", "elastic"):
+            self._dense_asm = dedup_table(
+                *self._dense_keys(st_np["dofmap"].astype(np.int64)), device=dev)
         self._bcr = None
-        if linear_solver == "bcr":
-            self._setup_bcr(st_np, auto)
+        if linear_solver == "bcr" and not self._setup_bcr(st_np, auto):
+            # auto-selected BCR on a mesh that turned out non-lattice
+            linear_solver = "mg"
+        self.linear_solver = linear_solver
+        if linear_solver == "mg":
+            self._setup_mg(st_np, dict(mg_opts or {}))
+        elif linear_solver == "elastic":
+            self._setup_elastic_inverse(st_np)
         # dense-path factorization: "lu" on the CPU, "chol" on the card,
         # from where the statics landed (spmd.py:802-804)
         self._dense_fact = "lu" if dev.type == "cpu" else "chol"
@@ -217,32 +217,24 @@ class FusedPlasticityStep:
         # JAX package's default is 1, validated Newton-iterate-identical)
         self._dense_refine = int(dense_refine)
 
-    def _setup_dense_asm(self, dofmap_p):
-        """Host precompute of the duplicate-free dense-assembly map: the
-        (nc*nk*nk) per-cell contributions summed per unique (i, j) through
-        a padded gather table, then written once into the global matrix
-        (the JAX package's sorted ``segment_sum`` + unique scatter)."""
+    def _dense_keys(self, dofmap_p):
+        """Flat index into the (n + 1, n + 1) matrix of each per-cell
+        (nk, nk) contribution, and that size: the dense assembly map, summed
+        per unique (i, j) and written once (the JAX package's sorted
+        ``segment_sum`` + unique scatter)."""
         n = self.n_dofs
         nk = dofmap_p.shape[1]
         ii = np.repeat(dofmap_p, nk, axis=1).ravel()
         jj = np.tile(dofmap_p, (1, nk)).ravel()
-        key = ii * np.int64(n + 1) + jj
-        uniq, inv = np.unique(key, return_inverse=True)
-        dev = self.device
-        self._dense_asm = {
-            "table": torch.as_tensor(_segment_table(inv, uniq.size), device=dev),
-            # flat index into the (n + 1, n + 1) matrix
-            "flat": torch.as_tensor(uniq, device=dev),
-        }
+        return ii * np.int64(n + 1) + jj, (n + 1) * (n + 1)
 
     def _setup_bcr(self, st_np, auto):
         """Host build of the block-cyclic-reduction map (spmd.py:455-474):
         the lattice detection and the (cell, a, b) -> row-band slot map,
         deduplicated as the dense map is (the JAX package's ``segment_sum``
         into ``sentinel + 1`` slots would need a gather table of
-        ``sentinel`` rows): the element-stiffness entries are summed per
-        unique slot through a padded gather table and written once into a
-        zeroed flat band array."""
+        ``sentinel`` rows).  Returns False where ``auto`` picked BCR and
+        the mesh is not lattice-structured."""
         if self.mesh is not None:
             info = _bcr.build_bcr_statics(self.mesh, self.V, st_np["bc_mask"])
         elif "bcr" in st_np:
@@ -254,47 +246,110 @@ class FusedPlasticityStep:
                 "step's across)")
         if info is None:
             if auto:
-                raise NotImplementedError(
-                    "linear_solver='auto' picks BCR at this size, and the mesh is not "
-                    "lattice-structured: the JAX package falls back to AMG-CG ('mg'), which "
-                    f"is not ported yet: ROADMAP queue 1 {_NOT_PORTED['mg']}")
+                return False
             raise ValueError(
                 "linear_solver='bcr' requires a lattice-structured mesh (structured-"
-                "rectangle P1/P2; see bcr._lattice_node_perm)")
+                "rectangle P1/P2; see bcr._lattice_node_perm); use linear_solver='mg' "
+                "on unstructured meshes")
         m, B, n, sentinel = (int(info[k]) for k in ("m", "B", "n", "sentinel"))
-        dst = np.asarray(info["dst"], dtype=np.int64).ravel()
-        keep = np.flatnonzero(dst < sentinel)  # padded cells point at the sentinel
-        uniq, inv = np.unique(dst[keep], return_inverse=True)
-        seg = np.full(dst.size, -1, dtype=np.int64)
-        seg[keep] = inv
         dev = self.device
-        keep_ext = np.concatenate([~st_np["bc_mask"], [False]])
 
         def t(a):
             return torch.as_tensor(np.asarray(a, dtype=np.int64), device=dev)
 
         self._bcr = {
-            "m": m, "B": B, "n": n, "size": sentinel,
-            "table": t(_segment_table(seg, uniq.size)),
-            "slots": t(uniq),
+            "m": m, "B": B, "n": n,
+            # padded cells point at the sentinel, which the map drops
+            "bands": dedup_table(info["dst"], sentinel, dev),
             "diag_fix": t(info["diag_fix"]),
             "diag_slot": t(info["diag_slot"]),
             "perm_l2o": t(info["perm_l2o"]),
             "perm_o2l": t(info["perm_o2l"]),
-            # bc mask of each cell dof (padded cells: all masked), f32
-            "keep32": torch.as_tensor(keep_ext[st_np["dofmap"]], dtype=torch.float32,
-                                      device=dev),
         }
         # levels of the factorizations that fell back to the LU inverse
         self.bcr_stats = {"factorizations": 0, "inv_levels": 0}
+        return True
+
+    def _elastic_tangent(self):
+        """The tangent at zero strain and stress: the batched kernel at one
+        zero point, as numpy (4, 4)."""
+        z = torch.zeros((4, 1), dtype=_F, device=self.device)
+        return self._vkernel(z, z)[0][:, :, 0].cpu().numpy()
+
+    def _elastic_blocks(self, st_np):
+        """ELASTIC element stiffness blocks (nc, nk, nk), numpy f64, as the
+        JAX package computes them (spmd.py:374-376, :398-401)."""
+        B_np = st_np["B"][:self.nc]
+        return np.einsum("cqik,ij,cqjl,cq->ckl", B_np, self._elastic_tangent(), B_np,
+                         st_np["wdet"][:self.nc], optimize=True)
+
+    def _setup_mg(self, st_np, mg_opts):
+        """The AMG hierarchy (spmd.py:391-453): built on the host from the
+        elastic tangent (``mg.build_mg_statics``), or taken from
+        ``statics["mg"]`` without a mesh; then its device plan
+        (``mg.mg_plan``)."""
+        if self.mesh is not None:
+            # above ~30k dofs the aggregation levels keep their elastic
+            # Galerkin values (the per-Newton maps would dwarf the few CG
+            # iterations they save)
+            mg_opts.setdefault("galerkin_levels", None if self.n_dofs <= 30_000 else 1)
+            mode = mg_opts.pop("mv0_mode", "auto")
+            gamma = mg_opts.pop("gamma_coarse", (1, 2))
+            mgs = _mg.build_mg_statics(self.mesh, self.V, st_np["bc_mask"],
+                                       self._elastic_blocks(st_np),
+                                       dia=mode in ("dia", "auto"), **mg_opts)
+        elif "mg" in st_np:
+            mgs = dict(st_np["mg"])
+            mode, gamma = mgs.pop("mv0_mode"), mgs.pop("gamma_coarse")
+        else:
+            raise ValueError(
+                "linear_solver='mg' without a mesh needs statics['mg'] (the hierarchy of "
+                "mg.build_mg_statics; convert.mg_statics_from_numpy carries a JAX step's "
+                "across)")
+        static = {k: mgs.pop(k, None) for k in ("cheb_degree", "dia0_offsets", "dia1_offsets",
+                                                "t0_stencil", "lat_shapes")}
+        if mode == "auto":
+            mode = "dia" if static["dia0_offsets"] is not None else "node"
+        elif mode == "dia" and static["dia0_offsets"] is None:
+            warnings.warn(
+                "mv0_mode='dia' unavailable: the mesh is not lattice-structured (or its "
+                "operator exceeds the 128-band cap in build_mg_statics); falling back to "
+                "'node'", stacklevel=4)
+            mode = "node"
+        self._mg_mv0_mode, self._mg_gamma = mode, gamma
+        dia = mode == "dia"
+        self._mg = _mg.mg_plan(
+            mgs, st_np["dofmap"], st_np["bc_mask"], self.device, mv0_mode=mode,
+            dia_offsets=static["dia0_offsets"],
+            dia1_offsets=static["dia1_offsets"] if dia else None,
+            t0_stencil=static["t0_stencil"] if dia else None,
+            lat_shapes=static["lat_shapes"], cheb_degree=static["cheb_degree"])
+        # dofs per level: level 0, then the P1 level and the aggregates
+        self.mg_sizes = [self.n_dofs] + [lvl["n"] for lvl in self._mg["levels"]]
+
+    def _setup_elastic_inverse(self, st_np):
+        """Dense f32 inverse of the Jacobi-equilibrated ELASTIC stiffness,
+        the first preconditioner of ``linear_solver="elastic"``
+        (spmd.py:360-389).  Built with numpy as in the JAX package, so it is
+        the same matrix bit for bit.  The (Minv, d) pair is step state:
+        every load step refreshes it from its converged tangent."""
+        n = self.n_dofs
+        dm = st_np["dofmap"][:self.nc].astype(np.int64)
+        K = np.zeros((n, n), np.float64)
+        np.add.at(K, (np.repeat(dm, dm.shape[1], 1), np.tile(dm, (1, dm.shape[1]))),
+                  self._elastic_blocks(st_np).reshape(self.nc, -1))
+        mask = st_np["bc_mask"]
+        K = K * ~mask[:, None] * ~mask[None, :] + np.diag(mask.astype(np.float64))
+        d = 1.0 / np.sqrt(np.clip(np.abs(np.diag(K)), 1e-30, None))
+        Ks = (K * d[:, None] * d[None, :]).astype(np.float32)
+        self._el_precond = (torch.as_tensor(np.linalg.inv(Ks), device=self.device),
+                            torch.as_tensor(d, dtype=torch.float32, device=self.device))
+        self._el_ebe = _mg.ebe_plan(st_np["dofmap"], mask, n, self.device)
 
     def _assemble_dense_f32(self, K_cell32):
         """Global (n, n) f32 matrix from per-cell (nk, nk) blocks."""
         n = self.n_dofs
-        asm = self._dense_asm
-        vals = _segment_sum(K_cell32.reshape(-1), asm["table"])
-        K = torch.zeros((n + 1) * (n + 1), dtype=torch.float32, device=self.device)
-        K[asm["flat"]] = vals
+        K = dedup_write(K_cell32.reshape(-1), self._dense_asm)
         return K.view(n + 1, n + 1)[:n, :n]
 
     # ------------------------------------------------------------------
@@ -303,7 +358,7 @@ class FusedPlasticityStep:
         return torch.cat([u, u.new_zeros(1)])[self.statics["dofmap"]]  # (nc, nk)
 
     def _scatter(self, cell_vals):
-        return _segment_sum(cell_vals.reshape(-1), self._scatter_table)
+        return segment_sum(cell_vals.reshape(-1), self._scatter_table)
 
     def _constitutive(self, Du, sigma_n):
         st = self.statics
@@ -433,15 +488,24 @@ class FusedPlasticityStep:
         return torch.einsum("cqik,cqij,cqjl,cq->ckl", st["B"].to(f32), C_tang.to(f32),
                             st["B"].to(f32), st["wdet"].to(f32))
 
+    def _k_cell_masked(self, C_tang, dtype=_F):
+        """bc-masked element stiffness blocks ``km K km^T`` (padded cells:
+        zero): in f64 the blocks of the exact refinement operator, in f32
+        those of a factorization or preconditioner."""
+        km = self._keep_cell.to(dtype)
+        if dtype == _F:
+            st = self.statics
+            K = torch.einsum("cqik,cqij,cqjl,cq->ckl", st["B"], C_tang, st["B"], st["wdet"])
+        else:
+            K = self._k_cell32(C_tang)
+        return K * km[:, :, None] * km[:, None, :]
+
     def _bcr_bands(self, C_tang):
         """The flat f32 row bands ``[L | D | U]`` of the bc-masked tangent in
         lattice numbering, with identity bc and padding rows
         (spmd.py:745-763)."""
         plan = self._bcr
-        km = plan["keep32"]
-        K_cell = self._k_cell32(C_tang) * km[:, :, None] * km[:, None, :]
-        Tflat = torch.zeros(plan["size"], dtype=torch.float32, device=self.device)
-        Tflat[plan["slots"]] = _segment_sum(K_cell.reshape(-1), plan["table"])
+        Tflat = dedup_write(self._k_cell_masked(C_tang, torch.float32), plan["bands"])
         Tflat[plan["diag_fix"]] += 1.0  # unique slots
         return Tflat
 
@@ -467,6 +531,76 @@ class FusedPlasticityStep:
         return _bcr.ir_direct(lambda x: self._bc_matvec(C_tang, x),
                               lambda rr: self._bcr_apply(fact, d, rr), b, rtol)
 
+    def _mg_solve(self, C_tang, b, rtol):
+        """AMG-preconditioned mixed-precision CG (spmd.py:639-722): the
+        hierarchy's f32 values from the current tangent (``mg.mg_setup``),
+        f32 PCG with one cycle per iteration inside f64 refinement on the
+        exact element-blocked operator (node layout; scalar in scalar
+        mode).  In dia mode the f32 iteration runs in the lattice
+        numbering, permuted at the refinement-round boundary.  On the card
+        the cycle is replayed from a CUDA graph (``mg.cuda_graphed``).
+        Returns (dx, inner iterations)."""
+        plan = self._mg
+        K_cell = self._k_cell_masked(C_tang)
+        rt = _mg.mg_setup(plan, K_cell.to(torch.float32))
+        mv64 = _mg.ebe_matvec(K_cell, plan["ebe"])
+        if self._mg_mv0_mode == "dia":
+            mask, l2o, o2l = plan["mask0_lat"], plan["perm0_l2o"], plan["perm0_o2l"]
+            inner = {"to_inner": lambda v: v[l2o], "from_inner": lambda v: v[o2l]}
+        else:
+            mask, inner = self.statics["bc_mask"], {}
+
+        def M32(r):
+            z = _mg.vcycle(plan, rt, torch.where(mask, 0.0, r), gamma_coarse=self._mg_gamma)
+            return torch.where(mask, r, z)
+
+        # on the card one cycle is hundreds of small launches: replay them
+        # from a CUDA graph captured once per update
+        M32 = _mg.cuda_graphed(M32, torch.zeros(self.n_dofs, dtype=torch.float32,
+                                                device=self.device))
+        return _mg.ir_pcg(mv64, rt["mv0"], M32, b, rtol, self.cg_maxiter, **inner)
+
+    def _elastic_solve(self, C_tang, b, rtol):
+        """Mixed-precision CG preconditioned by the lagged inverse
+        (spmd.py:601-637): no factorization per Newton update, one (n, n)
+        f32 matvec per inner iteration, f64 refinement outside.  Returns
+        (dx, inner iterations)."""
+        mask = self.statics["bc_mask"]
+        K_cell = self._k_cell_masked(C_tang)
+        plan = self._el_ebe
+        Minv, d32 = self._el_precond
+
+        def M32(r):
+            z = d32 * (Minv @ (d32 * torch.where(mask, 0.0, r)))
+            return torch.where(mask, r, z)
+
+        return _mg.ir_pcg(_mg.ebe_matvec(K_cell, plan),
+                          _mg.ebe_matvec(K_cell.to(torch.float32), plan), M32, b, rtol,
+                          self.cg_maxiter)
+
+    def _refresh_elastic(self, C_tang):
+        """The lagged preconditioner from the step's last tangent
+        (spmd.py:936-953): one dense f32 assembly and SPD inversion per
+        load step, through Cholesky, a triangular inverse against I and a
+        Gram product (the pivoted-LU inverse where Cholesky breaks down)."""
+        mask = self.statics["bc_mask"]
+        f32 = torch.float32
+        Kd = self._assemble_dense_f32(self._k_cell_masked(C_tang, f32)) + torch.diag(mask.to(f32))
+        d = 1.0 / torch.sqrt(torch.clamp(torch.abs(torch.diagonal(Kd)), min=1e-30))
+        self._el_precond = (_bcr._spd_inv_batched(Kd * d[:, None] * d[None, :]), d)
+
+    def _solve(self, C_tang, b, rtol):
+        """One Newton update's linear solve: (dx, inner count)."""
+        if self.linear_solver == "dense":
+            return self._dense_solve(C_tang, b)
+        if self.linear_solver == "bcr":
+            return self._bcr_solve(C_tang, b, rtol)
+        if self.linear_solver == "mg":
+            return self._mg_solve(C_tang, b, rtol)
+        if self.linear_solver == "elastic":
+            return self._elastic_solve(C_tang, b, rtol)
+        return self._cg_solve(C_tang, b, rtol, self.cg_maxiter)
+
     # ------------------------------------------------------------------
     def _newton(self, Du, sigma_n, load, max_it, cg_rtol, norm0_ref):
         """Full Newton solve of one load step (spmd.py:845-935).
@@ -476,7 +610,11 @@ class FusedPlasticityStep:
         converged pass performs no solve and returns sigma at that iterate.
         ``it`` counts updates only and ``max_it`` bounds them; ``norm0_ref``
         NaN means the rtol reference self-initialises from the first
-        residual."""
+        residual.  With ``fused_forcing`` each update's solve tolerance is
+        the Eisenstat-Walker term sqrt(norm / norm0), clipped to
+        [cg_rtol, cap] (spmd.py:892-898).  The elastic solver's lagged
+        preconditioner is refreshed from the last pass's tangent on the way
+        out, as the JAX step does at the end of every execution."""
         st = self.statics
         mask, bc_vals = st["bc_mask"], st["bc_vals"]
         fvec = self._assemble_f()
@@ -492,15 +630,16 @@ class FusedPlasticityStep:
                 norm0 = norm
             if norm < self.newton_atol or norm < self.newton_rtol * norm0:
                 break
-            if self.linear_solver == "dense":
-                dx, cg_k = self._dense_solve(C_tang, -r)
-            elif self.linear_solver == "bcr":
-                dx, cg_k = self._bcr_solve(C_tang, -r, cg_rtol)
-            else:
-                dx, cg_k = self._cg_solve(C_tang, -r, cg_rtol, self.cg_maxiter)
+            rtol_it = cg_rtol
+            if self.fused_forcing:
+                eta = math.sqrt(min(max(norm / max(norm0, 1e-300), 0.0), 1.0))
+                rtol_it = min(max(eta, cg_rtol), self.fused_forcing)
+            dx, cg_k = self._solve(C_tang, -r, rtol_it)
             Du = Du + dx
             it += 1
             cg_tot += cg_k
+        if self.linear_solver == "elastic":
+            self._refresh_elastic(C_tang)
         return Du, sigma, norm, it, cg_tot
 
     def _state_in(self, Du, sigma_n):

@@ -61,12 +61,15 @@ def mohr_coulomb_slope_step(Nx, Ny, route="cuda", device=None, linear_solver="au
     ``route="cuda"`` evaluates the return map with the hand-written kernel
     (its plain version on the CPU), ``"plain"`` with the plain f64 PyTorch
     version everywhere.  ``linear_solver="auto"`` resolves to the dense
-    solver up to 10k dofs and to block-cyclic reduction (``"bcr"``) up to
-    130k.  ``opts`` go to ``FusedPlasticityStep`` (tolerances).
+    solver up to 10k dofs, to block-cyclic reduction (``"bcr"``) up to
+    130k, and to AMG-preconditioned CG (``"mg"``) above that.  ``"mg"``
+    runs at any size; ``"elastic"`` (CG preconditioned by the lagged
+    elastic inverse) holds an n x n f32 inverse.  ``opts`` go to
+    ``FusedPlasticityStep`` (tolerances, ``mg_opts``, ``fused_forcing``).
 
-    ``dense_refine`` applies to the dense solver only; BCR refines until
-    the residual is ``cg_rtol`` of the right-hand side.  The dense path
-    refines its f32 solve twice, where the JAX package's
+    ``dense_refine`` applies to the dense solver only; the other solvers
+    refine until the residual is ``cg_rtol`` of the right-hand side.  The
+    dense path refines its f32 solve twice, where the JAX package's
     default is once: step 1 of the schedule is linear, and after one round
     its residual sits next to the Newton tolerance (atol 1e-8), under it
     with the CPU's f32 LU and over it with the card's f32 Cholesky, which

@@ -11,9 +11,9 @@
   ``tests/test_bcr.py``) gives the JAX BCR step's Newton list with Du
   within 1e-10, the port's dense step's (two refinement rounds) likewise,
   repeats bitwise, and refines at most 6 rounds per update.
-- ``auto`` resolves to BCR above 10k dofs; a mesh that is not a lattice
-  raises; a step built from a JAX step's statics (``convert.py``) runs BCR
-  without a mesh.
+- ``auto`` resolves to BCR above 10k dofs, and to AMG-CG on a mesh that is
+  not a lattice, where ``"bcr"`` raises; a step built from a JAX step's
+  statics (``convert.py``) runs BCR without a mesh.
 """
 import numpy as np
 import pytest
@@ -206,11 +206,13 @@ def test_bcr_requires_lattice_mesh():
         _holes_step("bcr", 0.25)
 
 
-def test_auto_on_non_lattice_mesh_raises():
-    """Where the JAX package falls back to AMG-CG (not ported), ``auto``
-    raises rather than run another solver (16,858 dofs)."""
-    with pytest.raises(NotImplementedError, match="item 6"):
-        _holes_step("auto", 0.02)
+def test_auto_on_non_lattice_mesh_picks_mg():
+    """Above 10k dofs on a mesh that is not a lattice (the holed square,
+    16,858 dofs) ``auto`` falls back from BCR to AMG-CG, as the JAX package
+    does (setup only)."""
+    fp = _holes_step("auto", 0.02)
+    assert fp.n_dofs == 16858 and fp.linear_solver == "mg"
+    assert fp._mg_mv0_mode == "node" and fp._bcr is None
 
 
 def test_from_statics_runs_bcr(jax_bcr, port_bcr):

@@ -206,9 +206,19 @@ def test_auto_resolves_to_dense():
 
 
 @pytest.mark.parametrize("solver", ["mg", "elastic"])
-def test_unported_solvers_raise(solver):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.von_mises_block_step(2, 2, "f64", device="cpu", linear_solver=solver)
+def test_block_solvers_match_dense(solver):
+    """The preconditioned Krylov solvers on the 4x4 von Mises block: the
+    dense step's Newton list, Du within 1e-10 (each solve runs to
+    ``cg_rtol``)."""
+    du_d, _, its_d, _ = _schedule(pt.von_mises_block_step(4, 4, "f64", device="cpu",
+                                                          linear_solver="dense"))
+    fp = pt.von_mises_block_step(4, 4, "f64", device="cpu", linear_solver=solver)
+    du, _, its, inner = _schedule(fp)
+    assert fp.linear_solver == solver
+    assert its == its_d
+    assert all(k > 0 for k in inner)
+    for a, b in zip(du, du_d):
+        assert _rel(a, b) < 1e-10
 
 
 def test_default_device_is_cuda():

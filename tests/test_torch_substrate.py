@@ -97,12 +97,12 @@ def test_plasticity_block_25x25_bitwise():
 
 
 def test_port_imports_no_jax():
-    """The port (with the BCR solver, the Mohr-Coulomb material, surface,
+    """The port (with the BCR and AMG solvers, the Mohr-Coulomb material, surface,
     kernel wrapper and the comparison scripts), chip_smoke's module-level
     code and the card-only test file import no JAX."""
     code = ("import sys; import dolfinx_external_operator_torch, chip_smoke; "
             "sys.path.insert(0, 'tests'); import test_torch_cuda; "
-            "from dolfinx_external_operator_torch.parallel import bcr, spmd; "
+            "from dolfinx_external_operator_torch.parallel import bcr, mg, scatter, spmd; "
             "from dolfinx_external_operator_torch import convert, problems; "
             "from dolfinx_external_operator_torch.models import mohr_coulomb; "
             "from dolfinx_external_operator_torch.ops import abbo_sloan, mohr_coulomb as mc_ops; "

@@ -12,7 +12,13 @@ after 0, 1 and 2 refinement rounds on the CPU, and the BCR solver's
 parity: the 12x12 slope over ``test_torch_bcr.LOADS`` (Newton lists, Du
 gaps, signed refinement rounds, port against JAX and against the port's
 dense step) and the 25x25 slope over the 52 steps (Newton lists and
-rounds of both packages).
+rounds of both packages); and the AMG-CG and lagged-elastic solvers' parity
+on the 12x12 slope over ``test_torch_mg.LOADS`` (Newton lists, Du gaps,
+inner iterations per step, with full and frozen Galerkin levels and with
+``fused_forcing``).  With ``--slow`` it also runs the 25x25 slope over the
+52 steps with AMG-CG in both packages (several minutes).
+
+    JAX_PLATFORMS=cpu python tests/torch_parity_report.py --slow
 """
 import json
 import os
@@ -29,6 +35,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import test_torch_bcr as tb  # noqa: E402
+import test_torch_mg as tg  # noqa: E402
 import test_torch_mohr_coulomb as tm  # noqa: E402
 import test_torch_slope_step as ts  # noqa: E402
 
@@ -124,8 +131,37 @@ def bcr_slope():
     return out
 
 
+def mg_slope(slow):
+    """The AMG-CG and lagged-elastic steps of both packages on the 12x12
+    slope over ``tg.LOADS`` against the port's dense step (two refinement
+    rounds); with ``slow`` the 25x25 slope over the 52 steps with AMG-CG."""
+    out = {}
+    du_d, its_d, _ = tg._schedule(tg._port_step(12, "dense", dense_refine=2))
+    runs = (("mg", "mg", {}), ("elastic", "elastic", {}),
+            ("mg_frozen", "mg", {"mg_opts": {"galerkin_levels": 1}}),
+            ("mg_forcing", "mg", {"fused_forcing": True}))
+    for name, solver, opts in runs:
+        du_j, its_j, in_j = tg._schedule(tb.StepJ(*tb._jax_slope(12), linear_solver=solver,
+                                                  **opts))
+        du_t, its_t, in_t = tg._schedule(tg._port_step(12, solver, **opts))
+        out[f"12x12_{name}"] = {"newton_jax": its_j, "newton_port": its_t,
+                                "newton_port_dense": its_d, "inner_jax": in_j,
+                                "inner_port": in_t,
+                                "du_rel": [_rel(a, b) for a, b in zip(du_t, du_j)],
+                                "du_rel_dense": [_rel(a, b) for a, b in zip(du_t, du_d)]}
+    if slow:
+        du_j, its_j, in_j = tg._schedule(tb.StepJ(*tb._jax_slope(25), linear_solver="mg"),
+                                         pt.SLOPE_LOADS)
+        du_t, its_t, in_t = tg._schedule(tg._port_step(25), pt.SLOPE_LOADS)
+        out["25x25_mg"] = {"newton_jax": its_j, "newton_port": its_t, "inner_jax": in_j,
+                           "inner_port": in_t, "inner_total_jax": sum(in_j),
+                           "inner_total_port": sum(in_t),
+                           "du_rel": [_rel(a, b) for a, b in zip(du_t, du_j)]}
+    return out
+
+
 if __name__ == "__main__":
     torch.set_num_threads(2)
     print(json.dumps({"surface": surface(), "return_map": return_map(),
                       "slope_4x4": slope_4x4(), "first_solve_25x25_cpu": first_solve_25x25(),
-                      "bcr_slope": bcr_slope()}))
+                      "bcr_slope": bcr_slope(), "mg_slope": mg_slope("--slow" in sys.argv)}))
