@@ -71,7 +71,23 @@ Phases, in order; any failed check exits non-zero without the ``ok`` line:
    first ``MG_100_STEPS`` loads: that record's Newton counts, the host
    build's time, inner iterations per update beside the record's, peak
    memory, one solve beside a BCR solve of the same system (in turns), and
-   the layers of that update.
+   the layers of that update;
+14. cell sharding, world size 1 over NCCL (``parallel.dist.spawn``, one
+   process): the first 10 steps of phase 11's program through the sharded
+   code, bitwise equal to phase 11 in Du, sigma, the Newton list and the
+   inner counts (one rank's all-reduce is the identity);
+15. two ranks on the one card over gloo with CUDA tensors (NCCL refuses two
+   ranks on one GPU; gloo stages each all-reduce through the host, so these
+   times check parity, not multi-GPU speed): phase 11's program over the
+   52 steps, the record's Newton list and a K1 launch
+   per Newton pass on each rank, every rank's residual norms bitwise equal,
+   Du within 1e-9 of phase 11's, inner counts within max(10, 0.4 n1) per
+   step; s/step, all-reduces per Newton pass, and the time of one
+   all-reduce of a dof vector and of the level-0 band values;
+16. ``dryrun_multichip(2)`` on the card over gloo: Newton counts 1 and 2
+   (``MULTICHIP_r05.json``), inner counts beside that record's;
+17. with two cards or more, phases 15 and 16 over NCCL, one rank per card
+   (up to 4); with one card it says that multi-card NCCL was not run.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  A copy of all measurements goes to
@@ -98,7 +114,8 @@ from dolfinx_external_operator_torch._native import cuda as native
 from dolfinx_external_operator_torch.models import von_mises as vm
 from dolfinx_external_operator_torch.ops import mohr_coulomb as mc_ops
 from dolfinx_external_operator_torch.ops import vonmises as vm_ops
-from dolfinx_external_operator_torch.parallel import bcr, mg
+from dolfinx_external_operator_torch.entry import dryrun_multichip, slope_schedule
+from dolfinx_external_operator_torch.parallel import bcr, dist, mg
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, f32 and f64
 # outside the tensor cores
@@ -137,6 +154,16 @@ RECORD_100_MG = os.path.join(RECORDS, "scaling_100x100_full_tpu.json")
 # load steps of the 100x100 AMG-CG phase: all of the record's (the next
 # load is the collapse, where Newton fails)
 MG_100_STEPS = 49
+# the 25x25 AMG-CG schedule's inner iterations: the JAX package's on the
+# CPU; the port's (11,986 on the CPU, 10,815 on the card) are held
+# within MG_INNER_TOL of it
+MG_25_INNER_JAX = 11545
+MG_INNER_TOL = 0.15
+# the dryrun's inner counts in MULTICHIP_r05.json (the JAX package on 8
+# virtual devices); the port's are held within max(10, 0.4 n) of them per
+# step, the rule of tests/test_multichip_scaling.py:74 (on the CPU: [27,
+# 49], [28, 48] and [26, 47] on 1, 2 and 3 ranks)
+DRYRUN_RECORD_INNER = (25, 46)
 
 MAIN_LOADS = (200.0, 400.0, 600.0)
 F32_TOLS = {"newton_rtol": 1e-5, "newton_atol": 1e-3}
@@ -835,7 +862,7 @@ def mg_25x25_phase(report, fp_dense, state):
     warm_up(fp, loads[0])
     torch.cuda.reset_peak_memory_stats()
     mc_ops.mc_return_map.launches = 0
-    _, its, inner, walls, states = run_loads(fp, loads, capture=(10, 49, 50))
+    Du_end, its, inner, walls, states = run_loads(fp, loads, capture=(10, 49, 50))
     launches = mc_ops.mc_return_map.launches
     peak = torch.cuda.max_memory_allocated()
     print(f"25x25 slope, mg (dia) + kernel: newton {sum(its)}, launches {launches}, inner "
@@ -846,6 +873,11 @@ def mg_25x25_phase(report, fp_dense, state):
     print(f"  s/step {[round(w, 4) for w in walls]}", flush=True)
     check(its == rec, f"25x25 mg Newton list {its} != record {rec}")
     check(launches == sum(its) + len(its), f"{launches} launches for Newton {its}")
+    gap = sum(inner) / MG_25_INNER_JAX - 1.0
+    print(f"  inner iterations {sum(inner)} against the JAX package's {MG_25_INNER_JAX} on the "
+          f"CPU: {gap:+.1%} (bound {MG_INNER_TOL:.0%})", flush=True)
+    check(abs(gap) <= MG_INNER_TOL, f"25x25 mg inner iterations {sum(inner)} beyond "
+          f"{MG_INNER_TOL:.0%} of {MG_25_INNER_JAX}")
     out = {"newton": its, "inner": inner, "launches": launches, "wall_s": walls,
            "peak_bytes": peak, "levels": fp.mg_sizes,
            "kinds": [lvl["kind"] for lvl in fp._mg["levels"]]}
@@ -883,7 +915,7 @@ def mg_25x25_phase(report, fp_dense, state):
     Du_again, *_ = run_loads(fp, loads[:10])
     check(torch.equal(Du_again, Du10), "25x25 mg: the first 10 steps run twice differ")
     print("25x25 mg: the first 10 steps run a second time give Du bitwise equal", flush=True)
-    return launches
+    return launches, {"state10": states[10], "newton": its, "inner": inner, "du": Du_end}
 
 
 def elastic_25x25_phase(report):
@@ -984,6 +1016,107 @@ def mg_100x100_phase(report, steps=MG_100_STEPS):
     out["layers"] = layers
     print_mg_layers(f"100x100 mg layers, step {steps}", layers)
     return launches
+
+
+def allreduce_ms(mesh, sizes, reps=200):
+    """Rank function of ``dist.spawn``: host milliseconds per ``dist.psum``
+    of a CUDA tensor of each (length, dtype) in ``sizes``, over ``reps``
+    calls ending in a synchronise."""
+    out = {}
+    for n, dtype in sizes:
+        x = torch.ones(n, dtype=getattr(torch, dtype), device=mesh.device)
+        for _ in range(5):
+            dist.psum(x, mesh.group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            dist.psum(x, mesh.group)
+        torch.cuda.synchronize()
+        out[f"{n} {dtype}"] = (time.perf_counter() - t0) / reps * 1e3
+    return out
+
+
+def sharded_one_rank_phase(report, ref):
+    """Phase 14: the first 10 steps of phase 11's program on one NCCL rank
+    through the sharded code, bitwise equal to phase 11's run."""
+    loads = pt.SLOPE_LOADS[:10]
+    t0 = time.perf_counter()
+    (run,) = dist.spawn(slope_schedule, 1, "nccl", None, 25, loads, "mg")
+    wall = time.perf_counter() - t0
+    Du10, sig10 = (t.cpu().numpy() for t in ref["state10"])
+    print(f"25x25 mg sharded, 1 rank over NCCL, 10 steps: newton {run['newton']}, inner "
+          f"{run['inner']}, K1 launches {run['launches']}, {run['psum_calls']} all-reduces for "
+          f"{run['passes']} Newton passes, {sum(run['wall_s']):.2f} s of steps, {wall:.1f} s "
+          f"with the process's start", flush=True)
+    check(run["newton"] == ref["newton"][:10], f"1-rank Newton list {run['newton']}")
+    check(run["inner"] == ref["inner"][:10], f"1-rank inner counts {run['inner']}")
+    check(run["launches"] == run["passes"], f"1-rank K1 launches {run['launches']}")
+    check(np.array_equal(run["du"], Du10), "1-rank Du differs from phase 11's")
+    check(np.array_equal(run["sigma"], sig10), "1-rank sigma differs from phase 11's")
+    print("  Du, sigma, the Newton list and the inner counts bitwise equal to phase 11's first "
+          "10 steps", flush=True)
+    report["sharded_1rank_nccl"] = dict(run, du=None, sigma=None, wall_total_s=wall)
+    return run["launches"]
+
+
+def sharded_schedule_phase(report, ref, n, backend):
+    """Phase 15 (and 17 over NCCL): phase 11's program on ``n`` ranks; the
+    time of one all-reduce."""
+    with open(RECORD) as f:
+        rec = json.load(f)["newton_per_step"]
+    loads = pt.SLOPE_LOADS
+    t0 = time.perf_counter()
+    runs = dist.spawn(slope_schedule, n, backend, None, 25, loads, "mg")
+    wall = time.perf_counter() - t0
+    label = f"{n} ranks over {backend} on {torch.cuda.device_count()} card(s)"
+    ref_du = ref["du"].cpu().numpy()
+    first = runs[0]
+    for run in runs:
+        check(run["newton"] == rec, f"{label}: rank {run['rank']} Newton list {run['newton']}")
+        check(run["launches"] == run["passes"],
+              f"{label}: rank {run['rank']} K1 launches {run['launches']}")
+        check(run["norms"] == first["norms"] and np.array_equal(run["du"], first["du"]),
+              f"{label}: ranks disagree")
+    du_err = float(np.abs(first["du"] - ref_du).max())
+    check(du_err < 1e-9, f"{label}: Du {du_err:.3e} from one rank's")
+    for k, k1 in zip(first["inner"], ref["inner"]):
+        check(abs(k - k1) <= max(10, 0.4 * k1),
+              f"{label}: inner {first['inner']} against one rank's {ref['inner']}")
+    steps = sum(first["wall_s"])
+    # a dof vector (the residual, a matvec) and the level-0 band values
+    # (43 bands of 5,202 rows, mg_setup)
+    ar = dist.spawn(allreduce_ms, n, backend, None, [(5202, "float64"), (43 * 5202, "float32")])
+    print(f"25x25 mg sharded, {label}, {len(loads)} steps: newton {sum(first['newton'])} "
+          f"per rank, K1 launches {[r['launches'] for r in runs]}, inner {sum(first['inner'])} "
+          f"(one rank: {sum(ref['inner'])}), Du {du_err:.2e} from one rank's, "
+          f"{steps:.2f} s of steps ({steps / len(loads):.4f} s/step), {wall:.1f} s with the "
+          f"processes' start; {first['psum_calls']} all-reduces for {first['passes']} Newton "
+          f"passes ({first['psum_calls'] / first['passes']:.2f} per pass); one all-reduce (ms, "
+          f"host clock, rank 0): {ar[0]}", flush=True)
+    print(f"  s/step rank 0 {[round(w, 4) for w in first['wall_s']]}", flush=True)
+    report[f"sharded_{n}_{backend}"] = {
+        "ranks": [dict(r, du=None, sigma=None) for r in runs], "du_err": du_err,
+        "wall_total_s": wall, "allreduce_ms": ar, "cards": torch.cuda.device_count()}
+    return [r["launches"] for r in runs]
+
+
+def dryrun_phase(report, n, backend):
+    """Phase 16 (and 17 over NCCL): ``dryrun_multichip(n)`` on the card."""
+    t0 = time.perf_counter()
+    runs = dryrun_multichip(n, backend=backend)
+    wall = time.perf_counter() - t0
+    for run in runs:
+        check(run["newton"] == [1, 2], f"dryrun rank {run['rank']} Newton {run['newton']}")
+        check(run["launches"] == run["passes"], f"dryrun K1 launches {run['launches']}")
+        for k, rec in zip(run["inner"], DRYRUN_RECORD_INNER):
+            check(abs(k - rec) <= max(10, 0.4 * rec),
+                  f"dryrun inner {run['inner']} against the record's {DRYRUN_RECORD_INNER}")
+    print(f"dryrun_multichip({n}, {backend}): inner {runs[0]['inner']} beside "
+          f"MULTICHIP_r05.json's {list(DRYRUN_RECORD_INNER)} (the JAX package, 8 virtual "
+          f"devices), {wall:.1f} s", flush=True)
+    report[f"dryrun_{n}_{backend}"] = {"ranks": [dict(r, du=None, sigma=None) for r in runs],
+                                       "wall_total_s": wall}
+    return runs[0]["launches"]
 
 
 def main():
@@ -1110,9 +1243,23 @@ def main():
     launches_100 = bcr_100x100_phase(report, mat)
     # phases 11-13: AMG-CG at 25x25 (entry()'s program), the lagged-elastic
     # solver at 25x25, AMG-CG at 100x100
-    mg_launches = mg_25x25_phase(report, fp_k, states[49])
+    mg_launches, mg_ref = mg_25x25_phase(report, fp_k, states[49])
     elastic_launches = elastic_25x25_phase(report)
     mg_launches_100 = mg_100x100_phase(report)
+    # phases 14-17: cell sharding, one process per rank
+    sharded = {"slope_25x25_mg_1rank_nccl_10steps": sharded_one_rank_phase(report, mg_ref),
+               "slope_25x25_mg_2ranks_gloo_per_rank": sharded_schedule_phase(report, mg_ref, 2,
+                                                                             "gloo"),
+               "dryrun_16x16_mg_2ranks_gloo": dryrun_phase(report, 2, "gloo")}
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        n = min(cards, 4)
+        sharded[f"slope_25x25_mg_{n}ranks_nccl_per_rank"] = sharded_schedule_phase(
+            report, mg_ref, n, "nccl")
+        sharded[f"dryrun_16x16_mg_{n}ranks_nccl"] = dryrun_phase(report, n, "nccl")
+    else:
+        print(f"multi-card NCCL not run: {cards} card", flush=True)
+    report["multi_card_nccl_run"] = cards >= 2
 
     main_shape = shapes[1]
     kernels = [{
@@ -1141,7 +1288,7 @@ def main():
         "launches_by_path": {"slope_25x25_dense": mc_launches, "slope_25x25_bcr": bcr_launches,
                              "slope_100x100_bcr": launches_100, "slope_25x25_mg": mg_launches,
                              "slope_25x25_elastic": elastic_launches,
-                             "slope_100x100_mg": mg_launches_100},
+                             "slope_100x100_mg": mg_launches_100, **sharded},
         "max_abs_err": mc_shapes[0]["max_abs_err"],
         "max_rel_err": max(max(s["rel_err_C"], s["rel_err_sig"]) for s in mc_shapes),
         "ms": mc_shapes[0]["ms"],

@@ -21,6 +21,11 @@ The fused step's other solvers: block-cyclic reduction on lattice meshes
 (``parallel.bcr``), and CG preconditioned by aggregation AMG
 (``parallel.mg``) or by a lagged elastic inverse.
 
+Cell sharding runs one process per rank (``parallel.dist``:
+``make_device_mesh``, ``psum``, ``spawn``); ``entry`` and
+``dryrun_multichip`` are the counterparts of the JAX package's entry points
+(``__graft_entry__.py``).
+
 Entry points take ``device=None``, meaning ``"cuda"``; without a card they
 raise unless the caller passes ``device="cpu"``.
 """
@@ -45,6 +50,7 @@ def resolve_device(device=None) -> torch.device:
 
 from .assembly import locate_dofs_geometrical, locate_dofs_topological  # noqa: E402
 from .elements import element, quadrature_element  # noqa: E402
+from .entry import dryrun_multichip, entry  # noqa: E402
 from .functionspace import functionspace  # noqa: E402
 from .mesh import Mesh, create_rectangle, create_unit_square  # noqa: E402
 from .models.mohr_coulomb import MohrCoulombMaterial  # noqa: E402
@@ -56,6 +62,7 @@ from .models.von_mises import (  # noqa: E402
 )
 from .ops.mohr_coulomb import mc_return_map  # noqa: E402
 from .ops.vonmises import vonmises_return_map, vonmises_return_map_reference  # noqa: E402
+from .parallel.dist import make_device_mesh  # noqa: E402
 from .parallel.spmd import FusedPlasticityStep  # noqa: E402
 from .problems import (  # noqa: E402
     SLOPE_LOADS,
@@ -75,10 +82,13 @@ __all__ = [
     "build_plasticity_block",
     "create_rectangle",
     "create_unit_square",
+    "dryrun_multichip",
     "element",
+    "entry",
     "functionspace",
     "locate_dofs_geometrical",
     "locate_dofs_topological",
+    "make_device_mesh",
     "mc_return_map",
     "mohr_coulomb_slope_step",
     "quadrature_element",

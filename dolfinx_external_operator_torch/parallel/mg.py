@@ -24,6 +24,14 @@ shaped by TPU limits: the f32 inner iteration, the explicit coarse
 inverse, the dense small levels, the DIA lattice layout and the stencil
 transfers.
 
+Cell-sharded (``spmd.FusedPlasticityStep(device_mesh=...)``), each rank's
+plan covers its own cells at level 0 (the element blocks, the level-1
+triple product's ``W`` and ``blk_dst``, the band map ``dia0_dst``) and the
+plan's ``psum`` sums the four scatters that the JAX package psums: the
+level-0 band values or diagonal, the element-blocked matvec and the
+level-1 values.  The coarse levels and the cycle below level 0 are whole
+on every rank.
+
 The device part runs eagerly on the tensors' device.  Where the JAX
 package loops in Python over bands and stencil taps (and XLA fuses the
 loop), this module gathers through a table built once and sums over the
@@ -651,13 +659,20 @@ def build_mg_statics(mesh, V, bc_mask, K0_cell_elastic, *,
 # Host plan of the device part (tensors and gather tables, once per problem)
 # ======================================================================
 
-def ebe_plan(dofmap, bc_mask, n, device, mode="scalar"):
+def _no_sum(x):
+    """The ``psum`` of one device."""
+    return x
+
+
+def ebe_plan(dofmap, bc_mask, n, device, mode="scalar", psum=None):
     """Gather/scatter layout of ``ebe_matvec`` on ``device``.
 
     ``dofmap`` is the (nc, nk) unrolled dof array (padded cells: the dummy
-    index ``n``).  ``"scalar"`` gathers and scatters per dof; ``"node"`` per
-    node, ``_BS`` components at a time (the unrolled-dofmap convention
-    ``dof = node * _BS + component``)."""
+    index ``n``), a rank's cells where sharded; ``psum`` then sums the
+    scatter over the ranks (default: one device, no sum).  ``"scalar"``
+    gathers and scatters per dof; ``"node"`` per node, ``_BS`` components
+    at a time (the unrolled-dofmap convention ``dof = node * _BS +
+    component``)."""
     if mode not in ("scalar", "node"):
         raise ValueError(f"ebe_matvec mode must be 'scalar' or 'node', got {mode!r} "
                          "(the banded layout is mg_plan(mv0_mode='dia'))")
@@ -666,7 +681,7 @@ def ebe_plan(dofmap, bc_mask, n, device, mode="scalar"):
         idx, n_seg = dofmap[:, ::_BS] // _BS, n // _BS  # padded rows -> the dummy node
     else:
         idx, n_seg = dofmap, n
-    return {"mode": mode,
+    return {"mode": mode, "psum": psum or _no_sum,
             "free": torch.as_tensor(~np.asarray(bc_mask, dtype=bool), device=device),
             "idx": torch.tensor(idx, device=device),
             "table": torch.as_tensor(segment_table(idx, n_seg), device=device)}
@@ -746,11 +761,15 @@ def _stencil_plan(stencil, shape0, shape1, bs, mask0_lat, device):
             "p_w": torch.as_tensor(p_w[:taps], device=device)}
 
 
-def mg_plan(mgs, dofmap, bc_mask, device, *, mv0_mode="scalar", dia_offsets=None,
+def mg_plan(mgs, dofmap, bc_mask, device, *, psum=None, mv0_mode="scalar", dia_offsets=None,
             dia1_offsets=None, t0_stencil=None, lat_shapes=None, cheb_degree=3):
     """The hierarchy ``mgs`` (the arrays of ``build_mg_statics``) on
     ``device``, with the gather tables of every per-Newton scatter, built
     once on the host.
+
+    ``dofmap`` and the level-0 maps of ``mgs`` (``transfers[0]``'s ``W``
+    and ``blk_dst``, ``dia0_dst``) cover the same cells: all of them, or a
+    rank's, whose sums ``psum`` completes (default: one device, no sum).
 
     ``mv0_mode``: the level-0 layout: ``"scalar"`` or ``"node"`` for the
     element-blocked matvec (``ebe_matvec``), ``"dia"`` for the banded
@@ -767,8 +786,10 @@ def mg_plan(mgs, dofmap, bc_mask, device, *, mv0_mode="scalar", dia_offsets=None
     n0 = bc_mask.size
     dofmap = np.asarray(dofmap, dtype=np.int64)
     levels, transfers = mgs["levels"], mgs["transfers"]
-    plan = {"n0": n0, "mode": mv0_mode, "cheb_degree": int(cheb_degree),
-            "ebe": ebe_plan(dofmap, bc_mask, n0, dev, "scalar" if mv0_mode == "scalar" else "node")}
+    psum = psum or _no_sum
+    plan = {"n0": n0, "mode": mv0_mode, "cheb_degree": int(cheb_degree), "psum": psum,
+            "ebe": ebe_plan(dofmap, bc_mask, n0, dev, "scalar" if mv0_mode == "scalar" else "node",
+                            psum)}
     if mv0_mode == "dia":
         plan["dia0"] = _band_plan(dia_offsets, mgs["dia0_dst"], n0, dev)
         for k in ("mask0_lat", "perm0_l2o", "perm0_o2l"):
@@ -866,19 +887,19 @@ def ebe_matvec(K_blocks, plan):
     With identity rows the bc block is a perfectly conditioned sub-problem.
     ``K_blocks`` (nc, nk, nk) must already be bc-masked by the caller."""
     dt = K_blocks.dtype
-    free, idx, table = plan["free"], plan["idx"], plan["table"]
+    free, idx, table, psum = plan["free"], plan["idx"], plan["table"], plan["psum"]
     nc, nk = K_blocks.shape[:2]
     if plan["mode"] == "node":
         def mv(x):
             u = F.pad(torch.where(free, x, 0.0).to(dt).view(-1, _BS), (0, 0, 0, 1))
             y = torch.bmm(K_blocks, u[idx].view(nc, nk, 1)).view(-1, _BS)
-            out = F.pad(y, (0, 0, 0, 1))[table].sum(1).view(-1)
+            out = psum(F.pad(y, (0, 0, 0, 1))[table].sum(1)).view(-1)
             return torch.where(free, out, x.to(dt))
     else:
         def mv(x):
             u = F.pad(torch.where(free, x, 0.0).to(dt), (0, 1))
             y = torch.bmm(K_blocks, u[idx].unsqueeze(-1)).view(-1)
-            return torch.where(free, segment_sum(y, table), x.to(dt))
+            return torch.where(free, psum(segment_sum(y, table)), x.to(dt))
     return mv
 
 
@@ -927,17 +948,18 @@ def mg_setup(plan, K0_cell_f32):
 
     ``K0_cell_f32`` (nc, nk, nk): bc-masked element blocks.  In dia mode
     the level-0 runtime vectors are in the lattice numbering."""
-    levels, transfers = plan["levels"], plan["transfers"]
+    levels, transfers, psum = plan["levels"], plan["transfers"], plan["psum"]
     n0, degree = plan["n0"], plan["cheb_degree"]
     if plan["mode"] == "dia":
         band = plan["dia0"]
-        vals0 = dedup_write(K0_cell_f32.reshape(-1), band["vals"]).view(band["nb"], n0)
+        vals0 = psum(dedup_write(K0_cell_f32.reshape(-1), band["vals"])).view(band["nb"], n0)
         d0 = vals0[band["diag"]]
 
         def mv0(x):
             return _dia_matvec(vals0, band, band["free"], x)
     else:
-        d0 = segment_sum(torch.diagonal(K0_cell_f32, dim1=1, dim2=2).reshape(-1), plan["d0"])
+        d0 = psum(segment_sum(torch.diagonal(K0_cell_f32, dim1=1, dim2=2).reshape(-1),
+                              plan["d0"]))
         mv0 = ebe_matvec(K0_cell_f32, plan["ebe"])
     d0 = torch.where(d0.abs() > 1e-30, d0, 1.0)
     dinv0 = 1.0 / d0
@@ -947,7 +969,7 @@ def mg_setup(plan, K0_cell_f32):
     # level 1: per-cell triple product, scattered into the ELL values
     t0 = transfers[0]
     blocks = t0["W"].transpose(1, 2) @ K0_cell_f32 @ t0["W"]
-    lvl_vals = [dedup_write(blocks.reshape(-1), t0["blk"]).view(levels[0]["cols"].shape)]
+    lvl_vals = [psum(dedup_write(blocks.reshape(-1), t0["blk"])).view(levels[0]["cols"].shape)]
     # deeper levels: Galerkin contribution maps, or frozen elastic values
     for t, lvl in zip(transfers[1:], levels[1:]):
         if "src" not in t:

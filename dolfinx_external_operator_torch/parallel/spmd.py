@@ -1,9 +1,9 @@
-"""Fused plasticity load step on one device (PyTorch).
+"""Fused plasticity load step (PyTorch), on one device or cell-sharded.
 
 The port of ``dolfinx_external_operator_tpu/parallel/spmd.py::
-FusedPlasticityStep`` for one device and every linear solver of the JAX
-package: ``"cg"``, ``"dense"``, ``"bcr"``, ``"mg"``, ``"elastic"`` and
-``"auto"``.  Per Newton pass:
+FusedPlasticityStep`` with every linear solver of the JAX package:
+``"cg"``, ``"dense"``, ``"bcr"``, ``"mg"``, ``"elastic"`` and ``"auto"``.
+Per Newton pass:
 
   deps = B @ u_cell                    (einsum over precomputed B-matrices)
   C_tang, sigma = batched return map   (the SoA constitutive kernel)
@@ -23,10 +23,20 @@ exactly (see ``_newton``).
 Scatter-adds never use ``index_add_``, whose CUDA form uses atomics: each
 destination sums a fixed, padded table of its contributions in increasing
 order (``scatter.py``), so results are bitwise repeatable on every device.
+
+With a ``device_mesh`` (``dist.make_device_mesh``, one process per rank)
+the cells are padded to a multiple of the rank count and each rank owns a
+contiguous slice of them: its B-matrices, weights, dofmap and Gauss-point
+state.  Dof vectors are whole on every rank.  Each scatter is the rank's
+segment sum over its own cells followed by one all-reduce
+(``dist.psum``), as the JAX package's ``shard_map`` follows each with
+``psum`` (``spmd.py:955-989``); everything after a sum is the same work on
+the same bits on every rank, so the ranks take the same branches.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import warnings
 
@@ -36,6 +46,7 @@ import torch
 from .. import resolve_device
 from ..convert import statics_from_numpy
 from . import bcr as _bcr
+from . import dist
 from . import mg as _mg
 from .scatter import dedup_table, dedup_write, segment_sum, segment_table
 from ..elements import Element
@@ -105,7 +116,7 @@ def host_statics(mesh: Mesh, V, S, bc_dofs, bc_vals=None, body_dir=(0.0, -1.0)):
 
 class FusedPlasticityStep:
     """Fused Newton load step for vector-displacement / quadrature-stress
-    plasticity on one device.
+    plasticity, on one device or cell-sharded over ranks.
 
     Parameters
     ----------
@@ -118,12 +129,21 @@ class FusedPlasticityStep:
     bc_dofs, bc_vals : Dirichlet data on the displacement space.
     body_dir : direction of the unit body force; ``load`` scales it.
     device : ``None`` -> ``"cuda"`` (raises without a card), or ``"cpu"``.
+        With a ``device_mesh``, the mesh's device (``device`` must be
+        ``None`` or the same).
+    device_mesh : ``None`` (one device), or this rank's
+        ``dist.DeviceMesh``: the cells are sharded over its ranks, and
+        every rank constructs the step and calls it alike.  ``sigma_n``
+        and the returned sigma are then the rank's
+        ``(nc_pad // size, nq, 4)`` slice; Du is whole on every rank.
     linear_solver : ``"cg"``, ``"dense"``, ``"bcr"`` (block-cyclic
         reduction, lattice meshes only), ``"mg"`` (aggregation AMG as the
         preconditioner of mixed-precision CG), ``"elastic"`` (a dense f32
         inverse of the tangent, lagged one load step, as the
         preconditioner) or ``"auto"`` (dense up to 10k dofs, BCR up to 130k,
-        AMG-CG above that and wherever BCR finds no lattice).
+        AMG-CG above that and wherever BCR finds no lattice; with a
+        ``device_mesh``, AMG-CG above 10k dofs, as the JAX package does:
+        BCR's factorization would be the same work on every rank).
     dense_refine : f64 refinement rounds after the dense path's f32 solve
         (the JAX package's ``_dense_refine``, default 1); the other solvers
         ignore it.
@@ -153,7 +173,10 @@ class FusedPlasticityStep:
         needs ``statics["bcr"]``, the lattice map of ``bcr.build_bcr_statics``
         (``convert.bcr_statics_from_numpy`` carries a JAX step's across);
         the AMG solver needs ``statics["mg"]``, the hierarchy
-        (``convert.mg_statics_from_numpy``)."""
+        (``convert.mg_statics_from_numpy``).  The statics are whole (all
+        cells, possibly padded); with ``device_mesh=`` each rank pads them
+        to its rank count and takes its own cells, those of ``"mg"`` and
+        ``"bcr"`` included."""
         self = cls.__new__(cls)
         self.mesh = self.V = self.S = None
         self._setup({k: v if k in ("bcr", "mg") else np.asarray(v) for k, v in statics.items()},
@@ -163,10 +186,15 @@ class FusedPlasticityStep:
     def _setup(self, st_np, batched_kernel, device, newton_atol=1e-8, newton_rtol=1e-8,
                newton_max_it=100, cg_rtol=1e-13, cg_maxiter=10000, linear_solver="cg",
                device_mesh=None, dense_refine=1, mg_opts=None, fused_forcing=False):
-        self.device = resolve_device(device)
-        if device_mesh is not None:
-            raise NotImplementedError(
-                "cell sharding over several devices is ROADMAP queue 1 item 7")
+        self.device_mesh = device_mesh
+        if device_mesh is None:
+            self.device = resolve_device(device)
+            self._psum = _mg._no_sum
+        else:
+            if device is not None and resolve_device(device) != device_mesh.device:
+                raise ValueError(f"device {device!r} is not the mesh's {device_mesh.device}")
+            self.device = device_mesh.device
+            self._psum = functools.partial(dist.psum, group=device_mesh.group)
         self._vkernel = batched_kernel
         self.newton_atol = newton_atol
         self.newton_rtol = newton_rtol
@@ -178,44 +206,65 @@ class FusedPlasticityStep:
         # solves, where the classic 0.1 inflates them
         self.fused_forcing = 1e-4 if fused_forcing is True else fused_forcing
 
-        self.n_dofs = int(st_np["bc_mask"].shape[0])
-        self.nc_pad, self.nq = st_np["B"].shape[:2]
-        self.nc = self.nc_pad if self.mesh is None else self.mesh.num_cells
+        self.n_dofs = n = int(st_np["bc_mask"].shape[0])
+        self.nq = st_np["B"].shape[1]
+        # the real cells; padded ones (a sharded JAX step's statics) come
+        # last, every dof at the dummy index n
+        self.nc = int((np.asarray(st_np["dofmap"]) < n).any(axis=1).sum())
+        # cells padded to a multiple of the rank count (spmd.py:238-246)
+        ranks = 1 if device_mesh is None else device_mesh.size
+        self.nc_pad = -(-st_np["B"].shape[0] // ranks) * ranks
         auto = linear_solver == "auto"
         if auto:
             # the JAX package's crossovers (spmd.py:162-167)
-            linear_solver = "dense" if self.n_dofs <= 10_000 else (
-                "bcr" if self.n_dofs <= 130_000 else "mg")
+            linear_solver = "dense" if n <= 10_000 else (
+                "bcr" if n <= 130_000 and device_mesh is None else "mg")
         if linear_solver not in ("cg", "dense", "bcr", "mg", "elastic"):
             raise ValueError(f"unknown linear_solver {linear_solver!r}")
-        self.statics = statics_from_numpy(st_np, self.device)
+        # this rank's cells (spmd.py:301-307): bc data whole
+        local = {k: self._cells(st_np[k]) for k in ("B", "wdet", "f_cell")}
+        local.update(dofmap=self._cells(st_np["dofmap"], n), bc_mask=st_np["bc_mask"],
+                     bc_vals=st_np["bc_vals"])
+        self.statics = statics_from_numpy(local, self.device)
+        dofmap = local["dofmap"].astype(np.int64)
 
         # deterministic scatter: dof <- its (cell, local dof) slots
         dev = self.device
-        self._scatter_table = torch.as_tensor(segment_table(st_np["dofmap"], self.n_dofs),
-                                              device=dev)
+        self._scatter_table = torch.as_tensor(segment_table(dofmap, n), device=dev)
         # bc mask of each cell dof (padded cells: all masked)
         keep_ext = np.concatenate([~st_np["bc_mask"], [False]])
-        self._keep_cell = torch.as_tensor(keep_ext[st_np["dofmap"]], dtype=_F, device=dev)
+        self._keep_cell = torch.as_tensor(keep_ext[dofmap], dtype=_F, device=dev)
         self._dense_asm = None
         if linear_solver in ("dense", "elastic"):
-            self._dense_asm = dedup_table(
-                *self._dense_keys(st_np["dofmap"].astype(np.int64)), device=dev)
+            self._dense_asm = dedup_table(*self._dense_keys(dofmap), device=dev)
         self._bcr = None
         if linear_solver == "bcr" and not self._setup_bcr(st_np, auto):
             # auto-selected BCR on a mesh that turned out non-lattice
             linear_solver = "mg"
         self.linear_solver = linear_solver
+        # the hierarchy and the elastic inverse are built from all cells,
+        # the same on every rank (the JAX package's design)
         if linear_solver == "mg":
-            self._setup_mg(st_np, dict(mg_opts or {}))
+            self._setup_mg(st_np, dict(mg_opts or {}), dofmap)
         elif linear_solver == "elastic":
-            self._setup_elastic_inverse(st_np)
+            self._setup_elastic_inverse(st_np, dofmap)
         # dense-path factorization: "lu" on the CPU, "chol" on the card,
         # from where the statics landed (spmd.py:802-804)
         self._dense_fact = "lu" if dev.type == "cpu" else "chol"
         # f64 refinement rounds on top of the equilibrated f32 solve (the
         # JAX package's default is 1, validated Newton-iterate-identical)
         self._dense_refine = int(dense_refine)
+
+    def _cells(self, a, pad=0):
+        """This rank's rows of the per-cell array ``a`` (all cells), after
+        padding it to ``nc_pad`` rows of ``pad``: the index that drops a
+        padded cell's contributions from its map."""
+        a = np.asarray(a)
+        a = np.concatenate([a, np.full((self.nc_pad - a.shape[0],) + a.shape[1:], pad, a.dtype)])
+        if self.device_mesh is None:
+            return a
+        k = self.nc_pad // self.device_mesh.size
+        return a[self.device_mesh.rank * k:(self.device_mesh.rank + 1) * k]
 
     def _dense_keys(self, dofmap_p):
         """Flat index into the (n + 1, n + 1) matrix of each per-cell
@@ -259,8 +308,9 @@ class FusedPlasticityStep:
 
         self._bcr = {
             "m": m, "B": B, "n": n,
-            # padded cells point at the sentinel, which the map drops
-            "bands": dedup_table(info["dst"], sentinel, dev),
+            # this rank's cells; padded cells point at the sentinel, which
+            # the map drops
+            "bands": dedup_table(self._cells(info["dst"], sentinel), sentinel, dev),
             "diag_fix": t(info["diag_fix"]),
             "diag_slot": t(info["diag_slot"]),
             "perm_l2o": t(info["perm_l2o"]),
@@ -283,11 +333,15 @@ class FusedPlasticityStep:
         return np.einsum("cqik,ij,cqjl,cq->ckl", B_np, self._elastic_tangent(), B_np,
                          st_np["wdet"][:self.nc], optimize=True)
 
-    def _setup_mg(self, st_np, mg_opts):
+    def _setup_mg(self, st_np, mg_opts, dofmap):
         """The AMG hierarchy (spmd.py:391-453): built on the host from the
         elastic tangent (``mg.build_mg_statics``), or taken from
         ``statics["mg"]`` without a mesh; then its device plan
-        (``mg.mg_plan``)."""
+        (``mg.mg_plan``) over this rank's cells (``dofmap``): the level-0
+        maps ``W``, ``blk_dst`` and ``dia0_dst`` are sliced as the JAX
+        package shards them (spmd.py:308-314, :449-452), each scatter of
+        ``mg_setup`` and of the level-0 element-blocked matvecs is
+        followed by ``psum``, and the coarse levels stay whole."""
         if self.mesh is not None:
             # above ~30k dofs the aggregation levels keep their elastic
             # Galerkin values (the per-Newton maps would dwarf the few CG
@@ -318,8 +372,15 @@ class FusedPlasticityStep:
             mode = "node"
         self._mg_mv0_mode, self._mg_gamma = mode, gamma
         dia = mode == "dia"
+        t0 = dict(mgs["transfers"][0])
+        t0["W"] = self._cells(t0["W"])
+        t0["blk_dst"] = self._cells(t0["blk_dst"], np.asarray(mgs["levels"][0]["cols"]).size)
+        mgs["transfers"] = [t0] + list(mgs["transfers"][1:])
+        if static["dia0_offsets"] is not None:
+            mgs["dia0_dst"] = self._cells(mgs["dia0_dst"],
+                                          len(static["dia0_offsets"]) * self.n_dofs)
         self._mg = _mg.mg_plan(
-            mgs, st_np["dofmap"], st_np["bc_mask"], self.device, mv0_mode=mode,
+            mgs, dofmap, st_np["bc_mask"], self.device, psum=self._psum, mv0_mode=mode,
             dia_offsets=static["dia0_offsets"],
             dia1_offsets=static["dia1_offsets"] if dia else None,
             t0_stencil=static["t0_stencil"] if dia else None,
@@ -327,12 +388,14 @@ class FusedPlasticityStep:
         # dofs per level: level 0, then the P1 level and the aggregates
         self.mg_sizes = [self.n_dofs] + [lvl["n"] for lvl in self._mg["levels"]]
 
-    def _setup_elastic_inverse(self, st_np):
+    def _setup_elastic_inverse(self, st_np, dofmap):
         """Dense f32 inverse of the Jacobi-equilibrated ELASTIC stiffness,
         the first preconditioner of ``linear_solver="elastic"``
-        (spmd.py:360-389).  Built with numpy as in the JAX package, so it is
-        the same matrix bit for bit.  The (Minv, d) pair is step state:
-        every load step refreshes it from its converged tangent."""
+        (spmd.py:360-389).  Built with numpy from all cells as in the JAX
+        package, so it is the same matrix bit for bit (and on every rank).
+        The (Minv, d) pair is step state: every load step refreshes it from
+        its converged tangent.  The element-blocked matvecs run over this
+        rank's cells (``dofmap``)."""
         n = self.n_dofs
         dm = st_np["dofmap"][:self.nc].astype(np.int64)
         K = np.zeros((n, n), np.float64)
@@ -344,12 +407,13 @@ class FusedPlasticityStep:
         Ks = (K * d[:, None] * d[None, :]).astype(np.float32)
         self._el_precond = (torch.as_tensor(np.linalg.inv(Ks), device=self.device),
                             torch.as_tensor(d, dtype=torch.float32, device=self.device))
-        self._el_ebe = _mg.ebe_plan(st_np["dofmap"], mask, n, self.device)
+        self._el_ebe = _mg.ebe_plan(dofmap, mask, n, self.device, psum=self._psum)
 
     def _assemble_dense_f32(self, K_cell32):
-        """Global (n, n) f32 matrix from per-cell (nk, nk) blocks."""
+        """Global (n, n) f32 matrix from per-cell (nk, nk) blocks (sharded:
+        an all-reduce of the (n + 1)^2 matrix, spmd.py:356-358)."""
         n = self.n_dofs
-        K = dedup_write(K_cell32.reshape(-1), self._dense_asm)
+        K = self._psum(dedup_write(K_cell32.reshape(-1), self._dense_asm))
         return K.view(n + 1, n + 1)[:n, :n]
 
     # ------------------------------------------------------------------
@@ -358,7 +422,7 @@ class FusedPlasticityStep:
         return torch.cat([u, u.new_zeros(1)])[self.statics["dofmap"]]  # (nc, nk)
 
     def _scatter(self, cell_vals):
-        return segment_sum(cell_vals.reshape(-1), self._scatter_table)
+        return self._psum(segment_sum(cell_vals.reshape(-1), self._scatter_table))
 
     def _constitutive(self, Du, sigma_n):
         st = self.statics
@@ -505,8 +569,9 @@ class FusedPlasticityStep:
         lattice numbering, with identity bc and padding rows
         (spmd.py:745-763)."""
         plan = self._bcr
-        Tflat = dedup_write(self._k_cell_masked(C_tang, torch.float32), plan["bands"])
-        Tflat[plan["diag_fix"]] += 1.0  # unique slots
+        Tflat = self._psum(dedup_write(self._k_cell_masked(C_tang, torch.float32),
+                                       plan["bands"]))
+        Tflat[plan["diag_fix"]] += 1.0  # unique slots, after the sum over ranks
         return Tflat
 
     def _bcr_apply(self, fact, d, rr):
@@ -555,9 +620,15 @@ class FusedPlasticityStep:
             return torch.where(mask, r, z)
 
         # on the card one cycle is hundreds of small launches: replay them
-        # from a CUDA graph captured once per update
-        M32 = _mg.cuda_graphed(M32, torch.zeros(self.n_dofs, dtype=torch.float32,
-                                                device=self.device))
+        # from a CUDA graph captured once per update.  Sharded, the cycle
+        # of node and scalar mode all-reduces in its level-0 matvec (dia
+        # mode's is banded and whole on every rank): a graph can hold an
+        # NCCL all-reduce, not gloo's, which stages through the host, so
+        # over gloo that cycle runs eager
+        mesh = self.device_mesh
+        if mesh is None or self._mg_mv0_mode == "dia" or mesh.backend == "nccl":
+            M32 = _mg.cuda_graphed(M32, torch.zeros(self.n_dofs, dtype=torch.float32,
+                                                    device=self.device))
         return _mg.ir_pcg(mv64, rt["mv0"], M32, b, rtol, self.cg_maxiter, **inner)
 
     def _elastic_solve(self, C_tang, b, rtol):
@@ -647,8 +718,9 @@ class FusedPlasticityStep:
                 torch.as_tensor(sigma_n, dtype=_F, device=self.device))
 
     def run_step(self, Du, sigma_n, load):
-        """One load step: (Du (n,), sigma_n (nc_pad, nq, 4), load) ->
-        (Du_new, sigma (nc_pad, nq, 4), residual_norm, newton_its, cg_its)."""
+        """One load step: (Du (n,), sigma_n (nc_pad // ranks, nq, 4), load)
+        -> (Du_new, sigma (nc_pad // ranks, nq, 4), residual_norm,
+        newton_its, cg_its)."""
         Du, sigma_n = self._state_in(Du, sigma_n)
         return self._newton(Du, sigma_n, float(load), self.newton_max_it, self.cg_rtol,
                             math.nan)
@@ -707,6 +779,7 @@ class FusedPlasticityStep:
         return Du, sigma, norm, its_total, cg_total
 
     def zero_state(self):
-        sig = torch.zeros((self.nc_pad, self.nq, 4), dtype=_F, device=self.device)
+        """(Du, sigma_n) of zeros: Du whole, sigma_n this rank's cells."""
+        sig = torch.zeros((self.statics["B"].shape[0], self.nq, 4), dtype=_F, device=self.device)
         Du = torch.zeros(self.n_dofs, dtype=_F, device=self.device)
         return Du, sig

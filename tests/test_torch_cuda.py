@@ -1,4 +1,5 @@
-"""Card-only tests of the port's CUDA kernels; each skips without a GPU.
+"""Card-only tests of the port's CUDA kernels and of its runs on the card;
+each skips without a GPU.
 
 This file imports no JAX, so that it runs on a machine that has PyTorch
 with CUDA but no JAX (``tests/conftest.py`` imports JAX, hence
@@ -336,3 +337,61 @@ def test_cuda_elastic_refresh_inverts_tangent(cuda):
     Minv, d = fp._el_precond
     E = Minv @ (Kd * d[:, None] * d[None, :]) - torch.eye(fp.n_dofs, device=cuda)
     assert float(E.abs().max()) < 1e-4
+
+
+def _unsharded(N, loads, device, **opts):
+    """The port's slope step without a mesh, as ``entry.slope_schedule``
+    runs it: (Du, sigma, Newton list, inner counts) as numpy and ints."""
+    fp = pt.mohr_coulomb_slope_step(N, N, device=device, **opts)
+    Du, sig = fp.zero_state()
+    its, inner = [], []
+    for load in loads:
+        Du, sig, _, it, cg = fp.run_step(Du, sig, float(load))
+        its.append(int(it))
+        inner.append(int(cg))
+    return Du.cpu().numpy(), sig.cpu().numpy(), its, inner
+
+
+@pytest.mark.parametrize("mode", ["dia", "node"])
+def test_cuda_one_nccl_rank_is_the_unsharded_step(cuda, mode):
+    """One NCCL rank through the sharded code, 8x8 slope with AMG-CG, on
+    the card: the unsharded step's bits.  In node mode the cycle's level-0
+    matvec all-reduces, and over NCCL it is captured in the CUDA graph."""
+    from dolfinx_external_operator_torch.entry import slope_schedule
+    from dolfinx_external_operator_torch.parallel import dist
+
+    loads, opts = (2.0, 6.0), {"linear_solver": "mg", "mg_opts": {"mv0_mode": mode}}
+    (run,) = dist.spawn(slope_schedule, 1, "nccl", None, 8, loads, "mg",
+                        mg_opts={"mv0_mode": mode})
+    Du, sig, its, inner = _unsharded(8, loads, cuda, **opts)
+    assert (run["newton"], run["inner"]) == (its, inner)
+    assert np.array_equal(run["du"], Du) and np.array_equal(run["sigma"], sig)
+    assert run["launches"] == run["passes"] and run["psum_calls"] > 0
+
+
+@pytest.mark.parametrize("mode", ["dia", "node"])
+def test_cuda_two_gloo_ranks_on_one_card(cuda, mode):
+    """Two gloo ranks with CUDA tensors on one card (NCCL refuses that):
+    the one-rank Newton list, Du within 1e-10, the ranks' norms bitwise
+    equal, one K1 launch per Newton pass on each rank.  In node mode the
+    cycle's level-0 matvec all-reduces over gloo, so the cycle runs eager
+    (no CUDA graph can hold a gloo all-reduce); in dia mode it is graphed."""
+    from dolfinx_external_operator_torch.entry import slope_schedule
+    from dolfinx_external_operator_torch.parallel import dist
+
+    loads, mg_opts = (2.0, 6.0, 10.0), {"mv0_mode": mode}
+    runs = dist.spawn(slope_schedule, 2, "gloo", None, 8, loads, "mg", mg_opts=mg_opts)
+    Du, _, its, _ = _unsharded(8, loads, cuda, linear_solver="mg", mg_opts=mg_opts)
+    for run in runs:
+        assert run["device"] == "cuda:0" and run["newton"] == its
+        assert float(np.abs(run["du"] - Du).max()) < 1e-10
+        assert run["norms"] == runs[0]["norms"]
+        assert run["launches"] == run["passes"]
+
+
+def test_cuda_dryrun_multichip_two_gloo_ranks(cuda):
+    """``dryrun_multichip(2)`` with two gloo ranks on one card gives Newton
+    counts 1 and 2 on both ranks."""
+    from dolfinx_external_operator_torch.entry import dryrun_multichip
+
+    assert [r["newton"] for r in dryrun_multichip(2, backend="gloo")] == [[1, 2], [1, 2]]

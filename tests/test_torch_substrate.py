@@ -97,13 +97,14 @@ def test_plasticity_block_25x25_bitwise():
 
 
 def test_port_imports_no_jax():
-    """The port (with the BCR and AMG solvers, the Mohr-Coulomb material, surface,
-    kernel wrapper and the comparison scripts), chip_smoke's module-level
-    code and the card-only test file import no JAX."""
+    """The port (with the BCR and AMG solvers, cell sharding and the entry
+    points, the Mohr-Coulomb material, surface, kernel wrapper and the
+    comparison scripts), chip_smoke's module-level code, the card-only test
+    file and the sharded tests' rank functions import no JAX."""
     code = ("import sys; import dolfinx_external_operator_torch, chip_smoke; "
-            "sys.path.insert(0, 'tests'); import test_torch_cuda; "
-            "from dolfinx_external_operator_torch.parallel import bcr, mg, scatter, spmd; "
-            "from dolfinx_external_operator_torch import convert, problems; "
+            "sys.path.insert(0, 'tests'); import test_torch_cuda, _torch_shard_worker; "
+            "from dolfinx_external_operator_torch.parallel import bcr, dist, mg, scatter, spmd; "
+            "from dolfinx_external_operator_torch import convert, entry, problems; "
             "from dolfinx_external_operator_torch.models import mohr_coulomb; "
             "from dolfinx_external_operator_torch.ops import abbo_sloan, mohr_coulomb as mc_ops; "
             "from dolfinx_external_operator_torch.tools import k1_compare; "
