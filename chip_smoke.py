@@ -87,20 +87,33 @@ Phases, in order; any failed check exits non-zero without the ``ok`` line:
 16. ``dryrun_multichip(2)`` on the card over gloo: Newton counts 1 and 2
    (``MULTICHIP_r05.json``), inner counts beside that record's;
 17. with two cards or more, phases 15 and 16 over NCCL, one rank per card
-   (up to 4); with one card it says that multi-card NCCL was not run.
+   (up to 4); with one card it says that multi-card NCCL was not run;
+18. the general external-operator pipeline: the 25x25 slope through
+   ``models.mohr_coulomb.solve_slope_stability`` (the stress a
+   ``FEMExternalOperator`` whose callback launches K1; dense assembly, f32
+   LU with 4 f64 refinement rounds, Newton) over the 52 steps: the
+   record's Newton list, one K1 launch per residual plus the initial
+   update (224 without backtracking), ``u`` within 1e-8 of phase 6's fused
+   step; s/step beside phase 6's, peak memory, the layers of step 50's
+   first pass (operands, the K1 callback, the vector and the dense matrix
+   assembly, the LU factorization, 4 refinement rounds), step 51 under
+   the profiler (``trace_general_step.json.gz``).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  A copy of all measurements goes to
 ``chiprun_out/chip_smoke.json``.  Exits non-zero, printing no result, when
 no CUDA device is present.  The profiler traces (``trace_*.json.gz``) go
-beside the measurements.
+beside the measurements.  Before it exits, it stops every process it
+started that is still alive (``stop_children``).
 """
 
+import gc
 import gzip
 import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -149,6 +162,12 @@ MC_FIXED_F64_OPS = 1590
 MC_TOL = {"C": 1e-6, "sig": 1e-7}
 RECORDS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs", "records")
 RECORD = os.path.join(RECORDS, "scaling_25x25_full_tpu_bcr_schedule.json")
+# the JAX package's general path (models/mohr_coulomb.py::
+# solve_slope_stability) at 25x25 over SLOPE_LOADS on the CPU, the list
+# tests/test_torch_general_slope.py pins: the record's but for step 51 (6
+# updates, not 7), 170 in all
+GENERAL_25X25 = [1, 2, 2, 3, 3, 2, 3, 3, 3, 3, 3, 3, 4, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3,
+                 4, 4, 3, 3, 3, 3, 3, 3, 4, 3, 3, 3, 3, 3, 4, 4, 3, 4, 4, 4, 4, 4, 4, 6, 6, 4]
 RECORD_100 = os.path.join(RECORDS, "scaling_100x100_full_tpu_bcr.json")
 RECORD_100_MG = os.path.join(RECORDS, "scaling_100x100_full_tpu.json")
 # load steps of the 100x100 AMG-CG phase: all of the record's (the next
@@ -178,6 +197,73 @@ class SmokeFailure(Exception):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def descendants(pid):
+    """The ids of the live processes below ``pid`` (children, theirs, ...),
+    read from ``/proc``."""
+    parent = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        # the fields after the command name, which may hold spaces
+        parent[int(entry)] = int(stat.rsplit(")", 1)[1].split()[1])
+    out, todo = [], [pid]
+    while todo:
+        p = todo.pop()
+        kids = [c for c, pp in parent.items() if pp == p]
+        out += kids
+        todo += kids
+    return out
+
+
+def command_line(pid):
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            return f.read().replace(b"\0", b" ").decode(errors="replace").strip()[:200]
+    except OSError:
+        return "?"
+
+
+def stop_children():
+    """End every process this run started that is still alive, so that
+    none outlives the script.  The ranks' ``spawn`` start method launched
+    multiprocessing's resource tracker, which otherwise ends only after the
+    script has exited; it is stopped and waited for.  Any other process
+    left below this one is named on stderr, sent SIGTERM, and SIGKILL
+    after 5 s."""
+    from multiprocessing import resource_tracker
+
+    gc.collect()
+    tracker = resource_tracker._resource_tracker
+    if hasattr(tracker, "_stop"):
+        tracker._stop()
+    left = descendants(os.getpid())
+    for pid in left:
+        print(f"chip_smoke: stopping process {pid} left running: {command_line(pid)}",
+              file=sys.stderr, flush=True)
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid in left:
+            try:
+                os.kill(pid, sig)
+            except ProcessLookupError:
+                pass
+        deadline = time.monotonic() + 5.0
+        while left and time.monotonic() < deadline:
+            for pid in list(left):
+                try:
+                    done = os.waitpid(pid, os.WNOHANG)[0] == pid
+                except ChildProcessError:
+                    # not a child of this process: gone once /proc lacks it
+                    done = not os.path.exists(f"/proc/{pid}")
+                if done:
+                    left.remove(pid)
+            time.sleep(0.05)
 
 
 def card_line():
@@ -329,9 +415,11 @@ def warm_up(fp, load):
 def run_loads(fp, loads, capture=()):
     """The schedule from the zero state, Du carried from step to step;
     wall time per step after a sync.  ``capture``: indices of the steps
-    whose starting state (Du, sigma_n) is returned in a dict."""
+    whose starting state (Du, sigma_n) is returned in a dict, which also
+    holds the total displacement (the sum of the steps' Du) under "u"."""
     Du, sig = fp.zero_state()
     its, cgs, walls, states = [], [], [], {}
+    u = torch.zeros_like(Du)
     for k, load in enumerate(loads):
         if k in capture:
             states[k] = (Du.clone(), sig.clone())
@@ -339,11 +427,13 @@ def run_loads(fp, loads, capture=()):
         Du, sig, norm, it, cg = fp.run_step(Du, sig, load)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+        u = u + Du
         check(np.isfinite(norm), f"non-finite residual at load {load}")
         its.append(it)
         cgs.append(cg)
     check(tuple(Du.shape) == (fp.n_dofs,) and bool(torch.isfinite(Du).all()), "bad Du")
     check(bool(torch.isfinite(sig).all()), "bad sigma")
+    states["u"] = u
     return Du, its, cgs, walls, states
 
 
@@ -1119,6 +1209,120 @@ def dryrun_phase(report, n, backend):
     return runs[0]["launches"]
 
 
+def general_layers(run, step, loads):
+    """Where one Newton pass of the general path goes at the starting
+    iterate of load step ``step`` (0-based) of ``loads``: host
+    milliseconds of each layer, each ending in a synchronise."""
+    from dolfinx_external_operator_torch import evaluate_operands
+    from dolfinx_external_operator_torch.solvers import lu_factor32, lu_refine
+
+    Du, sigma_n = run["states"][step]
+    run["Du"].x.array[:] = Du
+    run["sigma_n"].x.array[:] = sigma_n
+    run["q"].value = loads[step] * np.array([0.0, -run["gamma"]])
+    problem, mat = run["problem"], run["material"]
+    (operand,) = run["F_ops"][0].ufl_operands
+    deps = evaluate_operands(run["F_ops"])[operand]
+    run["constitutive_update"]()
+    A = problem.J.matrix()
+    mask = torch.zeros(A.shape[0], dtype=torch.bool, device=A.device)
+    for bc in problem.bcs:
+        mask[torch.as_tensor(bc.dofs, device=A.device)] = True
+    keep = (~mask).to(A.dtype)
+    A = A * keep[:, None] * keep[None, :] + torch.diag(mask.to(A.dtype))
+    factors = lu_factor32(A)
+    b = -torch.where(mask, torch.zeros_like(Du), problem.F.vector())
+    x = lu_refine(factors, b, 4)
+    rel = float((b - A @ x).norm() / b.norm())
+    n = A.shape[0]
+    return {
+        "evaluate_operands_ms": host_time_ms(lambda: evaluate_operands(run["F_ops"])),
+        "k1_callback_ms": host_time_ms(lambda: mat.tangent_and_stress(deps, sigma_n, route="cuda")),
+        "constitutive_update_ms": host_time_ms(run["constitutive_update"]),
+        "F_vector_ms": host_time_ms(problem.F.vector),
+        "J_matrix_ms": host_time_ms(problem.J.matrix),
+        "J_matrix_bound_ms": n * n * 8 / HBM_BYTES_PER_S * 1e3,
+        "lu_factor_ms": host_time_ms(lambda: lu_factor32(A)),
+        "lu_factor_bound_ms": 2.0 / 3.0 * n**3 / F32_FLOPS_PER_S * 1e3,
+        "refine_4_rounds_ms": host_time_ms(lambda: lu_refine(factors, b, 4)),
+        "solve_rel_residual": rel,
+    }
+
+
+def general_slope_phase(report, u_fused, fused_s, n=25, loads=pt.SLOPE_LOADS, device="cuda",
+                        steps=(49, 50)):
+    """Phase 18: the Mohr-Coulomb slope through the general pipeline
+    (``solve_slope_stability``: forms, operands, K1 as the operator's
+    callback, dense assembly, f32 LU with 4 f64 rounds, Newton) at n x n
+    over ``loads``; ``steps``: the load steps whose layers are timed and
+    which runs under the profiler.  The smaller sizes rehearse it."""
+    from dolfinx_external_operator_torch.models import mohr_coulomb as mc
+
+    with open(RECORD) as f:
+        record = json.load(f)["newton_per_step"]
+    expected_its = GENERAL_25X25 if n == 25 else None
+    # first calls of the LU and the forms' code, on a small slope
+    mc.solve_slope_stability(4, 4, loads[:2], device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the path's count starts at 0 here and is read after it
+    mc_ops.mc_return_map.launches = 0
+    t0 = time.perf_counter()
+    run = mc.solve_slope_stability(n, n, loads, device=device, route="cuda", capture=steps)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = mc_ops.mc_return_map.launches
+    peak = torch.cuda.max_memory_allocated()
+    its, backtracks = run["iterations"], sum(run["backtracks"])
+    backtracked = [k + 1 for k, b in enumerate(run["backtracks"]) if b]
+    u = run["u"].data
+    check(run["V"].num_dofs == 2 * (2 * n + 1) ** 2 and run["S"].num_dofs == 4 * 6 * n * n,
+          "wrong general slope size")
+    check(bool(torch.isfinite(u).all()) and u.device.type == device, "bad general-path u")
+    check(expected_its is None or its == expected_its,
+          f"general-path Newton list {its} != the JAX package's {expected_its}")
+    off_record = [k + 1 for k, (a, b) in enumerate(zip(its, record)) if a != b]
+    # one update before the schedule, then one per residual: each Newton
+    # pass, each step's closing pass, each backtracking retry
+    expected = 1 + sum(its) + len(its) + backtracks
+    check(launches == expected, f"{launches} K1 launches on the general path, expected {expected}")
+    gap = float((u - u_fused).abs().max() / u_fused.abs().max())
+    check(gap < 1e-8, f"general-path u differs from the fused step's by {gap:.3e}")
+    steps_s = sum(run["step_s"])
+    print(f"{n}x{n} slope, general pipeline (K1 callback, f32 LU + 4 rounds): newton {its} "
+          f"({sum(its)}; off the fused record at steps {off_record}), backtracks {backtracks} "
+          f"(at steps {backtracked}), K1 launches {launches}, u gap to the fused "
+          f"step {gap:.2e}; {steps_s:.2f} s of steps ({steps_s / len(its):.4f} s/step), "
+          f"{total:.2f} s with the build; the fused step in this run {fused_s:.2f} s "
+          f"({fused_s / len(its):.4f} s/step); peak memory {peak / 2**30:.3f} GiB", flush=True)
+    layers = general_layers(run, steps[0], loads)
+    print(f"{n}x{n} general path, step {steps[0] + 1}'s iterate (ms): "
+          + ", ".join(f"{k[:-3]} {v:.3f}" for k, v in layers.items() if k.endswith("_ms"))
+          + f"; solve residual {layers['solve_rel_residual']:.2e}", flush=True)
+    Du, sigma_n = run["states"][steps[1]]
+    run["Du"].x.array[:] = Du
+    run["sigma_n"].x.array[:] = sigma_n
+    run["q"].value = loads[steps[1]] * np.array([0.0, -run["gamma"]])
+    wall, by_name, events, host_launches = traced(
+        run["problem"].solve, os.path.join(OUT_DIR, "trace_general_step.json"))
+    busy = sum(by_name.values())
+    idle = 1.0 - busy / (wall * 1e3) if events else None
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    print(f"{n}x{n} general path, step {steps[1] + 1} under the profiler: wall {wall * 1e3:.2f} ms, device "
+          f"busy {busy:.2f} ms (idle {'not measured' if idle is None else f'{idle:.1%}'}), "
+          f"{events} device events, {host_launches} host launches", flush=True)
+    for name, t in top[:8]:
+        print(f"  {t:9.3f} ms  {name}", flush=True)
+    report["general_slope"] = {
+        "newton": its, "steps_off_record": off_record, "backtracks": run["backtracks"], "launches": launches, "u_gap_to_fused": gap,
+        "step_s": run["step_s"], "steps_s": steps_s, "total_s": total, "fused_s": fused_s,
+        "peak_bytes": peak, "layers_step50": layers,
+        "profile_step51": {"wall_ms": wall * 1e3, "device_busy_ms": busy, "idle_share": idle,
+                           "device_events": events, "host_launches": host_launches,
+                           "top_ms": top}}
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1260,6 +1464,9 @@ def main():
     else:
         print(f"multi-card NCCL not run: {cards} card", flush=True)
     report["multi_card_nccl_run"] = cards >= 2
+    # phase 18: the same slope through the general external-operator pipeline
+    general_launches = general_slope_phase(report, states["u"],
+                                           sum(report["mc_main"]["wall_kernel_s"]))
 
     main_shape = shapes[1]
     kernels = [{
@@ -1288,7 +1495,8 @@ def main():
         "launches_by_path": {"slope_25x25_dense": mc_launches, "slope_25x25_bcr": bcr_launches,
                              "slope_100x100_bcr": launches_100, "slope_25x25_mg": mg_launches,
                              "slope_25x25_elastic": elastic_launches,
-                             "slope_100x100_mg": mg_launches_100, **sharded},
+                             "slope_100x100_mg": mg_launches_100,
+                             "slope_25x25_general": general_launches, **sharded},
         "max_abs_err": mc_shapes[0]["max_abs_err"],
         "max_rel_err": max(max(s["rel_err_C"], s["rel_err_sig"]) for s in mc_shapes),
         "ms": mc_shapes[0]["ms"],
@@ -1320,4 +1528,6 @@ if __name__ == "__main__":
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         code = 1
+    finally:
+        stop_children()
     sys.exit(code)

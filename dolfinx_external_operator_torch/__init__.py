@@ -26,6 +26,16 @@ Cell sharding runs one process per rank (``parallel.dist``:
 ``dryrun_multichip`` are the counterparts of the JAX package's entry points
 (``__graft_entry__.py``).
 
+The general external-operator pipeline, the paper's own subject: the symbolic form language (``sym``, a copy of the JAX package's),
+``Function``/``Constant``, the batched expression evaluator
+(``compile``, ``expression``), assembly (``assembly``), the
+``FEMExternalOperator`` node with ``evaluate_operands``,
+``evaluate_external_operators`` and ``replace_external_operators``
+(``external_operator``), the Newton solver (``solvers``, ``petsc``), and the
+Mohr-Coulomb slope written the way the reference demo writes it
+(``models.mohr_coulomb.build_slope_problem``), with K1 as the operator's
+callback.
+
 Entry points take ``device=None``, meaning ``"cuda"``; without a card they
 raise unless the caller passes ``device="cpu"``.
 """
@@ -48,11 +58,43 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-from .assembly import locate_dofs_geometrical, locate_dofs_topological  # noqa: E402
-from .elements import element, quadrature_element  # noqa: E402
+from . import sym  # noqa: E402
+from .assembly import (  # noqa: E402
+    DirichletBC,
+    apply_lifting,
+    assemble_matrix,
+    assemble_scalar,
+    assemble_vector,
+    create_form,
+    dirichletbc,
+    form,
+    locate_dofs_geometrical,
+    locate_dofs_topological,
+    set_bc,
+)
+from .dtypes import default_scalar_type, scalar_type_context  # noqa: E402
+from .elements import element, mixed_element, quadrature_element  # noqa: E402
 from .entry import dryrun_multichip, entry  # noqa: E402
-from .functionspace import functionspace  # noqa: E402
-from .mesh import Mesh, create_rectangle, create_unit_square  # noqa: E402
+from .expression import Expression  # noqa: E402
+from .external_operator import (  # noqa: E402
+    FEMExternalOperator,
+    evaluate_external_operators,
+    evaluate_operands,
+    replace_external_operators,
+    unique_external_operators,
+)
+from .function import Constant, Function  # noqa: E402
+from .functionspace import DualSpace, FunctionSpace, functionspace  # noqa: E402
+from .mesh import (  # noqa: E402
+    Mesh,
+    create_box,
+    create_interval,
+    create_rectangle,
+    create_unit_cube,
+    create_unit_interval,
+    create_unit_square,
+    locate_entities_boundary,
+)
 from .models.mohr_coulomb import MohrCoulombMaterial  # noqa: E402
 from .models.von_mises import (  # noqa: E402
     VonMisesMaterial,
@@ -70,28 +112,83 @@ from .problems import (  # noqa: E402
     mohr_coulomb_slope_step,
     von_mises_block_step,
 )
+from .quadrature import make_quadrature  # noqa: E402
+from .sym import (  # noqa: E402
+    FacetNormal,
+    Form,
+    Identity,
+    Measure,
+    SpatialCoordinate,
+    TestFunction,
+    TrialFunction,
+    action,
+    adjoint,
+    arcsin,
+    as_matrix,
+    as_tensor,
+    as_vector,
+    cos,
+    derivative,
+    dev,
+    div,
+    dot,
+    exp,
+    expand_derivatives,
+    grad,
+    inner,
+    ln,
+    outer,
+    sign,
+    sin,
+    sqrt,
+    tan,
+    tr,
+    transpose,
+)
+from .sym import sym as symmetric  # noqa: E402
+
+from . import petsc, solvers  # noqa: E402
 
 __all__ = [
+    # the reference package's exports
+    "DualSpace",
+    "FEMExternalOperator",
+    "FunctionSpace",
+    "evaluate_external_operators",
+    "evaluate_operands",
+    "functionspace",
+    "petsc",
+    "replace_external_operators",
+    # the form layer
+    "Mesh", "create_unit_square", "create_rectangle", "create_unit_interval",
+    "create_interval", "create_unit_cube", "create_box", "locate_entities_boundary",
+    "element", "quadrature_element", "mixed_element", "make_quadrature",
+    "Function", "Constant", "Expression",
+    "TestFunction", "TrialFunction", "Measure", "Form",
+    "SpatialCoordinate", "FacetNormal", "Identity",
+    "grad", "div", "inner", "dot", "outer", "tr", "dev", "transpose",
+    "symmetric", "sqrt", "exp", "ln", "sin", "cos", "tan", "arcsin",
+    "sign", "as_vector", "as_matrix", "as_tensor",
+    "derivative", "expand_derivatives", "action", "adjoint",
+    "assemble_scalar", "assemble_vector", "assemble_matrix",
+    "create_form", "form",
+    "DirichletBC", "dirichletbc", "locate_dofs_topological",
+    "locate_dofs_geometrical", "apply_lifting", "set_bc",
+    "solvers", "sym", "unique_external_operators",
+    "scalar_type_context", "default_scalar_type",
+    # the fused step, the kernels and the entry points
     "FusedPlasticityStep",
-    "Mesh",
     "MohrCoulombMaterial",
     "SLOPE_LOADS",
     "VonMisesMaterial",
     "batched_kernel_f32",
     "batched_kernel_f64",
     "build_plasticity_block",
-    "create_rectangle",
-    "create_unit_square",
     "dryrun_multichip",
-    "element",
     "entry",
-    "functionspace",
-    "locate_dofs_geometrical",
-    "locate_dofs_topological",
     "make_device_mesh",
     "mc_return_map",
     "mohr_coulomb_slope_step",
-    "quadrature_element",
     "resolve_device",
     "return_mapping_kernel",
     "von_mises_block_step",

@@ -8,7 +8,10 @@ example ``np.asarray(fp.statics[k])`` of a JAX step, or a mid-schedule
 state the JAX package produced.  A JAX step's BCR lattice map
 (``fp.statics["bcr"]`` and ``fp._bcr_plan``) comes across with
 ``bcr_statics_from_numpy``, its AMG hierarchy (``fp.statics["mg"]`` and the
-static ``fp._mg_*`` attributes) with ``mg_statics_from_numpy``.
+static ``fp._mg_*`` attributes) with ``mg_statics_from_numpy``.  A JAX
+``Function``'s dof vector (``np.asarray(f.data)``) fills a port ``Function``
+with ``function_from_numpy``, so that a general-path run can start from a
+JAX state (the slope after k steps).
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ import torch
 
 from . import resolve_device
 
-__all__ = ["MOHR_COULOMB_PARAMS", "bcr_statics_from_numpy", "mg_statics_from_numpy",
+__all__ = ["MOHR_COULOMB_PARAMS", "bcr_statics_from_numpy", "function_from_numpy",
+           "mg_statics_from_numpy",
            "mohr_coulomb_from_params", "statics_from_numpy", "state_from_numpy"]
 
 # the constructor arguments of MohrCoulombMaterial, in both packages
@@ -119,3 +123,18 @@ def mohr_coulomb_from_params(d, device=None):
     ints = ("max_iter", "n_polish", "max_iter32")
     return MohrCoulombMaterial(**{k: int(d[k]) if k in ints else float(d[k])
                                   for k in MOHR_COULOMB_PARAMS})
+
+
+def function_from_numpy(V, array, device=None, name=None):
+    """A port ``Function`` on ``V`` holding ``array`` (a JAX Function's
+    ``np.asarray(f.data)``, same dof numbering), in its dtype if it is f32
+    or f64, on ``device`` (``None``: the card)."""
+    from .function import Function
+
+    arr = np.asarray(array)
+    if arr.shape != (V.num_dofs,):
+        raise ValueError(f"array of shape {arr.shape} for a space of {V.num_dofs} dofs")
+    dtype = torch.float32 if arr.dtype == np.float32 else torch.float64
+    f = Function(V, name=name, dtype=dtype, device=device)
+    f.x.array[:] = arr
+    return f

@@ -19,8 +19,12 @@ damped Newton on r(sigma, dlambda) with the closed-form Jacobian, a
 dy*/deps = J(y*)^-1 [C; 0].  Each Newton loop runs while any lane is
 active, and a lane freezes once its own condition fails, as
 ``vmap(while_loop)`` freezes it: each lane's result and iteration count are
-those of the point alone.  The slope-problem solvers of the JAX module
-need the form layer and come with ROADMAP queue 1 item 8.
+those of the point alone.
+
+The slope-stability problem through the general pipeline (``epsilon``,
+``build_slope_problem``, ``solve_slope_stability``; JAX module
+``:516-626``): the form with the stress as a ``FEMExternalOperator`` whose
+callback runs this material, and the Newton solver of ``solvers.py``.
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ import torch.nn.functional as F
 
 from ..ops.abbo_sloan import grad_and_hess, make_surface, surface_constants
 
-__all__ = ["MohrCoulombMaterial", "solve_small"]
+__all__ = ["MohrCoulombMaterial", "build_slope_problem", "epsilon", "solve_slope_stability",
+           "solve_small"]
 
 STRESS_DIM = 4
 
@@ -305,10 +310,12 @@ class MohrCoulombMaterial:
         aux = tuple(unchunk([o[1][j] for o in outs]) for j in range(5))
         return C_t, aux
 
-    def tangent_and_stress(self, deps_flat, sigma_n_flat):
+    def tangent_and_stress(self, deps_flat, sigma_n_flat, route="cuda"):
         """Batched consistent tangent and stress on flat point-major arrays
-        (the external-function body): ``(C (n*16,), sig (n*4,), stats)``."""
-        C_t, aux = self.tangent_stress(*_to_soa(deps_flat, sigma_n_flat))
+        (the external-function body): ``(C (n*16,), sig (n*4,), stats)``.
+        ``route`` as in ``batched_kernel``: the general path and the fused
+        step reach the kernel through the same wrapper and its count."""
+        C_t, aux = self._soa_map(route)(*_to_soa(deps_flat, sigma_n_flat))
         return _to_flat(C_t, aux)
 
     def tangent_and_stress_sorted(self, deps_flat, sigma_n_flat, chunk=8192):
@@ -329,27 +336,37 @@ class MohrCoulombMaterial:
 
         return batched
 
-    def batched_kernel(self, route="cuda"):
-        """The constitutive map in the fused step's SoA contract
-        ``(deps (4, n), sigma_n (4, n)) -> (C_tang (4, 4, n), sig (4, n))``.
-
-        ``route="plain"``: this module's f64 PyTorch version.
-        ``route="cuda"``: ``ops.mohr_coulomb.mc_return_map``, which launches
-        the hand-written kernel on CUDA tensors (its plain version on CPU
-        tensors)."""
+    def _soa_map(self, route):
+        """``(deps (4, n), sigma_n (4, n)) -> (C_tang (4, 4, n), (sig, niter,
+        yielding, norm_res, dlambda))`` on contiguous SoA inputs, by
+        ``route``: ``"plain"``, this module's f64 PyTorch version;
+        ``"cuda"``, ``ops.mohr_coulomb.mc_return_map``, which launches the
+        hand-written kernel on CUDA tensors (its plain version on CPU
+        tensors).  No route falls back to the other."""
         if route == "plain":
-            def batched(deps_soa, sn_soa):
-                C_t, aux = self.tangent_stress(deps_soa, sn_soa)
-                return C_t, aux[0]
+            def soa(deps_soa, sn_soa):
+                return self.tangent_stress(deps_soa.contiguous(), sn_soa.contiguous())
         elif route == "cuda":
             from ..ops.mohr_coulomb import mc_return_map
 
-            def batched(deps_soa, sn_soa):
+            def soa(deps_soa, sn_soa):
                 n = deps_soa.shape[1]
-                C, sig, *_ = mc_return_map(deps_soa.contiguous(), sn_soa.contiguous(), self)
-                return C.view(STRESS_DIM, STRESS_DIM, n), sig
+                C, *aux = mc_return_map(deps_soa.contiguous(), sn_soa.contiguous(), self)
+                return C.view(STRESS_DIM, STRESS_DIM, n), tuple(aux)
         else:
             raise ValueError(f"route must be 'plain' or 'cuda', got {route!r}")
+        return soa
+
+    def batched_kernel(self, route="cuda"):
+        """The constitutive map in the fused step's SoA contract
+        ``(deps (4, n), sigma_n (4, n)) -> (C_tang (4, 4, n), sig (4, n))``,
+        by ``route`` (``_soa_map``)."""
+        soa = self._soa_map(route)
+
+        def batched(deps_soa, sn_soa):
+            C_t, aux = soa(deps_soa, sn_soa)
+            return C_t, aux[0]
+
         return batched
 
     def kernel_params(self):
@@ -393,3 +410,160 @@ def _to_flat(C_t, aux):
     stats = {"niter": niter, "max_f": yielding.max(), "max_res": norm_res.max()}
     return C_t.permute(2, 0, 1).reshape(-1), sig.T.reshape(-1), stats
 
+
+
+# ----------------------------------------------------------------------
+# The slope-stability problem through the general pipeline
+# ----------------------------------------------------------------------
+
+def epsilon(v):
+    """The strain of a 2D displacement in the 4-vector (Mandel) layout."""
+    from ..sym import as_vector, grad
+
+    g = grad(v)
+    return as_vector([g[0, 0], g[1, 1], 0.0, np.sqrt(2.0) * 0.5 * (g[0, 1] + g[1, 0])])
+
+
+def build_slope_problem(Nx=25, Ny=25, L=1.2, H=1.0, gamma=1.0, material=None,
+                        snes_opts=None, verbose_inner=False, device=None, route="cuda"):
+    """Assemble the slope-stability problem (reference :119-700) on
+    ``device`` (``None``: the card; raises without one).
+
+    The stress is a ``FEMExternalOperator`` of ``epsilon(Du)`` with the
+    previous stress as a hidden operand; its derivative's callback runs the
+    material through ``route`` (``MohrCoulombMaterial._soa_map``): the
+    hand-written kernel K1 on CUDA tensors with ``"cuda"``, the plain f64
+    map with ``"plain"``.  Returns a dict of handles; ``problem.solve()``
+    runs one load step after setting ``q.value``."""
+    from .. import resolve_device, solvers
+    from ..assembly import DirichletBC, locate_dofs_geometrical
+    from ..elements import quadrature_element
+    from ..external_operator import (
+        FEMExternalOperator,
+        evaluate_external_operators,
+        evaluate_operands,
+        replace_external_operators,
+    )
+    from ..function import Constant, Function
+    from ..functionspace import functionspace
+    from ..mesh import create_rectangle
+    from ..sym import Measure, TestFunction, TrialFunction, derivative, dot, inner
+
+    dev = resolve_device(device)
+    material = material or MohrCoulombMaterial()
+    material._soa_map(route)  # an unknown route raises here
+    mesh = create_rectangle((0.0, 0.0), (L, H), (Nx, Ny), "triangle")
+    k_u = 2
+    V = functionspace(mesh, ("Lagrange", k_u, (2,)))
+
+    bottom = locate_dofs_geometrical(V, lambda x: np.isclose(x[1], 0.0))
+    right = locate_dofs_geometrical(V, lambda x: np.isclose(x[0], L))
+    bcs = []
+    for sdofs in (bottom, right):
+        unrolled = np.concatenate([sdofs * 2, sdofs * 2 + 1])
+        bcs.append(DirichletBC(unrolled, np.zeros(unrolled.size)))
+
+    k_stress = 2 * (k_u - 1)
+    dx = Measure("dx", domain=mesh, metadata={"quadrature_degree": k_stress, "quadrature_scheme": "default"})
+    S = functionspace(mesh, quadrature_element(mesh.cell_name(), degree=k_stress, value_shape=(STRESS_DIM,)))
+
+    Du = Function(V, name="Du", device=dev)
+    u = Function(V, name="total_displacement", device=dev)
+    v = TestFunction(V)
+    u_hat = TrialFunction(V)
+
+    sigma_n = Function(S, name="sigma_n", device=dev)
+    sigma = FEMExternalOperator(epsilon(Du), function_space=S,
+                                hidden_operands=[sigma_n], name="sigma")
+    stats_box = {}
+
+    def C_tang_impl(deps, sigma_n_arr):
+        C_tang, sig, stats = material.tangent_and_stress(deps, sigma_n_arr, route=route)
+        stats_box.update(stats)
+        if verbose_inner:
+            uniq, counts = np.unique(stats["niter"].cpu().numpy(), return_counts=True)
+            print(f"\tInner Newton: iters {uniq.tolist()} counts {counts.tolist()} "
+                  f"max_f {float(stats['max_f']):.3e} max_res {float(stats['max_res']):.3e}")
+        return C_tang, sig
+
+    def sigma_external(derivatives):
+        if derivatives == (1,):
+            return C_tang_impl
+        raise NotImplementedError(derivatives)
+
+    sigma.external_function = sigma_external
+
+    q = Constant(np.array([0.0, -gamma]))
+    F = inner(epsilon(v), sigma) * dx - dot(q, v) * dx
+    J = derivative(F, Du, u_hat)
+    F_replaced, F_ops = replace_external_operators(F)
+    J_replaced, J_ops = replace_external_operators(J)
+
+    def constitutive_update():
+        evaluated = evaluate_operands(F_ops)
+        ((_, sigma_new),) = evaluate_external_operators(J_ops, evaluated)
+        sigma.ref_coefficient.x.array[:] = sigma_new
+
+    opts = {"snes_atol": 1e-8, "snes_rtol": 1e-8, "snes_max_it": 100}
+    opts.update(snes_opts or {})
+    problem = solvers.NonlinearProblem(F_replaced, Du, J_replaced, bcs=bcs,
+                                       petsc_options=opts, external_callback=constitutive_update)
+    return {
+        "mesh": mesh, "V": V, "S": S, "Du": Du, "u": u, "sigma": sigma,
+        "sigma_n": sigma_n, "q": q, "problem": problem, "material": material,
+        "bcs": bcs, "F_replaced": F_replaced, "J_replaced": J_replaced,
+        "F_ops": F_ops, "J_ops": J_ops, "stats": stats_box, "gamma": gamma,
+        "H": H, "constitutive_update": constitutive_update,
+    }
+
+
+def solve_slope_stability(Nx=25, Ny=25, load_steps=None, verbose=False, capture=(), **kw):
+    """Run the slope-stability load schedule (reference :708-733); ``kw``
+    go to ``build_slope_problem`` (``device``, ``route``, ...).
+
+    Default schedule: 50 steps gamma in [2, 22.9] plus [22.96, 22.99].
+    Besides the JAX package's results: ``step_s``, the host seconds of each
+    step, ``backtracks``, each step's count of divergence backtracking
+    (``NewtonSolver.backtrack_count``), and ``states``, the starting
+    ``(Du, sigma_n)`` tensors of the steps whose indices are in
+    ``capture``."""
+    import time
+
+    from ..utils.probes import find_cell_by_point
+
+    P = build_slope_problem(Nx=Nx, Ny=Ny, **kw)
+    mesh, u, Du, sigma, sigma_n, q = P["mesh"], P["u"], P["Du"], P["sigma"], P["sigma_n"], P["q"]
+    gamma, H = P["gamma"], P["H"]
+    if load_steps is None:
+        load_steps = np.concatenate([np.linspace(2, 22.9, 50), np.array([22.96, 22.99])])
+
+    x_point = np.array([[0, H, 0]])
+    cells, points = find_cell_by_point(mesh, x_point)
+    num = len(load_steps)
+    results = np.zeros((num + 1, 2))
+    iterations, step_s, backtracks, states = [], [], [], {}
+
+    # initialize the tangent with elastic moduli (reference :645-649)
+    Du.x.array[:] = np.ones(P["V"].num_dofs)
+    sigma_n.x.array[:] = np.zeros(P["S"].num_dofs)
+    P["constitutive_update"]()
+
+    for i, load in enumerate(load_steps):
+        if i in capture:
+            states[i] = (Du.data, sigma_n.data)
+        t0 = time.perf_counter()
+        q.value = load * np.array([0.0, -gamma])
+        if verbose:
+            print(f"Load increment #{i}, load: {load}")
+        its, _ = P["problem"].solve()
+        iterations.append(its)
+        backtracks.append(P["problem"].solver.backtrack_count)
+        u.x.axpy(1.0, Du.x)
+        sigma_n.x.array[:] = sigma.ref_coefficient.data
+        if points:
+            results[i + 1, :] = (-float(u.eval(points, cells)[0, 0]), load)
+        step_s.append(time.perf_counter() - t0)
+
+    slope_factor = float(load_steps[-1]) * H / P["material"].c
+    return {"results": results, "iterations": iterations, "slope_factor": slope_factor,
+            "step_s": step_s, "backtracks": backtracks, "states": states, **P}

@@ -228,6 +228,31 @@ def test_cuda_slope_step_through_kernel(cuda):
     assert float((Du_k - Du_p).abs().max() / Du_p.abs().max()) < 1e-8
 
 
+def test_cuda_general_slope_through_kernel(cuda):
+    """The same slope through the general pipeline on the card, K1 as the
+    external operator's callback: the Newton list [1, 4, 4] of the plain
+    route on the CPU, u within 1e-8 of it, one launch per residual plus
+    the initial update, and the fused step's u on the card within 1e-8."""
+    from dolfinx_external_operator_torch.models.mohr_coulomb import solve_slope_stability
+
+    loads = np.linspace(2, 14, 3)
+    ref = solve_slope_stability(4, 4, loads, device="cpu", route="plain")
+    before = mc_ops.mc_return_map.launches
+    run = solve_slope_stability(4, 4, loads, route="cuda")
+    launches = mc_ops.mc_return_map.launches - before
+    u, u_ref = run["u"].data, ref["u"].data
+    assert u.device.type == "cuda" and run["iterations"] == ref["iterations"] == [1, 4, 4]
+    assert launches == 1 + sum(run["iterations"]) + len(loads) + sum(run["backtracks"])
+    assert float((u.cpu() - u_ref).abs().max() / u_ref.abs().max()) < 1e-8
+    fp = pt.mohr_coulomb_slope_step(4, 4, route="cuda")
+    Du, sig = fp.zero_state()
+    u_fused = torch.zeros_like(Du)
+    for load in loads:
+        Du, sig, *_ = fp.run_step(Du, sig, load)
+        u_fused = u_fused + Du
+    assert float((u - u_fused).abs().max() / u_fused.abs().max()) < 1e-8
+
+
 def _block_tridiag(m, B, seed=0):
     """A random SPD block-tridiagonal system (the construction of
     tests/test_bcr.py): the (m, B, 3B) row bands and the dense matrix."""

@@ -99,8 +99,11 @@ def test_plasticity_block_25x25_bitwise():
 def test_port_imports_no_jax():
     """The port (with the BCR and AMG solvers, cell sharding and the entry
     points, the Mohr-Coulomb material, surface, kernel wrapper and the
-    comparison scripts), chip_smoke's module-level code, the card-only test
-    file and the sharded tests' rank functions import no JAX."""
+    comparison scripts, and the general pipeline: the form language,
+    functions, the evaluator, expressions, assembly, external operators,
+    the solvers, the petsc shim and the probes), chip_smoke's module-level
+    code, the card-only test file and the sharded tests' rank functions
+    import no JAX."""
     code = ("import sys; import dolfinx_external_operator_torch, chip_smoke; "
             "sys.path.insert(0, 'tests'); import test_torch_cuda, _torch_shard_worker; "
             "from dolfinx_external_operator_torch.parallel import bcr, dist, mg, scatter, spmd; "
@@ -108,12 +111,34 @@ def test_port_imports_no_jax():
             "from dolfinx_external_operator_torch.models import mohr_coulomb; "
             "from dolfinx_external_operator_torch.ops import abbo_sloan, mohr_coulomb as mc_ops; "
             "from dolfinx_external_operator_torch.tools import k1_compare; "
+            "from dolfinx_external_operator_torch import (sym, dtypes, function, compile, "
+            "expression, assembly, external_operator, solvers, petsc); "
+            "from dolfinx_external_operator_torch.utils import probes; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
             "'dolfinx_external_operator_tpu'))); print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_chip_smoke_stops_its_children():
+    """``chip_smoke.stop_children`` leaves no process of the script alive:
+    the resource tracker that a ``spawn``-method process starts, and a
+    child with a child of its own."""
+    code = ("import multiprocessing as mp, os, subprocess, chip_smoke as c; "
+            "p = mp.get_context('spawn').Process(target=os.getpid); p.start(); p.join(); "
+            "subprocess.Popen(['sh', '-c', 'sleep 60 & sleep 60']); "
+            "before = c.descendants(os.getpid()); c.stop_children(); "
+            "print(len(before), c.descendants(os.getpid()))")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    # the tracker, sh and its two sleeps: at least sh and the tracker
+    # by the time they were listed
+    n_before, after = res.stdout.split(maxsplit=1)
+    assert int(n_before) >= 2 and after.strip() == "[]", res.stdout + res.stderr
 
 
 def test_kernel_tables_list_every_included_file():

@@ -15,8 +15,13 @@ dense step) and the 25x25 slope over the 52 steps (Newton lists and
 rounds of both packages); and the AMG-CG and lagged-elastic solvers' parity
 on the 12x12 slope over ``test_torch_mg.LOADS`` (Newton lists, Du gaps,
 inner iterations per step, with full and frozen Galerkin levels and with
-``fused_forcing``).  With ``--slow`` it also runs the 25x25 slope over the
-52 steps with AMG-CG in both packages (several minutes).
+``fused_forcing``); the AMG-CG inner counts with each suspect of their
+gap to the JAX package swapped for the JAX package's order or route, one
+at a time (ROADMAP queue 3); and the general pipeline's parity
+(``solve_slope_stability`` on the 4x4 and 8x8 slopes against the JAX
+package's and against the port's fused step).  With ``--slow`` it also
+runs the 25x25 slope over the 52 steps with AMG-CG and through the general
+path in both packages (several minutes each).
 
     JAX_PLATFORMS=cpu python tests/torch_parity_report.py --slow
 """
@@ -40,6 +45,7 @@ import test_torch_mohr_coulomb as tm  # noqa: E402
 import test_torch_slope_step as ts  # noqa: E402
 
 import dolfinx_external_operator_torch as pt  # noqa: E402
+from dolfinx_external_operator_torch.parallel import mg as mg_t  # noqa: E402
 
 
 def _rel(a, b):
@@ -160,8 +166,103 @@ def mg_slope(slow):
     return out
 
 
+def _seq_segment_sum(vals, table):
+    """A gather-table sum left to right in position order (the order of a
+    sequential scatter-add), in place of ``sum(dim=1)``."""
+    ext = torch.cat([vals, vals.new_zeros(1)])
+    acc = ext[table[:, 0]]
+    for j in range(1, table.shape[1]):
+        acc = acc + ext[table[:, j]]
+    return acc
+
+
+class _Linalg:
+    """``torch`` for ``parallel/mg.py`` with ``linalg.inv`` replaced."""
+
+    def __init__(self, inv):
+        self._inv = inv
+
+    def __getattr__(self, name):
+        if name == "linalg":
+            return type("L", (), {"__getattr__": lambda _, k: self._inv if k == "inv"
+                                  else getattr(torch.linalg, k)})()
+        return getattr(torch, name)
+
+
+def _jax_start_lmax(matvec, dinv, n):
+    x = torch.tensor(np.asarray(jnp.cos(1.234 * jnp.arange(n, dtype=jnp.float32))))
+    lam = torch.ones((), dtype=torch.float32)
+    for _ in range(mg_t._POWER_ITERS):
+        y = dinv * matvec(x)
+        lam = torch.linalg.vector_norm(y)
+        x = y / torch.clamp(lam, min=1e-30)
+    return 1.1 * lam
+
+
+def mg_suspects():
+    """The port's 12x12 AMG-CG inner counts per step (``tg.LOADS``) with
+    each suspect of the gap to the JAX package swapped, one at a time, and
+    all three at once; an f64 coarse inverse as a control."""
+    from dolfinx_external_operator_torch.parallel import scatter
+
+    jinv = lambda a: torch.tensor(np.asarray(jnp.linalg.inv(jnp.asarray(a.numpy()))))  # noqa: E731
+    swaps = {"band_sums_in_order": {(scatter, "segment_sum"): _seq_segment_sum,
+                                    (mg_t, "segment_sum"): _seq_segment_sum},
+             "power_start_jnp_cos": {(mg_t, "_power_lmax"): _jax_start_lmax},
+             "coarse_inv_jnp": {(mg_t, "torch"): _Linalg(jinv)},
+             "coarse_inv_f64_control": {(mg_t, "torch"): _Linalg(
+                 lambda a: torch.linalg.inv(a.double()).to(a.dtype))}}
+    swaps["all_three_jax"] = {k: v for name in ("band_sums_in_order", "power_start_jnp_cos",
+                                                 "coarse_inv_jnp") for k, v in swaps[name].items()}
+    out = {"jax": tg._schedule(tb.StepJ(*tb._jax_slope(12), linear_solver="mg"))[2],
+           "port": tg._schedule(tg._port_step(12))[2]}
+    for name, patches in swaps.items():
+        saved = {k: getattr(*k) for k in patches}
+        try:
+            for (mod, attr), fn in patches.items():
+                setattr(mod, attr, fn)
+            out[name] = tg._schedule(tg._port_step(12))[2]
+        finally:
+            for (mod, attr), fn in saved.items():
+                setattr(mod, attr, fn)
+    return out
+
+
+def general_slope(slow):
+    """``solve_slope_stability`` of both packages on the 4x4 slope (loads
+    2, 8, 14) and the 8x8 slope (``linspace(2, 20, 4)``); the port's
+    general path against its fused step at 4x4; with ``slow`` the 25x25
+    slope over the 52 steps in both packages."""
+    from dolfinx_external_operator_torch.models.mohr_coulomb import solve_slope_stability as st
+    from dolfinx_external_operator_tpu.models.mohr_coulomb import solve_slope_stability as sj
+
+    out = {}
+    cases = [(4, np.linspace(2, 14, 3), {}), (8, np.linspace(2, 20, 4), {}),
+             (4, np.linspace(2, 14, 3), {"snes_opts": {"ksp_type": "cg"}})]
+    if slow:
+        cases.append((25, pt.SLOPE_LOADS, {}))
+    for n, loads, kw in cases:
+        rj, rt = sj(n, n, loads, **kw), st(n, n, loads, device="cpu", **kw)
+        key = f"{n}x{n}" + ("_cg" if kw else "")
+        out[key] = {"newton_jax": rj["iterations"], "newton_port": rt["iterations"],
+                    "u_rel": _rel(rt["u"].data.numpy(), np.asarray(rj["u"].data)),
+                    "ksp_its": [rt["problem"].solver.ksp_iterations,
+                                rj["problem"].solver.ksp_iterations]}
+        if n == 4 and not kw:
+            fp = pt.mohr_coulomb_slope_step(4, 4, route="plain", device="cpu")
+            Du, sig = fp.zero_state()
+            u = torch.zeros_like(Du)
+            for load in loads:
+                Du, sig, *_ = fp.run_step(Du, sig, float(load))
+                u = u + Du
+            out[key]["u_rel_fused"] = _rel(rt["u"].data.numpy(), u.numpy())
+    return out
+
+
 if __name__ == "__main__":
     torch.set_num_threads(2)
     print(json.dumps({"surface": surface(), "return_map": return_map(),
                       "slope_4x4": slope_4x4(), "first_solve_25x25_cpu": first_solve_25x25(),
-                      "bcr_slope": bcr_slope(), "mg_slope": mg_slope("--slow" in sys.argv)}))
+                      "bcr_slope": bcr_slope(), "mg_slope": mg_slope("--slow" in sys.argv),
+                      "mg_suspects": mg_suspects(),
+                      "general_slope": general_slope("--slow" in sys.argv)}))
