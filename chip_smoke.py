@@ -97,7 +97,32 @@ Phases, in order; any failed check exits non-zero without the ``ok`` line:
    step; s/step beside phase 6's, peak memory, the layers of step 50's
    first pass (operands, the K1 callback, the vector and the dense matrix
    assembly, the LU factorization, 4 refinement rounds), step 51 under
-   the profiler (``trace_general_step.json.gz``).
+   the profiler (``trace_general_step.json.gz``);
+19. the von Mises cylinder through the general pipeline at the records'
+   size (``models.von_mises.solve_von_mises``, lc=0.3, 20 increments, the
+   f64 return map as the operator's callback): direct, with cg + mg, and
+   the pure-form twin; the Newton lists beside
+   ``docs/records/von_mises_20steps_general_mg.json``'s (equal on the
+   linear steps, within one update on the plastic ones, where the first
+   tangent is decided by rounding), the probe of mg and of the twin within
+   1e-10 of direct, the wall time of each;
+20. the cylinder at lc=0.02 (11,222 dofs, 8,100 Gauss points): 20
+   increments direct (a 1.0 GB f64 matrix) and with cg + mg, 5 with
+   gmres + mg; both lists side by side with mg's inner iterations, s/step,
+   peak memory, one update's time split into the callback, the residual,
+   the Jacobian and the linear solve, the dense solve's residual by
+   refinement rounds; mg takes one update on each linear step and at most
+   one more than direct on any step, the final probes within 1e-8, gmres +
+   mg mg's list and within 1e-8 of direct;
+21. ICNN hyperelasticity at the record's size (``models.hyperelasticity.
+   run_comparison``, lc=0.05, 2,926 dofs, 100 steps to 0.5): Newton totals
+   200 and 200 and ``rel_linf``/``l2`` within 1e-6 relative of
+   ``hyperelasticity_lc005_100steps.json``, s/step of each model, the ICNN
+   callback at 2,004 points as the path calls it (replayed from a CUDA
+   graph), its graph's device time and the eager call; then the bounded
+   Newton (``vinewtonrsls``): the 12x12 membrane on a floor (dense) and the
+   elastic block on a floor (cg + mg), each with the JAX package's Newton
+   count and the KKT conditions.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  A copy of all measurements goes to
@@ -1323,6 +1348,373 @@ def general_slope_phase(report, u_fused, fused_s, n=25, loads=pt.SLOPE_LOADS, de
     return launches
 
 
+# the von Mises cylinder's records (the JAX package on the CPU)
+VM_RECORD = os.path.join(RECORDS, "von_mises_20steps_general_mg.json")
+VM_TWIN_RECORD = os.path.join(RECORDS, "von_mises_20steps.json")
+HYPER_RECORD = os.path.join(RECORDS, "hyperelasticity_lc005_100steps.json")
+# steps of the cylinder's 20-step schedule before plasticity: their Newton
+# counts are forced (0, then one update each); on the plastic steps every
+# Gauss point starts on the yield surface (|f| ~ 1e-13 at Du = eps), so the
+# first tangent is decided by rounding and a count may move by one
+VM_ELASTIC_STEPS = 13
+# steps 1-10 of the cylinder's 20-step schedule load it below its elastic
+# limit at every mesh size: an exact linear solve converges in one update
+VM_LINEAR_STEPS = 11
+# the JAX package's Newton counts (tests/test_torch_solvers.py, CPU) for
+# the bound-constrained problems: the 12x12 membrane on the floor -0.05
+# (dense) and the 10x10 elastic block on the floor -0.04 (cg + mg)
+VI_MEMBRANE_NEWTON = 2
+VI_BLOCK_NEWTON = 6
+
+
+def sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def within_one(its, ref, forced=0):
+    """Equal on the first ``forced`` steps, within one update after."""
+    return (len(its) == len(ref) and its[:forced] == ref[:forced]
+            and all(abs(a - b) <= 1 for a, b in zip(its, ref)))
+
+
+def vm_update_layers(run, device):
+    """One Newton update of a cylinder run, at its last converged state:
+    host milliseconds of the constitutive callback, the residual, the
+    Jacobian's assembly and the linear solve, each ending in a
+    synchronise."""
+    from dolfinx_external_operator_torch.assembly import bc_arrays
+    from dolfinx_external_operator_torch.solvers import lu_factor32, lu_refine
+
+    problem = run["problem"]
+    solver, J = problem.solver, problem.J
+    n = problem.u.function_space.num_dofs
+    mask, _ = bc_arrays(problem.bcs, n, problem.u.device)
+    problem.external_callback()
+    b = -torch.where(mask, 0.0, problem.F.vector())
+
+    def timed(fn):
+        fn()
+        sync(device)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        sync(device)
+        return (time.perf_counter() - t0) / 3 * 1e3
+
+    out = {"callback_ms": timed(problem.external_callback), "F_vector_ms": timed(problem.F.vector)}
+    if solver.pc_type == "mg":
+        out["J_element_tensors_ms"] = timed(J.element_tensors)
+        elems = J.element_tensors()
+        out["solve_ms"] = timed(lambda: solver._mg_solve(problem, elems, mask, b, 10000))
+    else:
+        def eliminated():
+            A = J.matrix()
+            keep = (~mask).to(A.dtype)
+            return A * keep[:, None] * keep[None, :] + torch.diag(mask.to(A.dtype))
+
+        out["J_matrix_ms"] = timed(J.matrix)
+        A = eliminated()
+        out["solve_ms"] = timed(lambda: lu_refine(lu_factor32(A), b, 4))
+    return out
+
+
+def vm_cylinder_phase(report, lc=0.3, device="cuda"):
+    """Phase 19: the von Mises cylinder through the general pipeline at the
+    records' size (lc=0.3, 20 increments): direct, cg + mg and the
+    pure-form twin."""
+    from dolfinx_external_operator_torch.models import von_mises as vmm
+
+    with open(VM_RECORD) as f:
+        rec = json.load(f)
+    with open(VM_TWIN_RECORD) as f:
+        twin_gap_rec = json.load(f)["max_displacement_diff_vs_pure_twin"]
+    vmm.solve_von_mises(lc=0.5, num_increments=2, device=device)  # first calls
+    runs = {}
+    for name, opts in (("direct", None), ("mg", {"ksp_type": "cg", "pc_type": "mg"})):
+        sync(device)
+        t0 = time.perf_counter()
+        runs[name] = vmm.solve_von_mises(lc=lc, num_increments=20, snes_opts=opts, device=device)
+        sync(device)
+        runs[name]["wall_s"] = time.perf_counter() - t0
+    sync(device)
+    t0 = time.perf_counter()
+    pure = vmm.solve_von_mises_pure_form(lc=lc, num_increments=20, device=device)
+    sync(device)
+    pure_s = time.perf_counter() - t0
+    d, m = runs["direct"], runs["mg"]
+    for r in (d, m, pure):
+        check(np.isfinite(r["results"]).all() and bool(torch.isfinite(r["u"].data).all())
+              and r["u"].data.device.type == torch.device(device).type, "bad cylinder result")
+    gap_mg = float(np.abs(m["results"][:, 0] - d["results"][:, 0]).max())
+    gap_pure = float(np.abs(pure["results"][:, 0] - d["results"][:, 0]).max())
+    equal = {"direct": d["iterations"] == rec["newton_its_direct"],
+             "mg": m["iterations"][:-1] == rec["newton_its_mg"][:-1]
+             and m["iterations"][-1] in (6, 7)}
+    print(f"von Mises cylinder lc={lc}, 20 increments, general path: direct newton "
+          f"{d['iterations']} ({sum(d['iterations'])}; record {rec['newton_total_direct']}, "
+          f"equal: {equal['direct']}), {d['wall_s']:.2f} s; cg+mg newton {m['iterations']} "
+          f"({sum(m['iterations'])}; record {rec['newton_total_mg']}, equal but the last step: "
+          f"{equal['mg']}), inner {sum(m['ksp_iterations'])}, {m['wall_s']:.2f} s; pure twin "
+          f"newton {pure['iterations']}, {pure_s:.2f} s; probe gaps to direct: mg {gap_mg:.2e}, "
+          f"pure twin {gap_pure:.2e} (record {twin_gap_rec:.2e})", flush=True)
+    for name, ref in (("direct", rec["newton_its_direct"]), ("mg", rec["newton_its_mg"])):
+        check(within_one(runs[name]["iterations"], ref, VM_ELASTIC_STEPS),
+              f"cylinder {name} Newton list {runs[name]['iterations']} off the record's {ref}")
+    check(gap_mg <= 1e-10, f"cylinder mg probe {gap_mg:.3e} from direct")
+    check(gap_pure <= 1e-10, f"cylinder pure twin probe {gap_pure:.3e} from direct")
+    report["vm_cylinder"] = {
+        "lc": lc, "newton_direct": d["iterations"], "newton_mg": m["iterations"],
+        "newton_pure": pure["iterations"], "equal_to_record": equal,
+        "inner_mg": m["ksp_iterations"], "probe_gap_mg": gap_mg, "probe_gap_pure": gap_pure,
+        "wall_s": {"direct": d["wall_s"], "mg": m["wall_s"], "pure": pure_s},
+        "step_s": {"direct": d["step_s"], "mg": m["step_s"], "pure": pure["step_s"]}}
+
+
+def dense_rounds(run, device, rounds=8, seed=0):
+    """The relative residual of the dense solve (``lu_factor32``, then
+    0..``rounds`` f64 refinement rounds) of a run's eliminated Jacobian at
+    its last state against a seeded right-hand side: how far the f32
+    factorization's rounds contract at this size."""
+    from dolfinx_external_operator_torch.assembly import bc_arrays
+    from dolfinx_external_operator_torch.solvers import lu_factor32, lu_refine
+
+    problem = run["problem"]
+    n = problem.u.function_space.num_dofs
+    mask, _ = bc_arrays(problem.bcs, n, problem.u.device)
+    problem.external_callback()
+    A = problem.J.matrix()
+    keep = (~mask).to(A.dtype)
+    A = A * keep[:, None] * keep[None, :] + torch.diag(mask.to(A.dtype))
+    g = torch.Generator(device=A.device).manual_seed(seed)
+    b = torch.where(mask, 0.0, torch.randn(n, dtype=A.dtype, device=A.device, generator=g))
+    factors = lu_factor32(A)
+    return [float((b - A @ lu_refine(factors, b, k)).norm() / b.norm()) for k in range(rounds + 1)]
+
+
+def vm_fine_phase(report, lc=0.02, device="cuda", gmres_steps=5):
+    """Phase 20: the cylinder at lc=0.02 (11,222 dofs, 8,100 Gauss points),
+    where AMG is meant to pay: 20 increments direct and with cg + mg, the
+    first ``gmres_steps`` with gmres + mg."""
+    from dolfinx_external_operator_torch.models import von_mises as vmm
+
+    runs = {}
+    for name, opts, steps in (("direct", None, None),
+                              ("mg", {"ksp_type": "cg", "pc_type": "mg"}, None),
+                              ("gmres_mg", {"ksp_type": "gmres", "pc_type": "mg"}, gmres_steps)):
+        if device == "cuda":
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        sync(device)
+        t0 = time.perf_counter()
+        r = vmm.solve_von_mises(lc=lc, num_increments=20, snes_opts=opts, device=device,
+                                steps=steps)
+        sync(device)
+        r["wall_s"] = time.perf_counter() - t0
+        r["peak_bytes"] = torch.cuda.max_memory_allocated() if device == "cuda" else None
+        runs[name] = r
+    d, m, g = runs["direct"], runs["mg"], runs["gmres_mg"]
+    n_dofs = d["u"].function_space.num_dofs
+    n_pts = d["p"].function_space.num_dofs
+    for r in runs.values():
+        check(np.isfinite(r["results"]).all() and bool(torch.isfinite(r["u"].data).all()),
+              "bad fine cylinder result")
+    gap = float(np.abs(m["results"][-1, 0] - d["results"][-1, 0]))
+    gap_g = float(np.abs(g["results"][:gmres_steps, 0] - d["results"][:gmres_steps, 0]).max())
+    layers = {name: vm_update_layers(runs[name], device) for name in ("direct", "mg")}
+    last_hist = {name: runs[name]["problem"].solver.history for name in ("direct", "mg")}
+    rounds = dense_rounds(d, device)
+    print(f"von Mises cylinder lc={lc}: {n_dofs} dofs, {n_pts} Gauss points", flush=True)
+    print("  step  direct  mg  inner(mg)", flush=True)
+    for k, (a, b, c) in enumerate(zip(d["iterations"], m["iterations"], m["ksp_iterations"])):
+        print(f"  {k:4d}  {a:6d}  {b:2d}  {c:9d}", flush=True)
+    for name, r in runs.items():
+        steps = len(r["iterations"])
+        peak = "not measured" if r["peak_bytes"] is None else f"{r['peak_bytes'] / 2**30:.3f} GiB"
+        print(f"  {name}: newton {sum(r['iterations'])} over {steps} steps, inner "
+              f"{sum(r['ksp_iterations'])}, {sum(r['step_s']):.2f} s of steps "
+              f"({sum(r['step_s']) / steps:.4f} s/step), peak memory {peak}", flush=True)
+    for name, lay in layers.items():
+        print(f"  one {name} update at the last state (ms): "
+              + ", ".join(f"{k[:-3]} {v:.3f}" for k, v in lay.items()), flush=True)
+    print(f"  final probe: mg {gap:.2e} from direct; gmres+mg over {gmres_steps} steps "
+          f"{gap_g:.2e} from direct", flush=True)
+    print("  the dense solve at the last state, relative residual after 0..8 f64 rounds (the "
+          "path runs 4): " + ", ".join(f"{x:.1e}" for x in rounds), flush=True)
+    for name, h in last_hist.items():
+        print(f"  {name}, the last step's residual norms: " + ", ".join(f"{x:.2e}" for x in h),
+              flush=True)
+    check(n_dofs == 11222 and n_pts == 8100 or lc != 0.02, f"lc=0.02 cylinder has {n_dofs} dofs")
+    # the direct path's f32 LU with 4 f64 rounds leaves a residual that
+    # grows with the mesh (its rounds contract by about cond * eps32), so
+    # at this size its Newton iteration is inexact and takes more updates;
+    # mg solves to 1e-12: one update on every linear step, and never more
+    # than one update above direct
+    linear = m["iterations"][1:VM_LINEAR_STEPS]
+    check(linear == [1] * len(linear), f"mg took {linear} updates on the linear steps")
+    check(all(b <= a + 1 for a, b in zip(d["iterations"], m["iterations"])),
+          f"mg list {m['iterations']} above direct's {d['iterations']} by more than one")
+    check(gap <= 1e-8, f"mg final probe {gap:.3e} from direct")
+    check(g["iterations"] == m["iterations"][:gmres_steps] and gap_g <= 1e-8,
+          f"gmres+mg {g['iterations']} / {gap_g:.3e} against mg's list and direct's probe")
+    report["vm_fine"] = {
+        "lc": lc, "dofs": n_dofs, "gauss_points": n_pts,
+        **{f"newton_{k}": r["iterations"] for k, r in runs.items()},
+        **{f"inner_{k}": r["ksp_iterations"] for k, r in runs.items()},
+        **{f"step_s_{k}": r["step_s"] for k, r in runs.items()},
+        **{f"peak_bytes_{k}": r["peak_bytes"] for k, r in runs.items()},
+        "probe_gap_mg": gap, "probe_gap_gmres_mg": gap_g, "update_layers": layers,
+        "dense_round_residuals": rounds, "last_step_history": last_hist}
+
+
+def icnn_call_times(run, device):
+    """The ICNN callback at the run's last state: as the path calls it
+    (each batch size's call replayed from a CUDA graph: the copy in, the
+    replay and the copy out; CUDA events), the same graph's device time,
+    and the eager call (``torch.func``'s launches one by one); the graphed
+    and eager results must agree within 1e-13 of the largest entry."""
+    from dolfinx_external_operator_torch import evaluate_operands
+
+    (operand,) = run["F_ops"][0].ufl_operands
+    Fv = evaluate_operands(run["F_ops"])[operand].reshape(-1, 4).contiguous()
+    net = run["icnn"]
+    out = {"points": Fv.shape[0]}
+    if device != "cuda":
+        return out
+    dP, P = net.stress_and_tangent(Fv)
+    dP_e, P_e = (t.reshape(-1) for t in net._stress_and_tangent(Fv))
+    out["graphed_equals_eager"] = bool(torch.equal(dP, dP_e) and torch.equal(P, P_e))
+    out["graphed_gap"] = max(float((a - b).abs().max() / b.abs().max())
+                             for a, b in ((dP, dP_e), (P, P_e)))
+    out["call_ms"] = cuda_time_ms(lambda: net.stress_and_tangent(Fv), 20)
+    out["eager_ms"] = cuda_time_ms(lambda: net._stress_and_tangent(Fv), 20)
+    out["graph_ms"] = graph_time_ms(lambda: net._stress_and_tangent(Fv), 20)
+    check(out["graphed_gap"] <= 1e-13, f"the graphed ICNN call is {out['graphed_gap']:.2e} "
+          "from the eager one")
+    return out
+
+
+def hyperelasticity_phase(report, lc=0.05, n_steps=100, device="cuda"):
+    """Phase 21: ICNN hyperelasticity at the record's size (lc=0.05, 100
+    steps to 0.5): the ICNN model and its Isihara twin."""
+    from dolfinx_external_operator_torch.models import hyperelasticity as hem
+
+    with open(HYPER_RECORD) as f:
+        rec = json.load(f)
+    hem.run_comparison(lc=0.3, n_steps=1, max_displacement=0.01, device=device)  # first calls
+    sync(device)
+    t0 = time.perf_counter()
+    out = hem.run_comparison(lc=lc, n_steps=n_steps, max_displacement=0.5, device=device)
+    sync(device)
+    wall = time.perf_counter() - t0
+    nn, tw = out["nn"], out["isihara"]
+    n_dofs = nn["V"].num_dofs
+    its_nn, its_tw = sum(nn["iterations"]), sum(tw["iterations"])
+    times = icnn_call_times(nn, device)
+    per_step = {k: sum(r["step_s"]) / n_steps for k, r in (("nn", nn), ("isihara", tw))}
+    per_update = sum(nn["step_s"]) / (its_nn + n_steps)  # each step ends on a residual pass
+    ms = times.get("call_ms")
+    share = None if ms is None else ms * 1e-3 / per_update
+    rel = {k: abs(out[k] - rec[k]) / rec[k] for k in ("rel_linf", "l2")}
+    print(f"hyperelasticity lc={lc}, {n_steps} steps: {n_dofs} dofs, {times['points']} Gauss "
+          f"points; newton NN {its_nn}, Isihara {its_tw} (record {rec['newton_total_nn']}, "
+          f"{rec['newton_total_isihara']}); rel_linf {out['rel_linf']!r} (record "
+          f"{rec['rel_linf']!r}, off by {rel['rel_linf']:.2e} relative), l2 {out['l2']!r} "
+          f"(record {rec['l2']!r}, off by {rel['l2']:.2e}); s/step NN {per_step['nn']:.4f}, "
+          f"Isihara {per_step['isihara']:.4f}; {wall:.2f} s in all", flush=True)
+    if share is None:
+        print(f"  ICNN callback at {times['points']} points: not measured (no card)", flush=True)
+    else:
+        print(f"  ICNN callback at {times['points']} points: {times['call_ms']:.4f} ms a call as "
+              f"the path makes it (replayed from a CUDA graph; the graph's device time "
+              f"{times['graph_ms']:.4f} ms), {times['eager_ms']:.4f} ms eager; graphed against "
+              f"eager {times['graphed_gap']:.1e} (bitwise: {times['graphed_equals_eager']}); "
+              f"{share:.1%} of an NN pass", flush=True)
+    for r in (nn, tw):
+        check(bool(torch.isfinite(r["u"].data).all()), "bad hyperelasticity u")
+    if lc == rec["config"]["lc"] and n_steps == rec["config"]["n_steps"]:
+        check(n_dofs == rec["config"]["dofs"], f"{n_dofs} dofs, the record {rec['config']['dofs']}")
+        check(its_nn == rec["newton_total_nn"] and its_tw == rec["newton_total_isihara"],
+              f"Newton totals {its_nn}, {its_tw} against the record's 200, 200")
+        check(max(rel.values()) <= 1e-6, f"errors off the record's: {rel}")
+    report["hyperelasticity"] = {
+        "lc": lc, "n_steps": n_steps, "dofs": n_dofs, "newton_nn": nn["iterations"],
+        "newton_isihara": tw["iterations"], "rel_linf": out["rel_linf"], "l2": out["l2"],
+        "rel_to_record": rel, "step_s_nn": nn["step_s"], "step_s_isihara": tw["step_s"],
+        "wall_s": wall, "icnn_callback": times, "icnn_share_of_pass": share}
+
+
+def _membrane_obstacle(n, device, lb):
+    """The 12x12 membrane of tests/test_vi_newton.py pushed onto the floor
+    ``lb`` (dense solver, vinewtonrsls)."""
+    mesh = pt.create_unit_square(n, n)
+    V = pt.functionspace(mesh, ("Lagrange", 1))
+    u = pt.Function(V, device=device)
+    v, du = pt.TestFunction(V), pt.TrialFunction(V)
+    dx = pt.Measure("dx", metadata={"quadrature_scheme": "default", "quadrature_degree": 3})
+    F = pt.inner(pt.grad(u), pt.grad(v)) * dx + 10.0 * v * dx
+    bdofs = pt.locate_dofs_geometrical(
+        V, lambda X: np.isclose(X[0], 0) | np.isclose(X[0], 1) | np.isclose(X[1], 0)
+        | np.isclose(X[1], 1))
+    return F, u, pt.derivative(F, u, du), bdofs, {}
+
+
+def _elastic_block_obstacle(n, device, lb):
+    """The 10x10 elastic block of tests/test_vi_newton.py on the floor
+    ``lb`` (cg + mg, vinewtonrsls)."""
+    mesh = pt.create_unit_square(n, n)
+    V = pt.functionspace(mesh, ("Lagrange", 1, (2,)))
+    u = pt.Function(V, device=device)
+    v, du = pt.TestFunction(V), pt.TrialFunction(V)
+    dx = pt.Measure("dx", metadata={"quadrature_scheme": "default", "quadrature_degree": 2})
+
+    def e(w):
+        return pt.symmetric(pt.grad(w))
+
+    F = (2.0 * pt.inner(e(u), e(v)) + 0.5 * pt.tr(e(u)) * pt.tr(e(v))
+         - pt.inner(pt.as_vector([0.0, -1.0]), v)) * dx
+    bdofs_s = pt.locate_dofs_geometrical(V, lambda X: np.isclose(X[1], 0))
+    bdofs = np.concatenate([bdofs_s * 2, bdofs_s * 2 + 1])
+    return F, u, pt.derivative(F, u, du), bdofs, {"ksp_type": "cg", "pc_type": "mg"}
+
+
+def vi_phase(report, device="cuda"):
+    """The bound-constrained Newton (vinewtonrsls) on the card: the 12x12
+    membrane obstacle with the dense solver and the elastic block with
+    cg + mg, each with the JAX package's Newton count and the KKT
+    conditions (feasibility, complementarity, stationarity off the contact
+    set within 5e-9)."""
+    out = {}
+    for name, build, n, lb, expected in (
+            ("membrane_12x12_dense", _membrane_obstacle, 12, -0.05, VI_MEMBRANE_NEWTON),
+            ("elastic_block_10x10_mg", _elastic_block_obstacle, 10, -0.04, VI_BLOCK_NEWTON)):
+        F, u, J, bdofs, opts = build(n, device, lb)
+        prob = pt.solvers.NonlinearProblem(
+            F, u, J, bcs=[pt.DirichletBC(bdofs, np.zeros(len(bdofs)))],
+            petsc_options={"snes_atol": 1e-10, "snes_rtol": 1e-10,
+                           "snes_type": "vinewtonrsls", **opts})
+        prob.solver.set_variable_bounds(lb, np.inf)
+        its, conv = prob.solver.solve(prob)
+        x = u.data.cpu().numpy()
+        r = prob.F.vector().cpu().numpy()
+        free = np.ones(x.size, bool)
+        free[bdofs] = False
+        on_lb = free & (x <= lb + 1e-12)
+        inactive = free & ~on_lb
+        stat = float(np.abs(r[inactive]).max())
+        comp = float(r[on_lb].min()) if on_lb.any() else None
+        print(f"vinewtonrsls {name}: newton {its} (the JAX package's {expected}), converged "
+              f"{conv}, {int(on_lb.sum())} dofs on the floor, stationarity {stat:.2e}, "
+              f"least multiplier {comp}", flush=True)
+        check(conv and its == expected, f"{name}: newton {its}, converged {conv}")
+        check(x.min() >= lb - 1e-12 and on_lb.any() and stat < 5e-9 and comp > -5e-9,
+              f"{name}: KKT check failed")
+        out[name] = {"newton": its, "contact_dofs": int(on_lb.sum()), "stationarity": stat,
+                     "least_multiplier": comp}
+    report["vi"] = out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1467,6 +1859,12 @@ def main():
     # phase 18: the same slope through the general external-operator pipeline
     general_launches = general_slope_phase(report, states["u"],
                                            sum(report["mc_main"]["wall_kernel_s"]))
+    # phases 19-21: the reference's other demos through the general
+    # pipeline and its Krylov, AMG and bound-constrained solvers
+    vm_cylinder_phase(report)
+    vm_fine_phase(report)
+    hyperelasticity_phase(report)
+    vi_phase(report)
 
     main_shape = shapes[1]
     kernels = [{

@@ -26,7 +26,8 @@ Cell sharding runs one process per rank (``parallel.dist``:
 ``dryrun_multichip`` are the counterparts of the JAX package's entry points
 (``__graft_entry__.py``).
 
-The general external-operator pipeline, the paper's own subject: the symbolic form language (``sym``, a copy of the JAX package's),
+The general external-operator pipeline, the paper's own subject: the
+symbolic form language (``sym``, a copy of the JAX package's),
 ``Function``/``Constant``, the batched expression evaluator
 (``compile``, ``expression``), assembly (``assembly``), the
 ``FEMExternalOperator`` node with ``evaluate_operands``,
@@ -34,7 +35,13 @@ The general external-operator pipeline, the paper's own subject: the symbolic fo
 (``external_operator``), the Newton solver (``solvers``, ``petsc``), and the
 Mohr-Coulomb slope written the way the reference demo writes it
 (``models.mohr_coulomb.build_slope_problem``), with K1 as the operator's
-callback.
+callback.  Its linear solvers: the dense f32 LU with f64 refinement, and
+element-by-element CG, GMRES and BiCGStab (``krylov``) with Jacobi or
+aggregation-AMG preconditioning; bound-constrained Newton
+(``vinewtonrsls``).  Through it run the reference's other demos: the von
+Mises cylinder (``models.von_mises.solve_von_mises`` and its pure-form
+twin) and the ICNN hyperelasticity model (``models.icnn``,
+``models.hyperelasticity``).
 
 Entry points take ``device=None``, meaning ``"cuda"``; without a card they
 raise unless the caller passes ``device="cpu"``.
@@ -87,6 +94,8 @@ from .function import Constant, Function  # noqa: E402
 from .functionspace import DualSpace, FunctionSpace, functionspace  # noqa: E402
 from .mesh import (  # noqa: E402
     Mesh,
+    build_cylinder_quarter,
+    build_square_with_elliptic_holes,
     create_box,
     create_interval,
     create_rectangle,
@@ -161,7 +170,9 @@ __all__ = [
     "replace_external_operators",
     # the form layer
     "Mesh", "create_unit_square", "create_rectangle", "create_unit_interval",
-    "create_interval", "create_unit_cube", "create_box", "locate_entities_boundary",
+    "create_interval", "create_unit_cube", "create_box",
+    "build_cylinder_quarter", "build_square_with_elliptic_holes",
+    "locate_entities_boundary",
     "element", "quadrature_element", "mixed_element", "make_quadrature",
     "Function", "Constant", "Expression",
     "TestFunction", "TrialFunction", "Measure", "Form",

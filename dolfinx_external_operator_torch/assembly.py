@@ -1,7 +1,7 @@
 """Form assembly: batched element kernels + deterministic global scatter.
 
 The port of ``dolfinx_external_operator_tpu/assembly.py:46-831`` (without
-``matrix_bcoo`` and the sharding hooks).  Each integral is split into
+the sharding hooks).  Each integral is split into
 batches of cells (cells, or the facets of each local facet number); a
 batch's geometry, basis tabulations and index tensors are made on the
 form's device once, when the form is compiled, and each call evaluates the
@@ -18,8 +18,9 @@ per cell and point.
 
 Every scatter is deterministic (``parallel/scatter.py``): vectors, actions
 and diagonals sum through one gather table over the test dofs of every
-batch, the dense matrix through a deduplicated table over the flat slots
-``row * m + col``.  Each table is built once per compiled form.
+batch, the dense matrix and the sparse one (``matrix_bcoo``) through a
+deduplicated table over the flat slots ``row * m + col``.  Each table is
+built once per compiled form.
 
 Dirichlet BCs use symmetric elimination with lifting, reproducing the
 ``apply_lifting`` + ``set_bc`` semantics of the reference SNES shim
@@ -498,17 +499,37 @@ class CompiledForm:
     def vector(self):
         return self._scatter_rows([e for e, _, _ in self._elements()])
 
-    def matrix(self):
-        """The dense (n, m) matrix, summed through a deduplicated table over
-        the flat slots ``row * m + col`` (built on the first call)."""
+    def _slot_plan(self):
+        """The deduplicated table over the flat slots ``row * m + col`` of
+        every batch's element entries (``scatter.dedup_table``), built on
+        the first call."""
         n, m = self.test_space.num_dofs, self.trial_space.num_dofs
         if self._matrix_plan is None:
             slots = np.concatenate([
                 (s["test_dofs"].cpu().numpy()[:, :, None] * m
                  + s["trial_dofs"].cpu().numpy()[:, None, :]).ravel() for s in self._statics()])
             self._matrix_plan = dedup_table(slots, n * m, self.device)
+        return self._matrix_plan
+
+    def matrix(self):
+        """The dense (n, m) matrix, summed through the deduplicated slot
+        table."""
+        n, m = self.test_space.num_dofs, self.trial_space.num_dofs
         vals = torch.cat([e.reshape(-1) for e, _, _ in self._elements()])
-        return dedup_write(vals, self._matrix_plan).reshape(n, m)
+        return dedup_write(vals, self._slot_plan()).reshape(n, m)
+
+    def matrix_bcoo(self):
+        """The assembled sparse (n, m) matrix with its duplicates summed,
+        the analog of the reference's PETSc AIJ matrices: a coalesced
+        ``torch.sparse_coo_tensor`` on the form's device.  Duplicates are
+        summed through the deduplicated slot table (no ``coalesce()`` on
+        the device); its unique slots are sorted, so the indices are in
+        row-major order."""
+        n, m = self.test_space.num_dofs, self.trial_space.num_dofs
+        table, slots, _ = self._slot_plan()
+        vals = segment_sum(torch.cat([e.reshape(-1) for e, _, _ in self._elements()]), table)
+        return torch.sparse_coo_tensor(torch.stack([slots // m, slots % m]), vals, (n, m),
+                                       is_coalesced=True, check_invariants=False)
 
 
 def _form_mesh(form: sym.Form) -> Mesh:

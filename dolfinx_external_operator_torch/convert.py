@@ -11,7 +11,9 @@ state the JAX package produced.  A JAX step's BCR lattice map
 static ``fp._mg_*`` attributes) with ``mg_statics_from_numpy``.  A JAX
 ``Function``'s dof vector (``np.asarray(f.data)``) fills a port ``Function``
 with ``function_from_numpy``, so that a general-path run can start from a
-JAX state (the slope after k steps).
+JAX state (the slope after k steps).  A JAX ``ICNN``'s parameters (the
+dict of f64 numpy arrays of ``load_isihara_weights``, ``icnn.params`` as
+numpy) become the port's module with ``icnn_from_numpy``.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 from . import resolve_device
 
 __all__ = ["MOHR_COULOMB_PARAMS", "bcr_statics_from_numpy", "function_from_numpy",
-           "mg_statics_from_numpy",
+           "icnn_from_numpy", "mg_statics_from_numpy",
            "mohr_coulomb_from_params", "statics_from_numpy", "state_from_numpy"]
 
 # the constructor arguments of MohrCoulombMaterial, in both packages
@@ -138,3 +140,13 @@ def function_from_numpy(V, array, device=None, name=None):
     f = Function(V, name=name, dtype=dtype, device=device)
     f.x.array[:] = arr
     return f
+
+
+def icnn_from_numpy(weights, device=None):
+    """The port's ``models.icnn.ICNN`` on ``device`` (``None``: the card)
+    with the parameters ``weights``, a dict of arrays keyed as the
+    checkpoint's state dict (``layers.0.weight``, ``layers.{i}.weights``,
+    ``skip_layers.{i}.weight|bias|weights``)."""
+    from .models.icnn import ICNN
+
+    return ICNN({k: np.asarray(v, dtype=np.float64) for k, v in weights.items()}, device=device)

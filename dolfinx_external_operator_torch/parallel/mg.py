@@ -876,9 +876,12 @@ def _power_lmax(matvec, dinv, n):
     return 1.1 * lam
 
 
-def ebe_matvec(K_blocks, plan):
+def ebe_matvec(K_blocks, plan, free=None):
     """Element-blocked matvec ``x -> A x`` with IDENTITY rows on bc dofs,
-    in ``K_blocks.dtype``; ``plan`` is ``ebe_plan``'s.
+    in ``K_blocks.dtype``; ``plan`` is ``ebe_plan``'s.  ``free`` (a bool
+    tensor over the dofs) replaces the plan's free dofs for this operator:
+    the general pipeline eliminates a per-call set (Dirichlet dofs plus a
+    bound-constrained Newton's active set) on a plan built once.
 
     The identity-bc-row invariant is load-bearing: a zero bc row makes the
     (f32) system singular, and a nonzero bc component of a refinement
@@ -887,7 +890,8 @@ def ebe_matvec(K_blocks, plan):
     With identity rows the bc block is a perfectly conditioned sub-problem.
     ``K_blocks`` (nc, nk, nk) must already be bc-masked by the caller."""
     dt = K_blocks.dtype
-    free, idx, table, psum = plan["free"], plan["idx"], plan["table"], plan["psum"]
+    idx, table, psum = plan["idx"], plan["table"], plan["psum"]
+    free = plan["free"] if free is None else free
     nc, nk = K_blocks.shape[:2]
     if plan["mode"] == "node":
         def mv(x):
@@ -940,14 +944,16 @@ def _chebyshev(matvec, dinv, b, x0, coeffs):
     return x
 
 
-def mg_setup(plan, K0_cell_f32):
+def mg_setup(plan, K0_cell_f32, free=None):
     """Per-Newton values: level-0 operator and diagonal, coarse values
     (level 1 by the per-cell triple product, deeper levels by their
     Galerkin maps or frozen), Jacobi diagonals, Chebyshev bounds, the
     coarsest level's explicit inverse.  All f32, no host read.
 
     ``K0_cell_f32`` (nc, nk, nk): bc-masked element blocks.  In dia mode
-    the level-0 runtime vectors are in the lattice numbering."""
+    the level-0 runtime vectors are in the lattice numbering.  ``free``:
+    the level-0 element-blocked matvec's free dofs for this call
+    (``ebe_matvec``; scalar and node mode), the hierarchy's otherwise."""
     levels, transfers, psum = plan["levels"], plan["transfers"], plan["psum"]
     n0, degree = plan["n0"], plan["cheb_degree"]
     if plan["mode"] == "dia":
@@ -960,7 +966,7 @@ def mg_setup(plan, K0_cell_f32):
     else:
         d0 = psum(segment_sum(torch.diagonal(K0_cell_f32, dim1=1, dim2=2).reshape(-1),
                               plan["d0"]))
-        mv0 = ebe_matvec(K0_cell_f32, plan["ebe"])
+        mv0 = ebe_matvec(K0_cell_f32, plan["ebe"], free)
     d0 = torch.where(d0.abs() > 1e-30, d0, 1.0)
     dinv0 = 1.0 / d0
     rt = {"d0": d0, "dinv0": dinv0, "mv0": mv0, "lmax0": _power_lmax(mv0, dinv0, n0)}
@@ -1056,12 +1062,13 @@ def cuda_graphed(fn, like):
     return replay
 
 
-def ir_pcg(mv64, mv32, M32, b, rtol, maxiter, *, to_inner=None, from_inner=None):
+def ir_pcg(mv64, mv32, M32, b, rtol, maxiter, *, atol=0.0, to_inner=None, from_inner=None):
     """Mixed-precision solve: f32 PCG rounds inside f64 iterative
     refinement.  Each round solves ``A dx = r`` in f32 (``mv32``, ``M32``)
-    to the tolerance that reaches the outer target ``rtol * |b|`` in this
-    round, floored at ``_INNER_FLOOR``, and re-evaluates the residual with
-    the exact f64 operator ``mv64``.
+    to the tolerance that reaches the outer target ``max(rtol * |b|,
+    atol)`` (PETSc's KSP convention) in this round, floored at
+    ``_INNER_FLOOR``, and re-evaluates the residual with the exact f64
+    operator ``mv64``.
 
     ``to_inner``/``from_inner``: layout maps applied at the round boundary;
     the f32 iteration then runs in the inner layout (the DIA lattice
@@ -1072,7 +1079,7 @@ def ir_pcg(mv64, mv32, M32, b, rtol, maxiter, *, to_inner=None, from_inner=None)
     to_inner = to_inner or (lambda v: v)
     from_inner = from_inner or (lambda v: v)
     bnorm = float(torch.linalg.vector_norm(b))
-    target = rtol * bnorm
+    target = max(rtol * bnorm, atol)
 
     def pcg32(r32, tgt, budget):
         """Safeguarded f32 PCG on A dx = r32 down to |r| <= tgt.  Exits on

@@ -16,27 +16,29 @@ The port of ``dolfinx_external_operator_tpu/solvers.py`` (``_lu_ir``
 * ``ksp_type="cg"``: Jacobi-preconditioned CG over the element tensors
   (``_ebe_pcg``) with its breakdown guard and best-iterate exit; one host
   read per iteration (the loop test).
-
-Not ported yet (ROADMAP.md queue 1, item 3, the general pipeline's deferred options); each
-raises ``NotImplementedError``: ``ksp_type`` "gmres"/"bicgstab",
-``pc_type="mg"``, and variable bounds under ``snes_type="vinewtonrsls"``.
-Without bounds, ``vinewtonrsls`` is plain Newton, which is how every
-reference demo runs it.
+* ``ksp_type`` "gmres"/"bicgstab": the port's own restarted GMRES and
+  BiCGStab (``krylov.py``, the algorithms of ``jax.scipy.sparse.linalg``)
+  over the same element-by-element operator with Jacobi preconditioning.
+* ``pc_type="mg"`` with "cg" or "gmres" (``NewtonSolver._mg_solve``):
+  aggregation AMG from ``parallel/mg.py`` on the element-blocked Jacobian,
+  inside the mixed-precision ``ir_pcg`` or as GMRES's preconditioner.
+* ``snes_type="vinewtonrsls"`` with bounds (``set_variable_bounds``): the
+  reduced-space active-set Newton of PETSc's SNESVINEWTONRSLS.  Without
+  bounds it is plain Newton, which is how every reference demo runs it.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from . import krylov
 from .assembly import bc_arrays, create_form
 
 __all__ = ["solve_dense", "cg", "NewtonSolver", "NonlinearProblem"]
 
 _F64 = torch.float64
 _F32 = torch.float32
-
-_DEFERRED = "not ported yet: ROADMAP.md queue 1, item 3 (the general pipeline's deferred options)"
-
 
 # ----------------------------------------------------------------------
 # Linear solvers
@@ -128,23 +130,35 @@ def cg(matvec, b, x0=None, M=None, tol=1e-12, atol=0.0, maxiter=None):
     return _pcg(matvec, M, b, x, target, maxiter, lambda p, z, beta: z + beta * p)
 
 
-def _ebe_pcg(elems, udofs_l, scatter, mask, diag, b, rtol, atol, maxiter):
-    """Jacobi-preconditioned CG on the element-blocked operator: the matvec
-    gathers ``x`` per cell, contracts the element tensors and sums through
-    ``scatter`` (the form's gather table); BC rows/cols are eliminated
-    (identity on constrained dofs)."""
+def _ebe_operator(elems, udofs_l, scatter, mask):
+    """The element-by-element operator with the rows and columns of
+    ``mask`` eliminated (identity on them): the matvec gathers ``x`` per
+    cell, contracts the element tensors and sums through ``scatter`` (the
+    form's gather table)."""
     free = ~mask
-    zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    zero = torch.zeros((), dtype=elems[0].dtype, device=mask.device)
 
     def matvec(x):
         xz = torch.where(free, x, zero)
         out = scatter([torch.einsum("cij,cj->ci", e, xz[ud]) for e, ud in zip(elems, udofs_l)])
         return torch.where(free, out, zero) + torch.where(mask, x, zero)
 
-    dsafe = torch.where(torch.abs(diag) > 1e-300, diag, torch.ones((), dtype=b.dtype, device=b.device))
+    return matvec
+
+
+def _jacobi(diag):
+    """``r -> r / diag`` with the zero-diagonal guard of the JAX package."""
+    dsafe = torch.where(torch.abs(diag) > 1e-300, diag, torch.ones((), dtype=diag.dtype, device=diag.device))
+    return lambda r: r / dsafe
+
+
+def _ebe_pcg(elems, udofs_l, scatter, mask, diag, b, rtol, atol, maxiter):
+    """Jacobi-preconditioned CG on the element-blocked operator
+    (``_ebe_operator``: BC rows/cols eliminated, identity on constrained
+    dofs)."""
     target = torch.clamp(rtol * torch.linalg.vector_norm(b), min=atol)
-    return _pcg(matvec, lambda r: r / dsafe, b, torch.zeros_like(b), target, maxiter,
-                lambda p, z, beta: p * beta + z)
+    return _pcg(_ebe_operator(elems, udofs_l, scatter, mask), _jacobi(diag), b,
+                torch.zeros_like(b), target, maxiter, lambda p, z, beta: p * beta + z)
 
 
 # ----------------------------------------------------------------------
@@ -163,8 +177,9 @@ class NewtonSolver:
       5. solve J delta = -r and take the full step
          (``snes_linesearch_type: basic``).  Linear solvers by
          ``ksp_type``: "preonly"/"lu" = dense direct (f32 LU + f64
-         refinement); "cg" = element-by-element CG with Jacobi
-         preconditioning.
+         refinement); "cg"/"gmres"/"bicgstab" = element-by-element
+         Krylov with Jacobi preconditioning, or with ``pc_type="mg"``
+         ("cg" and "gmres") aggregation AMG.
     """
 
     def __init__(self, atol=1e-8, rtol=1e-8, max_it=100, monitor=False,
@@ -174,17 +189,20 @@ class NewtonSolver:
         self.rtol = rtol
         self.max_it = max_it
         self.monitor = monitor
-        if ksp_type in ("gmres", "bicgstab"):
-            raise NotImplementedError(f"ksp_type={ksp_type!r} is {_DEFERRED}")
-        if ksp_type not in ("preonly", "lu", "cg"):
+        if ksp_type not in ("preonly", "lu", "cg", "gmres", "bicgstab"):
             raise ValueError(f"unknown ksp_type {ksp_type!r}")
         self.ksp_type = ksp_type
         self.ksp_rtol = ksp_rtol
         self.ksp_atol = ksp_atol
         self.ksp_max_it = ksp_max_it
-        if pc_type == "mg":
-            raise NotImplementedError(f"pc_type='mg' in NewtonSolver is {_DEFERRED}")
+        # "jacobi" (default) or "mg" (aggregation-AMG cycle, with cg or
+        # gmres; the reference's {"pc_type": "lu"} maps to ksp_type
+        # "preonly")
         self.pc_type = pc_type
+        # "newtonls" or "vinewtonrsls" (reduced-space active-set Newton for
+        # bounds lb <= x <= ub, PETSc's SNESVINEWTONRSLS, the snes_type
+        # every reference plasticity demo requests); without bounds
+        # (``set_variable_bounds``) the two are identical
         if snes_type not in ("newtonls", "vinewtonrsls"):
             raise ValueError(f"unknown snes_type {snes_type!r}")
         self.snes_type = snes_type
@@ -193,21 +211,147 @@ class NewtonSolver:
         self.ksp_iterations = 0
         self.history = []        # residual norms of the last solve ([norm0, ...])
         self.backtrack_count = 0  # times divergence backtracking fired (0 = SNES-"basic" trajectory)
+        self._mg = None  # the AMG plan of the first mg solve, kept for the problem's life
 
     def set_variable_bounds(self, lb, ub):
-        """``SNES.setVariableBounds``: bounds ``lb <= x <= ub`` for
-        ``snes_type='vinewtonrsls'``.  Solving with bounds active is not
-        ported yet and raises in ``solve``."""
+        """``SNES.setVariableBounds``: install per-dof bounds ``lb <= x <=
+        ub`` (scalars broadcast) for ``snes_type='vinewtonrsls'``.  At each
+        iteration the active set ``{i : (x_i <= lb_i and F_i > 0) or (x_i
+        >= ub_i and F_i < 0)}`` is frozen (delta_i = 0, row and column
+        eliminated as a Dirichlet row), the Newton system is solved on the
+        inactive set, and the iterate is projected back into the box;
+        convergence is tested on the reduced residual (F_i on the inactive
+        set), PETSc's RSLS semantics."""
         self._bounds = (lb, ub)
+
+    def _mg_plan(self, problem, elems):
+        """The AMG hierarchy of the general path, built once per problem
+        from the Jacobian's element tensors at the first call (the elastic
+        operator for the usual zero start).
+
+        The hierarchy and the smoother values come from the DOMINANT
+        batch, the full-domain cell integral whose dofmap is the space's
+        own; every batch must map test dofs == trial dofs.  The structure
+        is frozen on the Dirichlet-only mask: a bound-constrained Newton's
+        changing active set is eliminated per call (``_mg_solve``).  For
+        gmres the hierarchy is built on the symmetrized operator.  The
+        typed raises and their messages are the JAX package's."""
+        from .parallel import mg as mgmod
+
+        V = problem.J.test_space
+        dm_V = V.unrolled_dofmap
+        dom = None
+        for i, (_, tdofs, udofs) in enumerate(elems):
+            if not torch.equal(tdofs, udofs):
+                raise NotImplementedError(
+                    "pc_type='mg' needs test dofs == trial dofs (the "
+                    "symmetric displacement-block case); this Jacobian's "
+                    f"cell batch {i} maps different spaces — use "
+                    "pc_type='jacobi'")
+            td = tdofs.cpu().numpy()
+            if dom is None and td.shape == dm_V.shape and np.array_equal(td, dm_V):
+                dom = i
+        if dom is None:
+            raise NotImplementedError(
+                "pc_type='mg' needs one full-domain cell-integral batch "
+                "over the whole space (the aggregation/smoothing proxy); "
+                f"none of the {len(elems)} batches covers it — use "
+                "pc_type='jacobi'")
+        n = V.num_dofs
+        bc_only = np.zeros(n, dtype=bool)
+        for bc in problem.bcs:
+            bc_only[bc.dofs] = True
+        gmres = self.ksp_type == "gmres"
+        K_dom0 = elems[dom][0].cpu().numpy()
+        if gmres:
+            K_dom0 = 0.5 * (K_dom0 + np.swapaxes(K_dom0, 1, 2))
+        mgs = mgmod.build_mg_statics(problem.J.mesh, V, bc_only, K_dom0,
+                                     galerkin_levels=None if n <= 30_000 else 1)
+        dev = elems[dom][0].device
+        return {"dom": dom, "gmres": gmres, "n": n,
+                "plan": mgmod.mg_plan(mgs, elems[dom][1].cpu().numpy(), bc_only, dev,
+                                      mv0_mode="scalar", cheb_degree=mgs["cheb_degree"]),
+                "ebe": [mgmod.ebe_plan(td.cpu().numpy(), bc_only, n, dev) for _, td, _ in elems]}
+
+    def _mg_solve(self, problem, elems, mask, b, maxiter):
+        """AMG-preconditioned Krylov on the element-blocked Jacobian
+        (JAX ``solvers.py:252-392``), with the rows and columns of ``mask``
+        (Dirichlet dofs plus, under ``vinewtonrsls``, the active bound
+        set) eliminated on every call: the exact f64 operator, the f32
+        iteration operator and the smoother values give identity rows on
+        ``mask``, and the cycle's output is overwritten there.  The exact
+        operator sums every batch (each contributes the identity on masked
+        rows, so ``k`` batches subtract ``k - 1`` of them).
+
+        cg: the mixed-precision ``ir_pcg`` (f32 PCG with one cycle per
+        iteration inside f64 refinement), honouring ``ksp_atol``.  gmres:
+        f64 GMRES on the true operator with the cycle (symmetrized values)
+        as its preconditioner; it reports 0 iterations.  On the card the
+        cycle is replayed from a CUDA graph captured once per call
+        (``mg.cuda_graphed``).  Returns (delta, inner iterations)."""
+        from .parallel import mg as mgmod
+
+        if self._mg is None:
+            self._mg = self._mg_plan(problem, elems)
+        st = self._mg
+        plan, dom, gmres = st["plan"], st["dom"], st["gmres"]
+        free = ~mask
+        f32 = torch.float32
+        Kbs = []
+        for K_cell, tdofs, _ in elems:
+            km = free.to(K_cell.dtype)[tdofs]
+            Kbs.append(K_cell * km[:, :, None] * km[:, None, :])
+        K_dom = Kbs[dom]
+        if gmres:  # the smoother values track the symmetric part
+            K_dom = 0.5 * (K_dom + K_dom.transpose(1, 2))
+        rt = mgmod.mg_setup(plan, K_dom.to(f32), free)
+        mvs64 = [mgmod.ebe_matvec(Kb, e, free) for Kb, e in zip(Kbs, st["ebe"])]
+        sec32 = [mgmod.ebe_matvec(Kb.to(f32), e, free)
+                 for i, (Kb, e) in enumerate(zip(Kbs, st["ebe"])) if i != dom]
+
+        def mv(x):
+            out = mvs64[0](x)
+            for m in mvs64[1:]:
+                out = out + m(x) - torch.where(mask, x, 0.0)
+            return out
+
+        def mv32(x):
+            out = rt["mv0"](x)
+            for m in sec32:
+                out = out + m(x) - torch.where(mask, x, 0.0)
+            return out
+
+        def M(r):
+            z = mgmod.vcycle(plan, rt, torch.where(mask, 0.0, r.to(f32)))
+            return torch.where(mask, r, z.to(r.dtype))
+
+        M = mgmod.cuda_graphed(M, torch.zeros_like(b if gmres else b.to(f32)))
+        if gmres:
+            delta = krylov.gmres(mv, b, M=M, tol=self.ksp_rtol, atol=self.ksp_atol,
+                                 maxiter=maxiter, restart=min(st["n"], 50))
+            return delta, 0
+        return mgmod.ir_pcg(mv, mv32, M, b, self.ksp_rtol, maxiter, atol=self.ksp_atol)
 
     def solve(self, problem) -> tuple[int, bool]:
         u = problem.u
         n = u.function_space.num_dofs
-        if self.snes_type == "vinewtonrsls" and self._bounds is not None:
-            raise NotImplementedError(f"variable bounds under snes_type='vinewtonrsls' are {_DEFERRED}")
         mask, g = bc_arrays(problem.bcs, n, u.device, u.dtype)
         zero = torch.zeros((), dtype=u.dtype, device=u.device)
-        matrix_free = self.ksp_type == "cg"
+        matrix_free = self.ksp_type in ("cg", "gmres", "bicgstab")
+        vi = self.snes_type == "vinewtonrsls" and self._bounds is not None
+        if vi:
+            lb, ub = (torch.as_tensor(v, dtype=u.dtype, device=u.device).broadcast_to((n,))
+                      for v in self._bounds)
+        if self.pc_type == "mg" and self.ksp_type not in ("cg", "gmres"):
+            # also for preonly (the default): falling through to the dense
+            # path would factorize an (n, n) matrix at exactly the sizes mg
+            # exists for
+            raise NotImplementedError(
+                "pc_type='mg' is implemented for ksp_type='cg' (SPD "
+                "Jacobians) and ksp_type='gmres' (nonsymmetric Jacobians, "
+                "V-cycle built on the symmetrized operator); bicgstab uses "
+                "pc_type='jacobi', and the default ksp_type='preonly' is "
+                "the dense direct solver")
 
         def residual():
             """BC-adjusted residual WITHOUT assembling the Jacobian: the
@@ -224,20 +368,34 @@ class NewtonSolver:
             return torch.where(mask, x - g, r)
 
         def newton_step(r, emask):
-            """delta solving  J_elim @ delta = -r  (rows/cols of ``emask``
+            """delta solving  J_elim @ delta = -r  (rows/cols of ``emask``,
+            the BC dofs plus, under vinewtonrsls, the active bound set,
             eliminated)."""
             if matrix_free:
                 elems = problem.J.element_tensors()
-                diag = torch.where(emask, torch.ones((), dtype=r.dtype, device=r.device),
-                                   problem.J.diagonal())
                 # PETSc KSP default maxits parity (10000); the breakdown
                 # guard in _ebe_pcg exits earlier at the rounding floor
                 maxiter = self.ksp_max_it if self.ksp_max_it is not None else min(10 * n, 10000)
-                delta, k = _ebe_pcg(
-                    [e for e, _, _ in elems], [ud for _, _, ud in elems], problem.J._scatter_rows,
-                    emask, diag, -r, self.ksp_rtol, self.ksp_atol, maxiter)
-                self.ksp_iterations += int(k)
-                return delta
+                if self.pc_type == "mg":
+                    delta, k = self._mg_solve(problem, elems, emask, -r, maxiter)
+                    self.ksp_iterations += int(k)
+                    return delta
+                diag = torch.where(emask, torch.ones((), dtype=r.dtype, device=r.device),
+                                   problem.J.diagonal())
+                args = ([e for e, _, _ in elems], [ud for _, _, ud in elems],
+                        problem.J._scatter_rows, emask)
+                if self.ksp_type == "cg":
+                    delta, k = _ebe_pcg(*args, diag, -r, self.ksp_rtol, self.ksp_atol, maxiter)
+                    self.ksp_iterations += int(k)
+                    return delta
+                # gmres / bicgstab for nonsymmetric Jacobians, over the same
+                # operator with Jacobi preconditioning; neither reports an
+                # iteration count
+                if self.ksp_type == "gmres":
+                    return krylov.gmres(_ebe_operator(*args), -r, M=_jacobi(diag), tol=self.ksp_rtol,
+                                        atol=self.ksp_atol, maxiter=maxiter, restart=min(n, 50))
+                return krylov.bicgstab(_ebe_operator(*args), -r, M=_jacobi(diag), tol=self.ksp_rtol,
+                                       atol=self.ksp_atol, maxiter=maxiter)
             # the assembled matrix is a fresh tensor: eliminate in place
             A = problem.J.matrix()
             keep = (~emask).to(A.dtype)
@@ -245,9 +403,24 @@ class NewtonSolver:
             A.diagonal().add_(emask.to(A.dtype))
             return solve_dense(A, -r)
 
+        def vi_active(r):
+            """RSLS active set: dofs on a bound whose residual pushes them
+            further out of the box (at x = lb feasibility needs F >= 0, at
+            x = ub F <= 0).  The iterate stays in the box by projection, so
+            the bound comparisons are exact."""
+            x = u.data
+            return (~mask) & (((x <= lb) & (r > 0.0)) | ((x >= ub) & (r < 0.0)))
+
         def rnorm(r):
+            """Convergence norm; PETSc RSLS tests the REDUCED residual (the
+            active set's components are feasible by complementarity, not
+            zero)."""
+            if vi:
+                r = torch.where(vi_active(r), zero, r)
             return float(torch.linalg.vector_norm(r))
 
+        if vi:
+            u._data = torch.clamp(u.data, lb, ub)
         r = residual()
         norm0 = rnorm(r)
         norm = norm0
@@ -262,8 +435,14 @@ class NewtonSolver:
             print(f"  0 SNES Function norm {norm0:.12e}")
         converged = norm0 < self.atol
         while not converged and it < self.max_it:
-            delta = newton_step(r, mask)
-            u._data = u._data + delta
+            if vi:
+                active = vi_active(r)
+                delta = newton_step(torch.where(active, zero, r), mask | active)
+                delta = torch.where(active, zero, delta)
+                u._data = torch.clamp(u._data + delta, lb, ub)
+            else:
+                delta = newton_step(r, mask)
+                u._data = u._data + delta
             it += 1
             r = residual()
             new_norm = rnorm(r)
@@ -274,6 +453,8 @@ class NewtonSolver:
             while new_norm > 2.0 * norm and alpha > 2**-8:
                 self.backtrack_count += 1
                 u._data = u._data - alpha * 0.5 * delta  # retract to alpha/2
+                if vi:
+                    u._data = torch.clamp(u._data, lb, ub)
                 alpha *= 0.5
                 r = residual()
                 new_norm = rnorm(r)
@@ -314,7 +495,8 @@ class NonlinearProblem:
             ksp_max_it=(int(opts["ksp_max_it"]) if "ksp_max_it" in opts else None),
             pc_type=str(opts.get("pc_type", "jacobi")),
             # the reference demos all pass {"snes_type": "vinewtonrsls"}
-            # (with no bounds installed -- identical to plain Newton there)
+            # (with no bounds installed -- identical to plain Newton there);
+            # bounds go in through solver.set_variable_bounds
             snes_type=str(opts.get("snes_type", "newtonls")),
         )
         self.external_callback = external_callback

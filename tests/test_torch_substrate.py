@@ -101,7 +101,9 @@ def test_port_imports_no_jax():
     points, the Mohr-Coulomb material, surface, kernel wrapper and the
     comparison scripts, and the general pipeline: the form language,
     functions, the evaluator, expressions, assembly, external operators,
-    the solvers, the petsc shim and the probes), chip_smoke's module-level
+    the solvers with GMRES and BiCGStab, the petsc shim and the probes;
+    the von Mises cylinder, the ICNN with its weights and the
+    hyperelasticity model), chip_smoke's module-level
     code, the card-only test file and the sharded tests' rank functions
     import no JAX."""
     code = ("import sys; import dolfinx_external_operator_torch, chip_smoke; "
@@ -112,7 +114,9 @@ def test_port_imports_no_jax():
             "from dolfinx_external_operator_torch.ops import abbo_sloan, mohr_coulomb as mc_ops; "
             "from dolfinx_external_operator_torch.tools import k1_compare; "
             "from dolfinx_external_operator_torch import (sym, dtypes, function, compile, "
-            "expression, assembly, external_operator, solvers, petsc); "
+            "expression, assembly, external_operator, solvers, petsc, krylov); "
+            "from dolfinx_external_operator_torch.models import hyperelasticity, icnn, von_mises; "
+            "icnn.load_isihara_weights(); "
             "from dolfinx_external_operator_torch.utils import probes; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
             "'dolfinx_external_operator_tpu'))); print(bad); sys.exit(1 if bad else 0)")

@@ -19,9 +19,16 @@ inner iterations per step, with full and frozen Galerkin levels and with
 gap to the JAX package swapped for the JAX package's order or route, one
 at a time (ROADMAP queue 3); and the general pipeline's parity
 (``solve_slope_stability`` on the 4x4 and 8x8 slopes against the JAX
-package's and against the port's fused step).  With ``--slow`` it also
-runs the 25x25 slope over the 52 steps with AMG-CG and through the general
-path in both packages (several minutes each).
+package's and against the port's fused step); and the general
+pipeline's deferred solvers and models (``general_solvers``): GMRES and
+BiCGStab against the direct solve on the heat problem, mg against direct
+on the von Mises cylinder (lc=0.3, 20 increments; with both packages'
+Newton lists, and the last step started from the JAX package's state),
+the ICNN's P and dP/dF against the JAX ICNN, and the hyperelasticity
+errors (lc=0.12, 2 steps; with ``--slow`` the record's lc=0.05 over 100
+steps).  With ``--slow`` it also runs the 25x25 slope over the 52 steps
+with AMG-CG and through the general path in both packages (several
+minutes each).
 
     JAX_PLATFORMS=cpu python tests/torch_parity_report.py --slow
 """
@@ -259,10 +266,131 @@ def general_slope(slow):
     return out
 
 
+def _vm_last_step_from_jax_state(steps=20):
+    """The cylinder's last step (lc=0.3) in the port started from the JAX
+    package's state before it (sigma_n and p written into the port's
+    hidden operands): both Newton counts and residual histories."""
+    import inspect
+
+    import dolfinx_external_operator_tpu.solvers as solvers_j
+    from dolfinx_external_operator_tpu.models.von_mises import solve_von_mises as vm_j
+
+    import dolfinx_external_operator_torch.solvers as solvers_t
+    from dolfinx_external_operator_torch.models.von_mises import solve_von_mises as vm_t
+
+    state, calls = {}, {"jax": 0, "port": 0}
+
+    def hidden(problem):
+        sigma = inspect.getclosurevars(problem.external_callback).nonlocals["sigma"]
+        return {f.name: f for f in sigma.hidden_operands}
+
+    def wrapped(mod, key):
+        orig = mod.NewtonSolver.solve
+
+        def solve(self, problem):
+            if calls[key] == steps - 1:
+                ops = hidden(problem)
+                if key == "jax":
+                    state.update({k: np.asarray(f.data).copy() for k, f in ops.items()})
+                else:
+                    for k, f in ops.items():
+                        state[f"{k}_gap_to_jax"] = _rel(f.data.numpy(), state[k])
+                        f._data = torch.tensor(state[k])
+            calls[key] += 1
+            out = orig(self, problem)
+            if calls[key] == steps:
+                state[f"history_{key}"] = list(self.history)
+            return out
+
+        return orig, solve
+
+    origs = []
+    for mod, key in ((solvers_j, "jax"), (solvers_t, "port")):
+        orig, solve = wrapped(mod, key)
+        origs.append((mod, orig))
+        mod.NewtonSolver.solve = solve
+    try:
+        vm_j(lc=0.3, num_increments=steps)
+        vm_t(lc=0.3, num_increments=steps, device="cpu")
+    finally:
+        for mod, orig in origs:
+            mod.NewtonSolver.solve = orig
+    # the yield function at the step's start (Du = eps, so deps ~ 0) on
+    # the JAX package's state: every plastic point sits on the surface
+    from dolfinx_external_operator_torch.models import von_mises as vmm
+
+    sn = state["stress_n"].reshape(-1, 4).T
+    s_dev = vmm.DEV4 @ sn
+    f0 = np.sqrt(1.5 * (s_dev * s_dev).sum(0)) - vmm.SIGMA_0 - vmm.H_MOD * state["cumulative_plastic_strain"]
+    return {"newton_jax": len(state["history_jax"]) - 1,
+            "newton_port_from_jax_state": len(state["history_port"]) - 1,
+            "gauss_points": int(f0.size), "points_with_abs_f_below_1e-9": int((np.abs(f0) < 1e-9).sum()),
+            "max_abs_f_of_those": float(np.abs(f0[np.abs(f0) < 1e-9]).max(initial=0.0)),
+            "positive_f": int((f0 > 0).sum()),
+            **{k: v for k, v in state.items() if k.startswith(("history", "stress_n_gap",
+                                                                "cumulative_plastic_strain_gap"))}}
+
+
+def general_solvers(slow):
+    """The deferred solvers and the two models, port against JAX (CPU)."""
+    import test_torch_solvers as tsol
+    from dolfinx_external_operator_tpu.models import hyperelasticity as he_j
+    from dolfinx_external_operator_tpu.models import icnn as icnn_j
+    from dolfinx_external_operator_tpu.models.von_mises import solve_von_mises as vm_j
+
+    from dolfinx_external_operator_torch import convert
+    from dolfinx_external_operator_torch.models import hyperelasticity as he_t
+    from dolfinx_external_operator_torch.models.von_mises import solve_von_mises as vm_t
+
+    out = {}
+    direct = tsol._heat_solve(tsol.PKGS["port"], 7, "preonly", 1e-9)
+    for ksp in ("gmres", "bicgstab"):
+        runs = tsol._both(tsol._heat_solve, 7, ksp, 1e-9)
+        out[f"heat_7x7_{ksp}"] = {"newton": [runs["port"][0], runs["jax"][0], direct[0]],
+                                  "u_gap_to_direct": float(np.abs(runs["port"][2] - direct[2]).max()),
+                                  "u_gap_to_jax": float(np.abs(runs["port"][2] - runs["jax"][2]).max())}
+    mg = {"ksp_type": "cg", "pc_type": "mg"}
+    vm = {f"{pkg}_{name}": fn(lc=0.3, num_increments=20, snes_opts=opts, **kw)
+          for pkg, fn, kw in (("port", vm_t, {"device": "cpu"}), ("jax", vm_j, {}))
+          for name, opts in (("direct", None), ("mg", mg))}
+    out["von_mises_lc03_20"] = {
+        **{f"newton_{k}": v["iterations"] for k, v in vm.items()},
+        "inner_port_mg": sum(vm["port_mg"]["ksp_iterations"]),
+        "probe_gap_mg_to_direct": float(np.abs(vm["port_mg"]["results"][:, 0]
+                                               - vm["port_direct"]["results"][:, 0]).max()),
+        "probe_gap_to_jax": float(np.abs(vm["port_direct"]["results"][:, 0]
+                                         - vm["jax_direct"]["results"][:, 0]).max()),
+        "last_step": _vm_last_step_from_jax_state()}
+    # the dense solve's rounds on the cylinder's tangent after its first
+    # linear step, by mesh size (chip_smoke.dense_rounds, seeded rhs)
+    import chip_smoke
+
+    out["dense_rounds_by_lc"] = {}
+    for lc in (0.1, 0.05, 0.03):
+        run = vm_t(lc=lc, num_increments=20, device="cpu", steps=2)
+        out["dense_rounds_by_lc"][lc] = {"dofs": run["u"].function_space.num_dofs,
+                                         "rel_residual_by_rounds": chip_smoke.dense_rounds(run, "cpu")}
+    weights = icnn_j.load_isihara_weights()
+    F = np.array([1.0, 0.0, 0.0, 1.0]) + 0.05 * np.random.default_rng(7).standard_normal((256, 4))
+    dP_t, P_t = convert.icnn_from_numpy(weights, device="cpu").stress_and_tangent(torch.tensor(F))
+    dP_j, P_j = icnn_j.ICNN(weights).stress_and_tangent(jnp.asarray(F))
+    out["icnn_256"] = {"P_rel": _rel(P_t.numpy(), P_j), "dPdF_rel": _rel(dP_t.numpy(), dP_j)}
+    kw = ({"lc": 0.05, "n_steps": 100, "max_displacement": 0.5} if slow
+          else {"lc": 0.12, "n_steps": 2, "max_displacement": 0.1})
+    ht, hj = he_t.run_comparison(device="cpu", **kw), he_j.run_comparison(**kw)
+    out["hyperelasticity"] = {
+        "config": kw, "rel_linf": [ht["rel_linf"], hj["rel_linf"]], "l2": [ht["l2"], hj["l2"]],
+        "newton_nn": [sum(ht["nn"]["iterations"]), sum(hj["nn"]["iterations"])],
+        "newton_isihara": [sum(ht["isihara"]["iterations"]), sum(hj["isihara"]["iterations"])],
+        "u_gap_nn": float(np.abs(ht["nn"]["u"].data.numpy() - np.asarray(hj["nn"]["u"].data)).max())}
+    return out
+
+
 if __name__ == "__main__":
     torch.set_num_threads(2)
     print(json.dumps({"surface": surface(), "return_map": return_map(),
                       "slope_4x4": slope_4x4(), "first_solve_25x25_cpu": first_solve_25x25(),
                       "bcr_slope": bcr_slope(), "mg_slope": mg_slope("--slow" in sys.argv),
                       "mg_suspects": mg_suspects(),
-                      "general_slope": general_slope("--slow" in sys.argv)}))
+                      "general_slope": general_slope("--slow" in sys.argv),
+                      "general_solvers": general_solvers("--slow" in sys.argv)}))
