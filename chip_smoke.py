@@ -122,7 +122,23 @@ Phases, in order; any failed check exits non-zero without the ``ok`` line:
    graph), its graph's device time and the eager call; then the bounded
    Newton (``vinewtonrsls``): the 12x12 membrane on a floor (dense) and the
    elastic block on a floor (cg + mg), each with the JAX package's Newton
-   count and the KKT conditions.
+   count and the KKT conditions;
+22. phase 18's program with the general pipeline cell-sharded
+   (``entry.general_slope_schedule``: ``parallel.set_default_device_mesh``,
+   every form and expression on the rank's cells, K1 on the rank's Gauss
+   points) over one NCCL rank: phase 18's Newton list, K1 launches and u,
+   bit for bit;
+23. the same over two gloo ranks on the card: each rank's K1 on its 1,875
+   points, phase 18's Newton list, u within 1e-10 relative of phase 18's
+   and the same on both ranks; s/step, the all-gathers and psums per
+   Newton pass with each one's time (host clock, after the run), peak
+   memory; then K1 against its plain version and timed on a rank's half
+   of step 50's iterate;
+24. the port's five demos (``demos_torch/``, each in a process of its
+   own, all started together, ``--no-plot``): the simple example, nonlinear heat, von Mises
+   ``--small`` on one process and on ``--ranks 2`` (gloo; the final
+   displacements within 1e-12 relative), Mohr-Coulomb ``--small`` and
+   hyperelasticity ``--small``; each holds its own asserts.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  A copy of all measurements goes to
@@ -152,7 +168,11 @@ from dolfinx_external_operator_torch._native import cuda as native
 from dolfinx_external_operator_torch.models import von_mises as vm
 from dolfinx_external_operator_torch.ops import mohr_coulomb as mc_ops
 from dolfinx_external_operator_torch.ops import vonmises as vm_ops
-from dolfinx_external_operator_torch.entry import dryrun_multichip, slope_schedule
+from dolfinx_external_operator_torch.entry import (
+    dryrun_multichip,
+    general_slope_schedule,
+    slope_schedule,
+)
 from dolfinx_external_operator_torch.parallel import bcr, dist, mg
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, f32 and f64
@@ -1345,7 +1365,7 @@ def general_slope_phase(report, u_fused, fused_s, n=25, loads=pt.SLOPE_LOADS, de
         "profile_step51": {"wall_ms": wall * 1e3, "device_busy_ms": busy, "idle_share": idle,
                            "device_events": events, "host_launches": host_launches,
                            "top_ms": top}}
-    return launches
+    return launches, {"newton": its, "u": u.cpu().numpy(), "launches": launches}
 
 
 # the von Mises cylinder's records (the JAX package on the CPU)
@@ -1715,6 +1735,100 @@ def vi_phase(report, device="cuda"):
     report["vi"] = out
 
 
+def sharded_general_phase(report, ref, n, backend, loads=pt.SLOPE_LOADS):
+    """Phases 22 and 23: phase 18's program, the 25x25 slope through the
+    general pipeline (``entry.general_slope_schedule``), with every form
+    and expression cell-sharded over ``n`` ranks, so each rank's K1 runs on
+    its own Gauss points.  One rank must give phase 18's bits; more ranks
+    phase 18's Newton list and u within 1e-10 relative, the same u on
+    every rank."""
+    t0 = time.perf_counter()
+    runs = dist.spawn(general_slope_schedule, n, backend, None, 25, loads)
+    wall = time.perf_counter() - t0
+    label = f"general 25x25, {n} rank(s) over {backend}"
+    first, its_ref = runs[0], ref["newton"][:len(loads)]
+    u_ref = ref["u"]
+    for run in runs:
+        check(run["newton"] == its_ref, f"{label}: rank {run['rank']} Newton list {run['newton']}")
+        # one K1 launch before the schedule, then one per residual
+        check(run["launches"] == run["map_calls"] == run["passes"] + 1,
+              f"{label}: rank {run['rank']} K1 launches {run['launches']}")
+        check(run["points"] == [3750 // n], f"{label}: K1 saw {run['points']} points")
+        check(np.array_equal(run["u"], first["u"]), f"{label}: the ranks' u differ")
+    gap = float(np.abs(first["u"] - u_ref).max() / np.abs(u_ref).max())
+    if n == 1:
+        check(np.array_equal(first["u"], u_ref) and first["launches"] == ref["launches"],
+              f"{label}: u {gap:.3e} from phase 18's, K1 launches {first['launches']}")
+    else:
+        check(gap <= 1e-10, f"{label}: u {gap:.3e} from phase 18's")
+    steps = sum(first["step_s"])
+    passes = first["passes"]
+    print(f"{label}, {len(loads)} steps: newton {sum(first['newton'])} (phase 18's list), K1 "
+          f"launches {[r['launches'] for r in runs]} on {first['points']} points each, u "
+          f"{gap:.2e} from phase 18's{' (bitwise)' if gap == 0 else ''}; {steps:.2f} s of "
+          f"steps ({steps / len(loads):.4f} s/step), {wall:.1f} s with the processes' start; "
+          f"per Newton pass {first['gather_calls'] / passes:.2f} all-gathers and "
+          f"{first['psum_calls'] / passes:.2f} psums; "
+          f"peak memory {first['peak_bytes'] / 2**30:.3f} GiB (rank 0)", flush=True)
+    print(f"  collectives of rank 0 (calls; ms per call, host clock): "
+          + ", ".join(f"{k}: {first['collectives'][k]}; {first['collective_ms'][k]:.3f}"
+                      for k in first["collectives"]), flush=True)
+    report[f"general_sharded_{n}_{backend}"] = {
+        "ranks": [dict(r, u=None) for r in runs], "u_gap_to_phase18": gap,
+        "wall_total_s": wall, "steps": len(loads)}
+    return [r["launches"] for r in runs] if n > 1 else first["launches"]
+
+
+# phase 24: (demo, arguments); the von Mises demo runs on one process and
+# on two gloo ranks
+DEMOS = [("demo_simple_example.py", []), ("demo_nonlinear_heat.py", []),
+         ("demo_plasticity_von_mises.py", ["--small"]),
+         ("demo_plasticity_von_mises.py", ["--small", "--ranks", "2"]),
+         ("demo_plasticity_mohr_coulomb.py", ["--small"]),
+         ("demo_hyperelasticity.py", ["--small"])]
+
+
+def demos_phase(report):
+    """Phase 24: the port's demos (``demos_torch/``) on the card, each in a
+    process of its own with ``--no-plot``, all started together (each
+    spends most of its time starting up); each holds its own asserts, and
+    the von Mises demo's final displacement on two gloo ranks must be
+    within 1e-12 relative of one process's."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+
+    def run(demo, args):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, os.path.join(root, "demos_torch", demo), *args,
+                            "--no-plot"], capture_output=True, text=True, timeout=600,
+                           env=env, cwd=root)
+        return r, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(DEMOS)) as ex:
+        done = [ex.submit(run, demo, args) for demo, args in DEMOS]
+        results = [f.result() for f in done]
+    total = time.perf_counter() - t0
+    out, finals = [], {}
+    for (demo, args), (r, wall) in zip(DEMOS, results):
+        tail = (r.stdout + r.stderr)[-1500:]
+        check(r.returncode == 0, f"{demo} {args} exited {r.returncode}: {tail}")
+        lines = r.stdout.strip().splitlines()
+        for line in lines:
+            if line.startswith("final_displacement="):
+                finals[" ".join(args)] = float(line.split("=", 1)[1])
+        print(f"{demo} {' '.join(args)}: {wall:.1f} s, {lines[-1]}", flush=True)
+        out.append({"demo": demo, "args": args, "wall_s": wall, "last_lines": lines[-4:]})
+    one, two = finals["--small"], finals["--small --ranks 2"]
+    gap = abs(one - two) / abs(one)
+    check(gap <= 1e-12, f"von Mises demo on 2 ranks {two!r} against one process's {one!r}")
+    print(f"von Mises demo final displacement: one process {one!r}, 2 gloo ranks {two!r} "
+          f"({gap:.2e} relative); the {len(DEMOS)} runs together {total:.1f} s", flush=True)
+    report["demos"] = {"runs": out, "von_mises_final": finals, "von_mises_rank_gap": gap,
+                       "wall_total_s": total}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1857,14 +1971,33 @@ def main():
         print(f"multi-card NCCL not run: {cards} card", flush=True)
     report["multi_card_nccl_run"] = cards >= 2
     # phase 18: the same slope through the general external-operator pipeline
-    general_launches = general_slope_phase(report, states["u"],
-                                           sum(report["mc_main"]["wall_kernel_s"]))
+    general_launches, general_ref = general_slope_phase(report, states["u"],
+                                                        sum(report["mc_main"]["wall_kernel_s"]))
     # phases 19-21: the reference's other demos through the general
     # pipeline and its Krylov, AMG and bound-constrained solvers
     vm_cylinder_phase(report)
     vm_fine_phase(report)
     hyperelasticity_phase(report)
     vi_phase(report)
+    # phases 22-23: phase 18's slope with the general pipeline cell-sharded,
+    # one NCCL rank and two gloo ranks on the card; K1 over a rank's half
+    # of step 50's iterate
+    sharded["slope_25x25_general_1rank_nccl"] = sharded_general_phase(
+        report, general_ref, 1, "nccl")
+    sharded["slope_25x25_general_2ranks_gloo_per_rank"] = sharded_general_phase(
+        report, general_ref, 2, "gloo")
+    deps, sn = kernel_inputs(fp_k, *states[49])
+    half = deps.shape[1] // 2
+    k1_half = mc_kernel_phase(mat, deps[:, :half].contiguous(), sn[:, :half].contiguous(),
+                              "rank half of step 50 iterate")
+    print(f"mohr_coulomb on a rank's half of step 50's iterate, n={k1_half['n']}: kernel "
+          f"{k1_half['ms'] * 1e3:.2f} us in a graph (pass A {k1_half['pass_a_ms'] * 1e3:.2f}, "
+          f"pass B {k1_half['pass_b_ms'] * 1e3:.2f}), {k1_half['call_ms'] * 1e3:.2f} us a call, "
+          f"plain {k1_half['plain_ms']:.2f} ms, bound {k1_half['bound_ms'] * 1e3:.3f} us; the "
+          f"whole iterate {mc_shapes[0]['ms'] * 1e3:.2f} us", flush=True)
+    report["mc_half_shape"] = k1_half
+    # phase 24: the port's five demos on the card
+    demos_phase(report)
 
     main_shape = shapes[1]
     kernels = [{
@@ -1907,6 +2040,8 @@ def main():
         "bound_by": mc_shapes[0]["bound_by"],
         "library_ms": None,
         "n": mc_shapes[0]["n"],
+        "rank_half": {k: k1_half[k] for k in ("n", "ms", "call_ms", "pass_a_ms", "pass_b_ms",
+                                              "plain_ms", "bound_ms", "max_abs_err")},
     }]
     report["kernels"] = kernels
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

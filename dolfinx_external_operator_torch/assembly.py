@@ -1,7 +1,7 @@
 """Form assembly: batched element kernels + deterministic global scatter.
 
-The port of ``dolfinx_external_operator_tpu/assembly.py:46-831`` (without
-the sharding hooks).  Each integral is split into
+The port of ``dolfinx_external_operator_tpu/assembly.py:46-831``.  Each
+integral is split into
 batches of cells (cells, or the facets of each local facet number); a
 batch's geometry, basis tabulations and index tensors are made on the
 form's device once, when the form is compiled, and each call evaluates the
@@ -21,6 +21,22 @@ and diagonals sum through one gather table over the test dofs of every
 batch, the dense matrix and the sparse one (``matrix_bcoo``) through a
 deduplicated table over the flat slots ``row * m + col``.  Each table is
 built once per compiled form.
+
+Cell sharding (``parallel.set_default_device_mesh``): a form compiled
+under an installed mesh takes this rank's rows of each batch
+(``parallel.rank_rows``: the batch padded to a multiple of the rank count
+by repeating row 0, the rank's contiguous block), and a ``valid`` mask
+zeroes the element tensors of the padded rows, as JAX
+``assembly.py:336-392`` does.  ``scalar``, ``vector``, ``action``,
+``diagonal``, ``matrix`` and ``matrix_bcoo`` gather the ranks' per-cell
+contributions whole (one ``dist.all_gather``, the padded rows sliced off)
+and sum them through the unsharded tables on every rank, so their results
+are the same on every rank and the unsharded bits for any rank count;
+``element_tensors`` stays rank-local.  (A partial sum per rank followed
+by ``dist.psum`` moves as many bytes, but its sum order depends on the
+rank count: the von Mises demo's final displacement then moved by
+3.8e-12 relative from one rank to two, 7.1e-12 in the JAX package from
+one device to eight.)
 
 Dirichlet BCs use symmetric elimination with lifting, reproducing the
 ``apply_lifting`` + ``set_bc`` semantics of the reference SNES shim
@@ -45,7 +61,7 @@ from .compile import (
 )
 from .elements import Element
 from .mesh import CELL_FACETS, FACET_CELL, REFERENCE_VERTICES, Mesh
-from .parallel.scatter import dedup_table, dedup_write, segment_sum, segment_table
+from .parallel.scatter import dedup_table, segment_sum, segment_table
 from .quadrature import make_quadrature
 
 __all__ = [
@@ -217,7 +233,9 @@ def _coeff_values_at_qps(plan, coeff_cell_data, tables):
 class _IntegralKernel:
     """A compiled integral: evaluates element tensors on its cell batches."""
 
-    def __init__(self, integral: sym.Integral, rank: int, mesh: Mesh, device, dtype):
+    def __init__(self, integral: sym.Integral, rank: int, mesh: Mesh, device, dtype,
+                 device_mesh=None):
+        self.device_mesh = device_mesh
         self.integrand = integral.integrand
         self.measure = integral.measure
         self.rank = rank
@@ -313,11 +331,28 @@ class _IntegralKernel:
         integrand = self.integrand
         info = self.info
         plan = coefficient_inputs(info, batch, self.quadrature_degree if self.measure.kind == "dx" else None)
-        nq = batch.nq
-        nc = batch.cells.shape[0]
         rank = self.rank
         test_space, trial_space = self.test_space, self.trial_space
         dt, dev = self.dtype, self.device
+        # the dofs of every cell of the batch (host; the form's slot table
+        # spans the cells of all ranks)
+        all_dofs = {k: None if sp is None else sp.unrolled_dofmap[batch.cells]
+                    for k, sp in (("test", test_space), ("trial", trial_space))}
+        nc_all = batch.cells.shape[0]
+        valid = None
+        if self.device_mesh is not None:
+            from .parallel import rank_rows
+
+            rows, ok = rank_rows(batch.cells.shape[0], self.device_mesh)
+            batch = CellBatch(batch.mesh, batch.points, batch.cells[rows])
+            if normal_sign is not None:
+                normal_sign = np.asarray(normal_sign)[rows]
+            if subset_positions is not None:
+                subset_positions = np.asarray(subset_positions)[rows]
+            if not ok.all():
+                valid = _t(ok, dt, dev)[:, None, None]
+        nq = batch.nq
+        nc = batch.cells.shape[0]
 
         # geometry, tabulations and index tensors: made once, on the device
         coords = _t(batch.coords, dt, dev)
@@ -393,13 +428,17 @@ class _IntegralKernel:
                       dtype=dt, device=dev, statics=statics)
             val = eval_expr(integrand, ctx).expand(nc, nt, nu, nq)
             elem = (val * wts * scale).sum(3)  # (nc, nt, nu)
+            if valid is not None:  # padded rows add nothing
+                elem = elem * valid
             if rank == 0:
                 elem = elem[:, 0, 0]
             elif rank == 1:
                 elem = elem[:, :, 0]
             return elem, test_dofs, trial_dofs
 
-        return batch_fn, {"test_dofs": test_dofs, "trial_dofs": trial_dofs, "nc": nc}
+        return batch_fn, {"test_dofs": test_dofs, "trial_dofs": trial_dofs, "nc": nc,
+                          "nc_all": nc_all, "test_dofs_all": all_dofs["test"],
+                          "trial_dofs_all": all_dofs["trial"]}
 
 
 # ----------------------------------------------------------------------
@@ -410,9 +449,15 @@ class CompiledForm:
     """A form compiled to batched element kernels on one device.
 
     Equivalent of ``fem.form(...)`` (FFCx JIT) in the reference.  Its device
-    is that of the form's coefficients (``expr_device``)."""
+    is that of the form's coefficients (``expr_device``).  Compiled under
+    an installed device mesh (``parallel.set_default_device_mesh``), it
+    holds this rank's rows of each batch (``device_mesh``) and gathers
+    the ranks' contributions before it sums them (module docstring)."""
 
     def __init__(self, form: sym.Form, device=None):
+        from .parallel import get_default_device_mesh
+
+        self.device_mesh = get_default_device_mesh()
         self.form = form
         args = form.arguments()
         self.rank = len(args)
@@ -422,7 +467,8 @@ class CompiledForm:
         self.mesh = mesh
         self.device = expr_device([itg.integrand for itg in form.integrals], device)
         self.dtype = _F
-        self.kernels = [_IntegralKernel(itg, self.rank, mesh, self.device, self.dtype)
+        self.kernels = [_IntegralKernel(itg, self.rank, mesh, self.device, self.dtype,
+                                        self.device_mesh)
                         for itg in form.integrals]
         # stable global ordering of runtime inputs
         self.functions = []
@@ -438,6 +484,26 @@ class CompiledForm:
                         [self.constants.index(c) for c in k.constants]) for k in self.kernels]
         self._row_table = None
         self._matrix_plan = None
+
+    def _whole(self, parts):
+        """Per-cell contributions ``parts`` (one per batch, a leading axis
+        of this rank's rows) as every batch's contributions over all its
+        cells, flat, in the unsharded order: sharded, one
+        ``dist.all_gather`` of the rank's concatenated rows, the padded rows
+        sliced off (``parts`` flattened without a mesh)."""
+        if self.device_mesh is None:
+            return [p.reshape(-1) for p in parts]
+        from .parallel import dist
+
+        size = self.device_mesh.size
+        whole = dist.all_gather(torch.cat([p.reshape(-1) for p in parts]), None,
+                                self.device_mesh.group).view(size, -1)
+        out, off = [], 0
+        for p, s in zip(parts, self._statics()):
+            k, w = p.shape[0], p[0].numel()
+            out.append(whole[:, off:off + k * w].reshape(size * k, w)[:s["nc_all"]].reshape(-1))
+            off += k * w
+        return out
 
     # runtime inputs
     def _inputs(self):
@@ -461,21 +527,25 @@ class CompiledForm:
         return [s for k in self.kernels for (_, s) in k.batches]
 
     def _rows(self):
-        """Gather table of the test dofs of every batch, in batch order."""
+        """Gather table of the test dofs of every batch (all its cells), in
+        batch order."""
         if self._row_table is None:
-            tdofs = np.concatenate([s["test_dofs"].cpu().numpy().ravel() for s in self._statics()])
+            tdofs = np.concatenate([s["test_dofs_all"].ravel() for s in self._statics()])
             self._row_table = torch.as_tensor(segment_table(tdofs, self.test_space.num_dofs),
                                               device=self.device)
         return self._row_table
 
     def _scatter_rows(self, parts):
         """Sum per-(cell, test dof) contributions ``parts`` (one per batch)
-        into the test space's dof vector."""
-        return segment_sum(torch.cat([p.reshape(-1) for p in parts]), self._rows())
+        into the test space's dof vector, over every rank's cells."""
+        return segment_sum(torch.cat(self._whole(parts)), self._rows())
 
     def element_tensors(self):
         """Per-batch element tensors + their dof maps, without forming the
-        global matrix: ``[(elem (nc, nt, nu), tdofs (nc, nt), udofs (nc, nu))]``."""
+        global matrix: ``[(elem (nc, nt, nu), tdofs (nc, nt), udofs (nc, nu))]``.
+        Sharded, these are this rank's rows (padded rows zero): an
+        operator built on them sums over every rank's cells in its own
+        scatter (``_scatter_rows``)."""
         return self._elements()
 
     def action(self, x):
@@ -492,7 +562,7 @@ class CompiledForm:
 
     def scalar(self):
         total = torch.zeros((), dtype=self.dtype, device=self.device)
-        for elem, _, _ in self._elements():
+        for elem in self._whole([e for e, _, _ in self._elements()]):
             total = total + elem.sum()
         return total
 
@@ -501,22 +571,30 @@ class CompiledForm:
 
     def _slot_plan(self):
         """The deduplicated table over the flat slots ``row * m + col`` of
-        every batch's element entries (``scatter.dedup_table``), built on
-        the first call."""
+        every batch's element entries (all its cells;
+        ``scatter.dedup_table``), built on the first call: ``(table, slots,
+        size)``, ``slots`` the form's sorted unique slots."""
         n, m = self.test_space.num_dofs, self.trial_space.num_dofs
         if self._matrix_plan is None:
             slots = np.concatenate([
-                (s["test_dofs"].cpu().numpy()[:, :, None] * m
-                 + s["trial_dofs"].cpu().numpy()[:, None, :]).ravel() for s in self._statics()])
+                (s["test_dofs_all"][:, :, None] * m + s["trial_dofs_all"][:, None, :]).ravel()
+                for s in self._statics()])
             self._matrix_plan = dedup_table(slots, n * m, self.device)
         return self._matrix_plan
+
+    def _slot_values(self):
+        """The summed value of each unique slot (``_slot_plan``)."""
+        return segment_sum(torch.cat(self._whole([e for e, _, _ in self._elements()])),
+                           self._slot_plan()[0])
 
     def matrix(self):
         """The dense (n, m) matrix, summed through the deduplicated slot
         table."""
         n, m = self.test_space.num_dofs, self.trial_space.num_dofs
-        vals = torch.cat([e.reshape(-1) for e, _, _ in self._elements()])
-        return dedup_write(vals, self._slot_plan()).reshape(n, m)
+        _, slots, size = self._slot_plan()
+        out = torch.zeros(size, dtype=self.dtype, device=self.device)
+        out[slots] = self._slot_values()
+        return out.reshape(n, m)
 
     def matrix_bcoo(self):
         """The assembled sparse (n, m) matrix with its duplicates summed,
@@ -526,8 +604,8 @@ class CompiledForm:
         the device); its unique slots are sorted, so the indices are in
         row-major order."""
         n, m = self.test_space.num_dofs, self.trial_space.num_dofs
-        table, slots, _ = self._slot_plan()
-        vals = segment_sum(torch.cat([e.reshape(-1) for e, _, _ in self._elements()]), table)
+        slots = self._slot_plan()[1]
+        vals = self._slot_values()
         return torch.sparse_coo_tensor(torch.stack([slots // m, slots % m]), vals, (n, m),
                                        is_coalesced=True, check_invariants=False)
 

@@ -6,6 +6,15 @@ operand -> quadrature-point interpolation engine of the reference
 tabulations made once on the device, with per-cell inverse Jacobians for
 gradients, and the expression walked once per call over all cells and
 points with explicit batch axes (``compile.py``).
+
+Compiled under an installed device mesh (``parallel.
+set_default_device_mesh``), an evaluation takes this rank's rows of the
+cell list (``parallel.rank_rows``, as JAX ``expression.py:78-100`` pads
+and shards them): ``eval`` returns the whole array on every rank, as the
+JAX package's global array is, through one ``dist.all_gather`` with the
+padding sliced off, and ``eval_local`` the rank's rows (padded rows
+repeat row 0), which ``evaluate_operands`` hands to the external
+function.
 """
 
 from __future__ import annotations
@@ -52,10 +61,15 @@ class Expression:
         self.constants = list(self.info["constants"])
         self._cache = {}
 
-    def _compile(self, mesh: Mesh, cells):
+    def _compile(self, mesh: Mesh, cells, device_mesh=None):
         from .assembly import _coeff_tables, _coeff_values_at_qps, _idx, _t
 
         batch = CellBatch(mesh, self.points, cells)
+        if device_mesh is not None:
+            from .parallel import rank_rows
+
+            batch = CellBatch(mesh, self.points,
+                              batch.cells[rank_rows(batch.cells.shape[0], device_mesh)[0]])
         plan = coefficient_inputs(self.info, batch)
         expr = self.expr
         nq = batch.nq
@@ -100,19 +114,51 @@ class Expression:
         facets when ``cells`` is an (n, 2) array of (parent_cell,
         local_facet) pairs -- the codim-1 operand path (reference
         ``test_codim_external_operator.py:75-124``; dolfinx
-        ``Expression.eval`` entity convention)."""
+        ``Expression.eval`` entity convention).  The whole array on every
+        rank."""
         if cells is not None and np.asarray(cells).ndim == 2:
             return self._eval_facets(mesh, np.asarray(cells, dtype=np.int32))
-        # content-hash the cell subset: two different subsets must never
-        # share compiled statics (they bake in the gathered cells)
-        key = None if cells is None else np.asarray(cells, dtype=np.int64).tobytes()
+        vals, n, device_mesh = self._eval_rows(mesh, cells)
+        if device_mesh is None:
+            return vals
+        from .parallel import dist
+
+        return dist.all_gather(vals, n, device_mesh.group)
+
+    def eval_local(self, mesh: Mesh, cells: np.ndarray | None = None):
+        """``eval``'s rows of this rank (``parallel.rank_rows`` of the cell
+        or facet list; padded rows repeat row 0): the whole array without
+        a device mesh."""
+        from .parallel import get_default_device_mesh, rank_rows
+
+        if cells is not None and np.asarray(cells).ndim == 2:
+            vals = self._eval_facets(mesh, np.asarray(cells, dtype=np.int32))
+            device_mesh = get_default_device_mesh()
+            if device_mesh is None:
+                return vals
+            rows = rank_rows(vals.shape[0], device_mesh)[0]
+            return vals[torch.as_tensor(rows, device=vals.device)]
+        return self._eval_rows(mesh, cells)[0]
+
+    def _eval_rows(self, mesh, cells):
+        """(this rank's rows of the evaluation, the cell count, the mesh
+        they were compiled under)."""
+        from .parallel import get_default_device_mesh
+
+        device_mesh = get_default_device_mesh()
+        # content-hash the cell subset and key on the layout: two subsets,
+        # or two layouts, must never share compiled statics (they bake in
+        # the gathered cells)
+        layout = None if device_mesh is None else (device_mesh.rank, device_mesh.size)
+        key = (layout, None if cells is None else np.asarray(cells, dtype=np.int64).tobytes())
         fn = self._cache.get(key)
         if fn is None:
-            fn = self._cache[key] = self._compile(mesh, cells)
+            fn = self._cache[key] = self._compile(mesh, cells, device_mesh)
         coeffs = [f.data.to(self.dtype) for f in self.functions]
         consts = [torch.as_tensor(c.value, dtype=self.dtype, device=self.device).reshape((1,) * NB + c.shape)
                   for c in self.constants]
-        return fn(coeffs, consts)
+        n = mesh.num_cells if cells is None else len(cells)
+        return fn(coeffs, consts), n, device_mesh
 
     def _eval_facets(self, mesh: Mesh, entities: np.ndarray):
         """Facet-point evaluation: self.points live on the FACET reference

@@ -16,6 +16,14 @@ are cached on the parent operator, as in the JAX package.  The callback
 receives device tensors (the operands at the points, then the hidden
 operands' dof tensors) and returns device tensors; its result is written
 into the operator's coefficient on the coefficient's device.
+
+Under an installed device mesh (``parallel.set_default_device_mesh``)
+each rank evaluates the operands at its own points (``Expression.
+eval_local``) and the external function runs on those points only, with
+the rank's rows of every hidden quadrature-space operand; each result is
+gathered whole (``dist.all_gather``) before it is written back, so the
+coefficients stay whole and identical on every rank and the write-back
+plans are the unsharded ones.
 """
 
 from __future__ import annotations
@@ -351,19 +359,20 @@ def evaluate_operands(external_operators, entities=None):
     for an operator on a facet ``mesh.Submesh`` quadrature space.
 
     Returns a dict mapping operand -> tensor of shape (n_cells, n_pts) or
-    (n_cells, n_pts, value_size) on the operator's device.
+    (n_cells, n_pts, value_size) on the operator's device.  Under a device
+    mesh the leading axis holds this rank's rows of the cells or entities
+    (``Expression.eval_local``), and the dict carries that layout
+    (``layout``: the entities and the mesh) to
+    ``evaluate_external_operators``.
     """
-    from .mesh import Submesh
+    from .parallel import get_default_device_mesh
 
     if len(external_operators) == 0:
         return {}
-    evaluated = {}
+    evaluated = _Operands()
+    evaluated.layout = (entities, get_default_device_mesh())
     for ex_op in external_operators:
-        mesh = ex_op.ref_function_space.mesh
-        if isinstance(mesh, Submesh):
-            # codim operator: operands live on (and are evaluated over) the
-            # parent mesh at the caller-supplied entities
-            mesh = mesh.parent
+        mesh = _operand_mesh(ex_op)
         for operand in ex_op.ufl_operands:
             if operand in evaluated:
                 continue
@@ -375,8 +384,90 @@ def evaluate_operands(external_operators, entities=None):
                 coef = ex_op.ref_coefficient
                 expr = Expression(operand, ex_op.eval_points, dtype=coef.dtype, device=coef.device)
                 ex_op._compiled_operands[operand] = expr
-            evaluated[operand] = expr.eval(mesh, entities)
+            evaluated[operand] = expr.eval_local(mesh, entities)
     return evaluated
+
+
+class _Operands(dict):
+    """``evaluate_operands``' result: operand -> values, with the layout
+    they were evaluated in (``layout``: entities, device mesh)."""
+
+    layout = (None, None)
+
+
+def _operand_mesh(ex_op):
+    """The mesh over which ``ex_op``'s operands are evaluated: a codim
+    operator's operands live on the parent mesh, at the caller's
+    entities."""
+    from .mesh import Submesh
+
+    mesh = ex_op.ref_function_space.mesh
+    return mesh.parent if isinstance(mesh, Submesh) else mesh
+
+
+def _op_rows(ex_op, layout):
+    """The ``_Rows`` of ``ex_op`` in ``layout`` (None unsharded), made
+    once per layout."""
+    entities, device_mesh = layout
+    if device_mesh is None:
+        return None
+    key = (None if entities is None else np.asarray(entities).tobytes(), device_mesh.rank,
+           device_mesh.size)
+    cache = ex_op.__dict__.setdefault("_rows_cache", {})
+    if key not in cache:
+        cache[key] = _Rows(_operand_mesh(ex_op), entities, device_mesh,
+                           ex_op.ref_coefficient.device)
+    return cache[key]
+
+
+class _Rows:
+    """An operator's sharded evaluation layout: this rank's rows of the
+    ``n`` cells or entities (``parallel.rank_rows``), its mesh, and
+    whether the rows are the mesh's cells (``entities`` None), where the
+    hidden quadrature-space operands are cut to the same rows."""
+
+    def __init__(self, mesh, entities, device_mesh, device):
+        from .parallel import rank_rows
+
+        self.mesh, self.device_mesh = mesh, device_mesh
+        self.n = mesh.num_cells if entities is None else len(entities)
+        self.all_cells = entities is None
+        self.rows = torch.as_tensor(rank_rows(self.n, device_mesh)[0], device=device)
+
+    def hidden(self, h):
+        """The external function's argument for hidden operand ``h``: a
+        Function on a cell-contiguous space of the mesh (quadrature, DG)
+        gives this rank's rows, any other its whole data or itself."""
+        if not isinstance(h, Function):
+            return h
+        V = h.function_space
+        if (self.all_cells and V.mesh is self.mesh
+                and V.element.family in ("quadrature", "DG")):
+            return h.data.reshape(self.n, -1)[self.rows].reshape(-1)
+        return h.data
+
+    def whole(self, t, like):
+        """A per-point result of this rank's rows gathered whole: ``t`` with
+        a leading axis of the rank's rows keeps it (now ``n``), a flat one
+        stays flat.  ``like``: the coefficient whose device a numpy result
+        moves to."""
+        k = self.rows.shape[0]
+        t = torch.as_tensor(t, device=like.device)
+        from .parallel import dist
+
+        whole = dist.all_gather(t.reshape(k, -1), self.n, self.device_mesh.group)
+        return whole.reshape((self.n,) + tuple(t.shape[1:])) if t.shape[0] == k else whole.reshape(-1)
+
+    def gathered(self, out, like):
+        """``out`` of the external function with its results gathered whole:
+        the values (the first entry of a tuple, or ``out``) always, an aux
+        tensor when it holds a whole number of values per row."""
+        if type(out) is not tuple:
+            return self.whole(out, like)
+        k = self.rows.shape[0]
+        return (self.whole(out[0], like),) + tuple(
+            self.whole(t, like) if isinstance(t, torch.Tensor) and t.ndim >= 1
+            and t.numel() % k == 0 else t for t in out[1:])
 
 
 def evaluate_external_operators(external_operators, evaluated_operands):
@@ -386,24 +477,40 @@ def evaluate_external_operators(external_operators, evaluated_operands):
     ``external_function(derivatives)``, the tuple-aux-output protocol (the
     first entry is written back, the rest are returned to the caller, cf.
     ``demo_plasticity_von_mises.py:343-352``), and nested-operator
-    recursion.
+    recursion.  Under a device mesh (the layout ``evaluate_operands``
+    recorded) the external function gets this rank's points and each
+    per-point result is gathered whole (``_Rows.gathered``): what is
+    written back and returned is the unsharded result.
     """
+    return [whole for _, whole in _evaluate(external_operators, evaluated_operands)]
+
+
+def _evaluate(external_operators, evaluated_operands):
+    """[(the external function's output on this rank's points, the output
+    gathered whole)] per operator; a nested operator's output enters its
+    parent's call as it came out (the rank's points)."""
     results = []
+    # a dict built by the caller holds whole arrays
+    layout = getattr(evaluated_operands, "layout", (None, None))
     for ex_op in external_operators:
+        rows = _op_rows(ex_op, layout)
         args = []
         for operand in ex_op.ufl_operands:
             if isinstance(operand, FEMExternalOperator):
-                args.extend(evaluate_external_operators([operand], evaluated_operands[operand]))
+                args.extend(out for out, _ in _evaluate([operand], evaluated_operands[operand]))
             else:
                 args.append(evaluated_operands[operand])
         for h in ex_op.hidden_operands:
-            args.append(h.data if isinstance(h, Function) else h)
+            if rows is None:
+                args.append(h.data if isinstance(h, Function) else h)
+            else:
+                args.append(rows.hidden(h))
 
         out = ex_op.external_function(ex_op.derivatives)(*args)
-        values = out[0] if type(out) is tuple else out
-        ex_op._assign_func(values)
+        whole = out if rows is None else rows.gathered(out, ex_op.ref_coefficient)
+        ex_op._assign_func(whole[0] if type(whole) is tuple else whole)
         ex_op.ref_coefficient.x.scatter_forward()  # no-op (owner computes)
-        results.append(out)
+        results.append((out, whole))
     return results
 
 

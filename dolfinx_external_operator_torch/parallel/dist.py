@@ -1,5 +1,5 @@
-"""Cell sharding over ``torch.distributed`` ranks: the mesh, the one
-collective, and a launcher.
+"""Cell sharding over ``torch.distributed`` ranks: the mesh, the two
+collectives, and a launcher.
 
 The JAX package shards the fused step's cell axis over a 1D
 ``jax.sharding.Mesh`` with ``shard_map`` and sums every scatter with
@@ -7,8 +7,10 @@ The JAX package shards the fused step's cell axis over a 1D
 ``:955-989``).  PyTorch's idiom is one process per rank: each rank owns a
 slice of the cells and holds every dof vector whole, and each scatter is
 the rank's own segment sum followed by one ``all_reduce(SUM)``
-(``psum``).  ``spawn`` starts the ranks on one host, the counterpart of the
-reference CI's ``mpirun -n 3``.
+(``psum``).  The general pipeline also gathers the rank's rows of a
+batch into the whole batch (``all_gather``), where the JAX package's
+global arrays are whole by construction.  ``spawn`` starts the ranks on
+one host, the counterpart of the reference CI's ``mpirun -n 3``.
 
 Backends: NCCL, one rank per card; gloo on the CPU, and gloo with CUDA
 tensors for several ranks on one card (NCCL refuses two ranks on one
@@ -29,7 +31,7 @@ import torch.multiprocessing as mp
 
 from .. import resolve_device
 
-__all__ = ["DeviceMesh", "make_device_mesh", "psum", "spawn"]
+__all__ = ["DeviceMesh", "all_gather", "make_device_mesh", "psum", "spawn"]
 
 # a rank that waits longer than this in a collective raises
 _TIMEOUT = datetime.timedelta(minutes=10)
@@ -101,6 +103,26 @@ def psum(x, group=None):
 
 
 psum.calls = 0
+
+
+def all_gather(x, n=None, group=None):
+    """The whole of a batch cut in equal blocks over the ranks of
+    ``group``: each rank passes its block ``x`` (``k`` rows, the same ``k``
+    on every rank), every rank receives the ``size * k`` rows in rank
+    order, cut to the first ``n`` (the padding sliced off).
+
+    Every gather of the general pipeline goes through this function, and
+    ``all_gather.calls`` counts them.  Gloo gathers CUDA tensors too
+    (staged through the host), so several ranks on one card use it as
+    they use ``psum``."""
+    all_gather.calls += 1
+    parts = [torch.empty_like(x) for _ in range(tdist.get_world_size(group))]
+    tdist.all_gather(parts, x.contiguous(), group=group)
+    whole = torch.cat(parts)
+    return whole if n is None else whole[:n]
+
+
+all_gather.calls = 0
 
 
 def _rank_main(rank, fn, n, backend, device, tmp, args, kwargs):

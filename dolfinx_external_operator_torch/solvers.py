@@ -25,9 +25,21 @@ The port of ``dolfinx_external_operator_tpu/solvers.py`` (``_lu_ir``
 * ``snes_type="vinewtonrsls"`` with bounds (``set_variable_bounds``): the
   reduced-space active-set Newton of PETSc's SNESVINEWTONRSLS.  Without
   bounds it is plain Newton, which is how every reference demo runs it.
+
+Cell-sharded (forms compiled under ``parallel.set_default_device_mesh``),
+the assembled vectors, matrices and diagonals are whole and the same on
+every rank (``assembly``), so the dense path factorizes the same matrix on
+every rank and the Newton loop reads the same norms; the element tensors
+are the rank's, and each element-by-element matvec gathers its per-cell
+products whole (``CompiledForm._scatter_rows``).  The AMG hierarchy is
+built whole on every rank from the gathered element tensors, with the
+rank's level-0 maps and their sums through ``dist.psum`` (the fused
+step's ``parallel/mg.py`` hooks).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -241,14 +253,14 @@ class NewtonSolver:
         V = problem.J.test_space
         dm_V = V.unrolled_dofmap
         dom = None
-        for i, (_, tdofs, udofs) in enumerate(elems):
+        for i, ((_, tdofs, udofs), s) in enumerate(zip(elems, problem.J._statics())):
             if not torch.equal(tdofs, udofs):
                 raise NotImplementedError(
                     "pc_type='mg' needs test dofs == trial dofs (the "
                     "symmetric displacement-block case); this Jacobian's "
                     f"cell batch {i} maps different spaces — use "
                     "pc_type='jacobi'")
-            td = tdofs.cpu().numpy()
+            td = s["test_dofs_all"]  # every rank's cells of the batch
             if dom is None and td.shape == dm_V.shape and np.array_equal(td, dm_V):
                 dom = i
         if dom is None:
@@ -262,16 +274,29 @@ class NewtonSolver:
         for bc in problem.bcs:
             bc_only[bc.dofs] = True
         gmres = self.ksp_type == "gmres"
-        K_dom0 = elems[dom][0].cpu().numpy()
+        dmesh, psum = problem.J.device_mesh, None
+        K_dom0 = elems[dom][0]
+        if dmesh is not None:  # the hierarchy is built whole on every rank
+            from .parallel import dist, rank_rows
+
+            K_dom0 = dist.all_gather(K_dom0, dm_V.shape[0], dmesh.group)
+            psum = functools.partial(dist.psum, group=dmesh.group)
+        K_dom0 = K_dom0.cpu().numpy()
         if gmres:
             K_dom0 = 0.5 * (K_dom0 + np.swapaxes(K_dom0, 1, 2))
         mgs = mgmod.build_mg_statics(problem.J.mesh, V, bc_only, K_dom0,
                                      galerkin_levels=None if n <= 30_000 else 1)
+        if dmesh is not None:  # the level-0 maps of the rank's cells
+            rows = rank_rows(dm_V.shape[0], dmesh)[0]
+            t0 = dict(mgs["transfers"][0])
+            t0["W"], t0["blk_dst"] = np.asarray(t0["W"])[rows], np.asarray(t0["blk_dst"])[rows]
+            mgs["transfers"] = [t0] + list(mgs["transfers"][1:])
         dev = elems[dom][0].device
         return {"dom": dom, "gmres": gmres, "n": n,
-                "plan": mgmod.mg_plan(mgs, elems[dom][1].cpu().numpy(), bc_only, dev,
+                "plan": mgmod.mg_plan(mgs, elems[dom][1].cpu().numpy(), bc_only, dev, psum=psum,
                                       mv0_mode="scalar", cheb_degree=mgs["cheb_degree"]),
-                "ebe": [mgmod.ebe_plan(td.cpu().numpy(), bc_only, n, dev) for _, td, _ in elems]}
+                "ebe": [mgmod.ebe_plan(td.cpu().numpy(), bc_only, n, dev, psum=psum)
+                        for _, td, _ in elems]}
 
     def _mg_solve(self, problem, elems, mask, b, maxiter):
         """AMG-preconditioned Krylov on the element-blocked Jacobian
@@ -325,7 +350,12 @@ class NewtonSolver:
             z = mgmod.vcycle(plan, rt, torch.where(mask, 0.0, r.to(f32)))
             return torch.where(mask, r, z.to(r.dtype))
 
-        M = mgmod.cuda_graphed(M, torch.zeros_like(b if gmres else b.to(f32)))
+        # sharded, the cycle's level-0 matvec all-reduces: a graph holds an
+        # NCCL all-reduce, not gloo's, which stages through the host, so
+        # over gloo the cycle runs eager
+        dmesh = problem.J.device_mesh
+        if dmesh is None or dmesh.backend == "nccl":
+            M = mgmod.cuda_graphed(M, torch.zeros_like(b if gmres else b.to(f32)))
         if gmres:
             delta = krylov.gmres(mv, b, M=M, tol=self.ksp_rtol, atol=self.ksp_atol,
                                  maxiter=maxiter, restart=min(st["n"], 50))

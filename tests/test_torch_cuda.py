@@ -450,3 +450,56 @@ def test_cuda_icnn_graphed_call_matches_cpu(cuda):
         for a, e, h in ((dP, dP_e, dP_h), (P, P_e, P_h)):
             assert float((a - e).abs().max() / e.abs().max()) <= 1e-13
             assert float((a.cpu() - h).abs().max() / h.abs().max()) <= 1e-12
+
+
+def test_cuda_one_nccl_rank_general_slope_is_unsharded(cuda):
+    """The 8x8 slope through the general pipeline (``solve_slope_stability``,
+    K1 as the callback) with every form sharded over one NCCL rank: the
+    unsharded run's Newton list, K1 launches and u, bit for bit."""
+    from dolfinx_external_operator_torch.entry import general_slope_schedule
+    from dolfinx_external_operator_torch.models.mohr_coulomb import solve_slope_stability
+    from dolfinx_external_operator_torch.parallel import dist
+
+    loads = tuple(np.linspace(2, 20, 4))
+    (run,) = dist.spawn(general_slope_schedule, 1, "nccl", None, 8, loads)
+    mc_ops.mc_return_map.launches = 0
+    ref = solve_slope_stability(8, 8, loads, device=cuda)
+    assert run["newton"] == ref["iterations"] and run["launches"] == mc_ops.mc_return_map.launches
+    assert np.array_equal(run["u"], ref["u"].data.cpu().numpy())
+    assert run["gather_calls"] > 0 and run["points"] == [3 * 2 * 8 * 8]
+
+
+def _gather_rank(mesh, n):
+    """Rank function: ``dist.all_gather`` of this rank's block of a CUDA
+    tensor."""
+    from dolfinx_external_operator_torch.parallel import dist
+
+    x = torch.arange(n, dtype=torch.float64, device=mesh.device) + 100.0 * mesh.rank
+    whole = dist.all_gather(x.reshape(n, 1), 2 * n - 1, mesh.group)
+    return {"device": str(whole.device), "whole": whole.cpu().numpy().ravel()}
+
+
+def test_cuda_two_gloo_ranks_gather_and_general_slope(cuda):
+    """Two gloo ranks on one card: ``dist.all_gather`` of CUDA tensors
+    (gloo stages them through the host) gives the whole batch on the card,
+    and the 8x8 general slope sharded over them gives the unsharded run's
+    Newton list, u within 1e-10 relative, and each rank's K1 half the
+    points."""
+    from dolfinx_external_operator_torch.entry import general_slope_schedule
+    from dolfinx_external_operator_torch.models.mohr_coulomb import solve_slope_stability
+    from dolfinx_external_operator_torch.parallel import dist
+
+    n = 5
+    expect = np.concatenate([np.arange(n), np.arange(n) + 100.0])[:2 * n - 1]
+    for g in dist.spawn(_gather_rank, 2, "gloo", None, n):
+        assert g["device"] == "cuda:0" and np.array_equal(g["whole"], expect)
+
+    loads = tuple(np.linspace(2, 20, 4))
+    runs = dist.spawn(general_slope_schedule, 2, "gloo", None, 8, loads)
+    ref = solve_slope_stability(8, 8, loads, device=cuda)
+    u_ref = ref["u"].data.cpu().numpy()
+    for run in runs:
+        assert run["device"] == "cuda:0" and run["newton"] == ref["iterations"]
+        assert float(np.abs(run["u"] - u_ref).max()) <= 1e-10 * float(np.abs(u_ref).max())
+        assert run["points"] == [3 * 8 * 8] and run["launches"] == run["map_calls"]
+        assert np.array_equal(run["u"], runs[0]["u"])

@@ -103,11 +103,13 @@ def test_port_imports_no_jax():
     functions, the evaluator, expressions, assembly, external operators,
     the solvers with GMRES and BiCGStab, the petsc shim and the probes;
     the von Mises cylinder, the ICNN with its weights and the
-    hyperelasticity model), chip_smoke's module-level
+    hyperelasticity model; the general pipeline's sharding, the utilities
+    and the five demos), chip_smoke's module-level
     code, the card-only test file and the sharded tests' rank functions
     import no JAX."""
     code = ("import sys; import dolfinx_external_operator_torch, chip_smoke; "
-            "sys.path.insert(0, 'tests'); import test_torch_cuda, _torch_shard_worker; "
+            "sys.path.insert(0, 'tests'); import test_torch_cuda, _torch_shard_worker, "
+            "_torch_general_shard_worker; "
             "from dolfinx_external_operator_torch.parallel import bcr, dist, mg, scatter, spmd; "
             "from dolfinx_external_operator_torch import convert, entry, problems; "
             "from dolfinx_external_operator_torch.models import mohr_coulomb; "
@@ -117,7 +119,11 @@ def test_port_imports_no_jax():
             "expression, assembly, external_operator, solvers, petsc, krylov); "
             "from dolfinx_external_operator_torch.models import hyperelasticity, icnn, von_mises; "
             "icnn.load_isihara_weights(); "
-            "from dolfinx_external_operator_torch.utils import probes; "
+            "from dolfinx_external_operator_torch.utils import checkpoint, plots, probes, profiling, "
+            "taylor; from dolfinx_external_operator_torch import parallel; "
+            "sys.path.insert(0, 'demos_torch'); import _common, demo_simple_example, "
+            "demo_nonlinear_heat, demo_plasticity_von_mises, demo_plasticity_mohr_coulomb, "
+            "demo_hyperelasticity; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
             "'dolfinx_external_operator_tpu'))); print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=REPO)
