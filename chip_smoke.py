@@ -9,19 +9,28 @@ Phases, in order; any failed check exits non-zero without the ``ok`` line:
 2. build every hand-written kernel from ``dolfinx_external_operator_torch/
    csrc`` (one ``nvcc`` per source, all started together) and print each
    kernel function's registers and spills;
-3. each kernel against its plain PyTorch version on the card, on the
-   strain/stress mix of ``tests/test_pallas_ops.py`` at the main path's
-   shape and at 65,536 points, then timed with CUDA events: per call as the
-   main path calls it, and as device time inside a CUDA graph; beside it,
-   an empty kernel's time in a CUDA graph, the floor under any launch;
+3. the von Mises kernel K2 against its plain PyTorch version on the card,
+   on the strain/stress mix of ``tests/test_pallas_ops.py``: the f32 entry
+   at 3,750, 4,096 and 65,536 points, timed with CUDA events per call and
+   as device time inside a CUDA graph; the f64 entry (the fused step's
+   contract) at the same sizes, on the layout the block step hands it
+   (deps the transpose of a point-major array, sigma_n SoA), point-major
+   and SoA, bitwise equal to the route it replaced (pad to the 512 tile,
+   casts, the f32 entry, slices, casts), both routes timed in turns (old,
+   new, new, old) on the step's layout against the bound; beside them an
+   empty kernel's time in a CUDA graph, the floor under any launch;
 4. the von Mises path at full size: the fused load step on the 25x25 P2
    block (5,202 dofs, 3,750 Gauss points), loads (200, 400, 600), dense
    solver; (a) with the f64 plain return map, which must give the Newton
-   list [4, 5, 7], and (b) with the f32 CUDA kernel, which must converge on
-   every step, agree with (a) to 1e-3 and launch the kernel once per
-   constitutive evaluation; then the layers of one Newton pass timed one by
-   one, and the last load step under ``torch.profiler`` (trace in
-   ``trace_f32_step.json.gz``);
+   list [4, 5, 7], and (b) with K2 through ``batched_kernel_f32``, which
+   must give [3, 4, 6], agree with (a) to 1e-3 and launch the f64 entry
+   once per constitutive evaluation and the f32 entry never; at the last
+   load's first iterate, the K2 call's own inputs: the f64 entry bitwise
+   equal to the old route, against plain, both routes timed in turns (the
+   ``kernels`` line's K2 row), and the launches around one call, old route
+   and new, from a profiler trace; then the
+   layers of one Newton pass timed one by one, and the last load step under
+   ``torch.profiler`` (trace in ``trace_f32_step.json.gz``);
 5. the CG solver at 8x8 with the f64 return map: Newton list [1, 5, 7];
 6. the main path: the Mohr-Coulomb slope load step on the same 25x25 block
    over the 52-step schedule, dense solver, from the zero state, (a) with
@@ -31,12 +40,14 @@ Phases, in order; any failed check exits non-zero without the ``ok`` line:
    updates), the two final Du must agree to 1e-8, and the kernel must be
    launched once per Newton pass (updates + 52);
 7. the Mohr-Coulomb kernel against its plain version on the card, on the
-   strain mix of ``bench.py:77-83`` at 65,536 points and on the real
-   iterate of step 50's first Newton pass, then timed as in phase 3, and
-   each of its two passes' device time from the profiler's trace of 20
-   calls (``trace_mc_passes_*.json.gz``); the lanes that pass A
-   listed, and how far the iteration counts of the 4 points that a warp of
-   pass B takes at once spread;
+   real iterate of step 50's first Newton pass, on the strain mix of
+   ``bench.py:77-83`` at 65,536 points and on the same mix with every lane
+   sheared past yield (seed 6, a further 1.2e-2 of shear), then timed as
+   in phase 3, and each of its two passes' device time from the profiler's trace of 20 calls
+   (``trace_mc_passes_*.json.gz``); the lanes that pass A listed, and how
+   far the iteration counts of the 4 points that a warp of pass B takes at
+   once spread; the return map's MFU entry (``utils/roofline.py``) on the
+   65,536 bench-mix points;
 8. where a main-path step's time goes: the layers of step 50's first
    Newton pass, and step 51 (7 updates) under ``torch.profiler`` (trace in
    ``trace_mc_step.json.gz``);
@@ -62,7 +73,9 @@ Phases, in order; any failed check exits non-zero without the ``ok`` line:
    the f64 refinement matvec; cycle and matvec also from a CUDA graph);
    one update's solve beside the dense path's (CUDA events, in turns); step
    51 under the profiler (``trace_mg_step.json.gz``); the first 10
-   steps run again, Du bitwise equal;
+   steps run again, Du bitwise equal; the roofline entry of its level-0
+   DIA matvec (``utils/roofline.py::dia_roofline_from_fp``: one matvec per
+   dispatch, and a chain of them in one CUDA graph, against HBM);
 12. the same slope with ``linear_solver="elastic"`` (the lagged f32
    inverse as the preconditioner): 171 updates, 223 kernel calls, inner
    iterations, s/step;
@@ -70,8 +83,8 @@ Phases, in order; any failed check exits non-zero without the ``ok`` line:
    the protocol of ``docs/records/scaling_100x100_full_tpu.json``, over its
    first ``MG_100_STEPS`` loads: that record's Newton counts, the host
    build's time, inner iterations per update beside the record's, peak
-   memory, one solve beside a BCR solve of the same system (in turns), and
-   the layers of that update;
+   memory, one solve beside a BCR solve of the same system (in turns), the
+   layers of that update, and the roofline entry of its level-0 DIA matvec;
 14. cell sharding, world size 1 over NCCL (``parallel.dist.spawn``, one
    process): the first 10 steps of phase 11's program through the sharded
    code, bitwise equal to phase 11 in Du, sigma, the Newton list and the
@@ -140,8 +153,10 @@ Phases, in order; any failed check exits non-zero without the ``ok`` line:
    displacements within 1e-12 relative), Mohr-Coulomb ``--small`` and
    hyperelasticity ``--small``; each holds its own asserts.
 
-The line before the last is a JSON object ``{"kernels": [...]}``; the last
-is ``{"ok": true, "device": {...}}``.  A copy of all measurements goes to
+Peaks, bounds and work counts come from
+``dolfinx_external_operator_torch/utils/roofline.py``.  The line before the
+card's line is a JSON object ``{"kernels": [...]}``; the last is ``{"ok":
+true, "device": {...}}``.  A copy of all measurements goes to
 ``chiprun_out/chip_smoke.json``.  Exits non-zero, printing no result, when
 no CUDA device is present.  The profiler traces (``trace_*.json.gz``) go
 beside the measurements.  Before it exits, it stops every process it
@@ -162,6 +177,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 import dolfinx_external_operator_torch as pt
 from dolfinx_external_operator_torch._native import cuda as native
@@ -174,36 +190,14 @@ from dolfinx_external_operator_torch.entry import (
     slope_schedule,
 )
 from dolfinx_external_operator_torch.parallel import bcr, dist, mg
+from dolfinx_external_operator_torch.utils import roofline
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, f32 and f64
-# outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
-F64_FLOPS_PER_S = 34e12
-# f32 operations of the von Mises body per point (csrc/vonmises.cuh):
-# predictor 16, deviator 6, sigma_eq 9, yield and dp 6, beta/scale/n 8,
-# stress 8, coef 5, tangent 16 x 5
-VM_FLOPS_PER_POINT = 138
-# Operations of the Mohr-Coulomb algorithm (csrc/mohr_coulomb.cuh), counted
-# by hand on one point's work done once (what a tile of the kernel repeats
-# on several threads, the 5x5 solve and the Dual values, is not counted),
-# one per add, multiply, divide, square root or trig call: terms()
-# 131 (value and gradient); on Dual numbers 5x that (a value and four
-# tangents); residual = terms + 44; Jacobian = Dual terms + 170 (C Hg,
-# C grad g); 5x5 solve 125 with one right-hand side, 260 with four.  A
-# Newton iteration with 6 candidates: 825 + 125 + 5 + 6 x 195 = 2,125.  Per
-# point, besides its iterations: 190 f32 (start of the f32 phase) and
-# 1,590 f64 (trial yield 194, start of the polish 206, tangent 1,190).
-# Every iteration is counted at the f32 cost and rate, so the bound is a
-# lower bound (a polish iteration costs more, at half the rate).
-MC_ITER_OPS = 2125
-MC_FIXED_F32_OPS = 190
-MC_FIXED_F64_OPS = 1590
 # kernel vs plain on the card: the f64 polish stops once |r| <= 1e-8 of the
 # lane's scale, so a lane whose last step lands on the other side of that
-# threshold in the two versions (different f32 trig and FMA contraction)
-# differs by up to about 1e-8 in sigma, more in the tangent; a few lanes
-# in a thousand may then differ in their iteration count
+# threshold in the two versions (the plain map's derivative rules are
+# torch's, the kernel's JAX's) differs by up to about 1e-8 in sigma, more
+# in the tangent; a few lanes in a thousand may then differ in their
+# iteration count
 MC_TOL = {"C": 1e-6, "sig": 1e-7}
 RECORDS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs", "records")
 RECORD = os.path.join(RECORDS, "scaling_25x25_full_tpu_bcr_schedule.json")
@@ -311,19 +305,11 @@ def stop_children():
             time.sleep(0.05)
 
 
-def card_line():
-    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    check(res.returncode == 0 and res.stdout.strip(), f"nvidia-smi failed: {res.stderr}")
-    return res.stdout.strip().splitlines()[0]
-
-
 def build_kernels():
     """Build every kernel source concurrently; returns the wall seconds."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(native.KERNELS)) as ex:
-        futures = {name: ex.submit(native.cuda_function, name) for name in native.KERNELS}
-        for fut in futures.values():
+        for fut in [ex.submit(native.cuda_function, name) for name in native.KERNELS]:
             fut.result()
     return time.perf_counter() - t0
 
@@ -365,13 +351,20 @@ def empty_graph_ms(reps=200):
     return graph_time_ms(run, reps)
 
 
-def vm_inputs(n, seed=3):
-    """The strain/stress mix of tests/test_pallas_ops.py:25-30."""
+def vm_mix(n, seed=3):
+    """The strain/stress mix of tests/test_pallas_ops.py:25-30, point-major
+    f64 numpy arrays: deps, sig_n (n, 4), p (n,)."""
     rng = np.random.default_rng(seed)
     deps = rng.normal(scale=2e-3, size=(n, 4))
     deps[: n // 2, 3] += 6e-3  # plastic half
     sig_n = rng.normal(scale=20.0, size=(n, 4))
     p = np.abs(rng.normal(scale=1e-3, size=n))
+    return deps, sig_n, p
+
+
+def vm_inputs(n, seed=3):
+    """The mix as the f32 entry takes it: SoA f32 on the card."""
+    deps, sig_n, p = vm_mix(n, seed)
     dev = torch.device("cuda")
     return (torch.tensor(deps.T.copy(), dtype=torch.float32, device=dev),
             torch.tensor(sig_n.T.copy(), dtype=torch.float32, device=dev),
@@ -439,14 +432,132 @@ def kernel_phase(n):
     call_ms = cuda_time_ms(lambda: vm_ops.vonmises_return_map(*args), 500)
     ms = graph_time_ms(lambda: vm_ops.vonmises_return_map(*args), 200)
     plain_ms = cuda_time_ms(lambda: vm_ops.vonmises_return_map_reference(*args), 100)
-    bytes_moved = vm_ops.BYTES_PER_POINT * n
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = VM_FLOPS_PER_POINT * n / F32_FLOPS_PER_S * 1e3
+    bound_ms, bound_by = roofline.vm_bound(n)
     return {"n": n, "max_rel_err": max(err_C, err_s), "max_abs_err": abs_err,
             "rel_err_C": err_C, "rel_err_sig": err_s, "abs_err_dp": err_dp,
             "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def old_vm_route(deps, sn, tile=512):
+    """``batched_kernel_f32`` before K2 took f64 (the JAX wrapper's habits):
+    pad to the 512-lane tile, cast to f32, a zero p, the f32 entry, slice
+    and cast back.  The yardstick of the f64 entry, bit for bit."""
+    n = deps.shape[1]
+    pad = -n % tile
+    d32 = F.pad(deps.to(torch.float32), (0, pad)).contiguous()
+    s32 = F.pad(sn.to(torch.float32), (0, pad)).contiguous()
+    p32 = torch.zeros(n + pad, dtype=torch.float32, device=deps.device)
+    C, sig, _ = vm_ops.vonmises_return_map(d32, s32, p32, vm.PARAMS)
+    return C[:, :n].reshape(4, 4, n).to(deps.dtype), sig[:, :n].to(deps.dtype)
+
+
+def new_vm_route(deps, sn):
+    """``batched_kernel_f32`` now: the f64 entry, one launch."""
+    C, sig, _ = vm_ops.vonmises_return_map_f64(deps, sn, None, vm.PARAMS)
+    return C.view(4, 4, -1), sig
+
+
+def vm_f64_check(d, s, label):
+    """K2's f64 entry on (d, s): bitwise equal to the old route, finite,
+    and within KERNEL_TOL of its plain version."""
+    n = d.shape[1]
+    C, sig = new_vm_route(d, s)
+    C_o, sig_o = old_vm_route(d, s)
+    C_r, sig_r, _ = vm_ops.vonmises_return_map_f64_reference(d, s, None, vm.PARAMS)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(C).all() and torch.isfinite(sig).all()),
+          f"f64 entry not finite ({label})")
+    check(torch.equal(C, C_o) and torch.equal(sig, sig_o),
+          f"f64 entry differs from the old route ({label})")
+    C_r = C_r.view(4, 4, n)
+    err_C = float((C - C_r).abs().max() / C_r.abs().max())
+    err_s = float((sig - sig_r).abs().max() / max(float(sig_r.abs().max()), 1.0))
+    check(err_C < KERNEL_TOL["C"] and err_s < KERNEL_TOL["sig"],
+          f"f64 entry differs from plain by {err_C:.3e}, {err_s:.3e} ({label})")
+    return {"strides": [list(d.stride()), list(s.stride())], "bitwise_old_route": True,
+            "rel_err_C": err_C, "rel_err_sig": err_s,
+            "max_abs_err": max(float((C - C_r).abs().max()), float((sig - sig_r).abs().max()))}
+
+
+def vm_f64_times(d, s, floor_ms):
+    """Both routes on (d, s) timed in turns (old, new, new, old) in a CUDA
+    graph, each per call on the card's clock, the plain version, and the
+    bound of the f64 entry's bytes."""
+    n = d.shape[1]
+    turns = []
+    for who in ("old", "new", "new", "old"):
+        fn = old_vm_route if who == "old" else new_vm_route
+        turns.append([who, graph_time_ms(lambda fn=fn: fn(d, s), 200)])
+    ms = (turns[1][1] + turns[2][1]) / 2
+    bound_ms, bound_by = roofline.vm_bound(n, roofline.VM_F64_BYTES_PER_POINT)
+    return {"graph_ms_in_turns": turns, "ms": ms,
+            "old_route_ms": (turns[0][1] + turns[3][1]) / 2, "above_floor_ms": ms - floor_ms,
+            "call_ms": cuda_time_ms(lambda: new_vm_route(d, s), 500),
+            "old_call_ms": cuda_time_ms(lambda: old_vm_route(d, s), 500),
+            "plain_ms": cuda_time_ms(
+                lambda: vm_ops.vonmises_return_map_f64_reference(d, s, None, vm.PARAMS), 100),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def vm_times_line(s):
+    """What ``vm_f64_times`` measured, as one line."""
+    return (f"in a graph, in turns (us): "
+            + ", ".join(f"{w} {t * 1e3:.2f}" for w, t in s["graph_ms_in_turns"])
+            + f"; new {s['ms'] * 1e3:.2f} us, {s['above_floor_ms'] * 1e3:.2f} above the floor, "
+            f"bound {s['bound_ms'] * 1e3:.3f} us ({s['bound_ms'] / s['ms']:.1%}); a call "
+            f"{s['call_ms'] * 1e3:.2f} us (old route {s['old_call_ms'] * 1e3:.2f}), plain "
+            f"{s['plain_ms'] * 1e3:.2f} us")
+
+
+def vm_f64_phase(n, floor_ms):
+    """K2's f64 entry on the mix in f64 at ``n`` points, on the layout the
+    block step hands it (deps the transpose of a point-major array, strides
+    (1, 4); sigma_n SoA), point-major and SoA: each checked by
+    ``vm_f64_check``; both routes timed on the step's layout."""
+    deps, sig_n, _ = vm_mix(n)
+    dev = torch.device("cuda")
+    pm = [torch.tensor(a, device=dev).T for a in (deps, sig_n)]
+    soa = [torch.tensor(a.T.copy(), device=dev) for a in (deps, sig_n)]
+    layouts = {"step": [pm[0], soa[1]], "point_major": pm, "soa": soa}
+    res = {"n": n}
+    for name, (d, s) in layouts.items():
+        res[name] = vm_f64_check(d, s, f"n={n}, {name}")
+    res.update(vm_f64_times(*layouts["step"], floor_ms))
+    res["max_abs_err"] = max(res[k]["max_abs_err"] for k in layouts)
+    return res
+
+
+def vm_call_launches(fp, Du, sig_n, floor_ms, reps=20):
+    """K2's call of the fused step at the iterate (Du, sig_n), on the
+    call's own inputs: the f64 entry checked (``vm_f64_check``) and both
+    routes timed (``vm_f64_times``), then the launches around one call, old
+    route and new, from a profiler trace of ``reps`` calls: device events
+    (kernels, copies, fills) and the host's launch calls, per call."""
+    seen = []
+    inner = fp._vkernel
+
+    def record(deps, sn):
+        seen.append((deps, sn))
+        return inner(deps, sn)
+
+    fp._vkernel = record
+    try:
+        fp._constitutive(Du, sig_n)
+    finally:
+        fp._vkernel = inner
+    d, s = seen[0]
+    out = {"n": d.shape[1], **vm_f64_check(d, s, "the block step's K2 call"),
+           **vm_f64_times(d, s, floor_ms)}
+    for who, fn in (("old", old_vm_route), ("new", new_vm_route)):
+        fn(d, s)
+        _, by_name, events, launches = traced(
+            lambda fn=fn: [fn(d, s) for _ in range(reps)],
+            os.path.join(OUT_DIR, f"trace_vm_call_{who}.json"))
+        out[who] = {"device_events_per_call": events / reps,
+                    "host_launches_per_call": launches / reps,
+                    "kernels": sorted(by_name)}
+    return out
 
 
 def warm_up(fp, load):
@@ -566,18 +677,6 @@ def pass_times_ms(fn, path, reps=20):
     return times
 
 
-def mc_bound(niter):
-    """(bound_ms, bound_by) of the Mohr-Coulomb kernel on inputs whose
-    lanes take ``niter`` Newton iterations: bytes read and written once
-    over HBM, or the operations these lanes need over the f32 and f64
-    peaks, whichever is larger."""
-    n = niter.numel()
-    t_bytes = mc_ops.BYTES_PER_POINT * n / HBM_BYTES_PER_S * 1e3
-    f32_ops = MC_FIXED_F32_OPS * n + MC_ITER_OPS * int(niter.sum())
-    t_ops = (f32_ops / F32_FLOPS_PER_S + MC_FIXED_F64_OPS * n / F64_FLOPS_PER_S) * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
 def tile_spread(it_k, work, listed):
     """How the listed lanes' iteration counts spread over the groups of 4
     list entries that one warp of pass B takes at once: the histogram of
@@ -589,6 +688,14 @@ def tile_spread(it_k, work, listed):
     return {"niter_hist": torch.bincount(it).tolist() if listed else [],
             "warp_groups": groups.shape[0],
             "lockstep_share": int(it.sum()) / lockstep if lockstep else None}
+
+
+def mc_gaps(C_k, s_k, it_k, C_p, s_p, it_p):
+    """Per-lane gaps of a K1 result to the plain map's, relative to the
+    plain map's largest entry: (C gaps, sigma gaps, lanes whose niter
+    differs)."""
+    return ((C_k - C_p).abs().amax(0) / C_p.abs().max(),
+            (s_k - s_p).abs().amax(0) / s_p.abs().max(), int((it_k != it_p).sum()))
 
 
 def mc_kernel_phase(mat, deps, sn, label):
@@ -603,9 +710,7 @@ def mc_kernel_phase(mat, deps, sn, label):
     torch.cuda.synchronize()
     for name, t in (("C", C_k), ("sig", s_k)):
         check(bool(torch.isfinite(t).all()), f"mohr_coulomb kernel {name} not finite ({label})")
-    gap_C = (C_k - C_p).abs().amax(0) / C_p.abs().max()
-    gap_s = (s_k - s_p).abs().amax(0) / s_p.abs().max()
-    niter_diff = int((it_k != it_p).sum())
+    gap_C, gap_s, niter_diff = mc_gaps(C_k, s_k, it_k, C_p, s_p, it_p)
     abs_err = max(float((C_k - C_p).abs().max()), float((s_k - s_p).abs().max()))
     err_C, err_s = float(gap_C.max()), float(gap_s.max())
     check(err_C < MC_TOL["C"], f"mohr_coulomb kernel C differs from plain by {err_C:.3e} ({label})")
@@ -629,7 +734,7 @@ def mc_kernel_phase(mat, deps, sn, label):
         lambda: mc_ops.mc_return_map(deps, sn, mat),
         os.path.join(OUT_DIR, f"trace_mc_passes_{label.replace(' ', '_')}.json"))
     plain_ms = cuda_time_ms(lambda: mat.tangent_stress(deps, sn), 2, warmup=1)
-    bound_ms, bound_by = mc_bound(it_k)
+    bound_ms, bound_by = roofline.mc_bound(it_k)
     res = {"label": label, "n": n, "rel_err_C": err_C, "rel_err_sig": err_s,
            "lanes_C_above_1e-10": int((gap_C > 1e-10).sum()),
            "lanes_sig_above_1e-10": int((gap_s > 1e-10).sum()),
@@ -639,17 +744,20 @@ def mc_kernel_phase(mat, deps, sn, label):
            **tile_spread(it_k, work, listed),
            "max_abs_err": abs_err, "ms": ms, "call_ms": call_ms, "pass_a_ms": pass_a_ms,
            "pass_b_ms": pass_b_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by}
+           "bound_by": bound_by,
+           "flops_per_pt": roofline.return_map_flops_per_pt(mat, deps, sn, niter=it_p)}
     return res
 
 
-def bench_mix(n, seed=0):
+def bench_mix(n, seed=0, shear=0.0):
     """bench.py:77-83: compressive normal strains, half the points sheared
-    past yield, zero initial stress; SoA f64 on the card."""
+    past yield, zero initial stress; every point sheared by a further
+    ``shear``; SoA f64 on the card."""
     rng = np.random.default_rng(seed)
     deps = rng.normal(scale=1e-3, size=(n, 4))
     deps[:, :3] -= 1.5e-3
     deps[: n // 2, 3] += 6e-3
+    deps[:, 3] += shear
     d = torch.tensor(deps.T.copy(), dtype=torch.float64, device="cuda")
     return d, torch.zeros_like(d)
 
@@ -733,32 +841,6 @@ def mc_main_path(report):
                          "wall_kernel_s": wall_k, "wall_plain_s": wall_p,
                          "du_rel_err": du_err}
     return fp_k, states, launches
-
-
-def bcr_counts(m, B):
-    """Operations, bytes and blocks of one BCR factorization and one apply
-    as the port runs them (parallel/bcr.py).  Per level of ``no`` odd and
-    ``ne`` even blocks: each odd block a Cholesky (B^3/3), the inverse
-    from it (2B^3/3), V L and V U (2B^3 each); each even block six (B, B)
-    products (A, C, the two of the D update, the new L and U); the root's
-    inversion.  The factorization reads the bands once (3mB^2) and writes
-    A and C (ne each), V, VL and VU (no each) and the root once; the apply
-    reads each of those once and does one (B, B) matvec with each."""
-    bands, ops, blocks = 3 * m, 0, 0
-    while m > 1:
-        no, ne = m // 2, m - m // 2
-        ops += (5 * no + 12 * ne) * B ** 3
-        blocks += 2 * ne + 3 * no
-        m = ne
-    ops += B ** 3
-    blocks += 1
-    return {"factor_ops": ops, "factor_bytes": 4 * B * B * (bands + blocks),
-            "apply_ops": 2 * B * B * blocks, "apply_bytes": 4 * B * B * blocks}
-
-
-def bound(ops, nbytes, flops_per_s=F32_FLOPS_PER_S):
-    t_ops, t_bytes = ops / flops_per_s * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def bcr_25x25_phase(report, fp_dense, state):
@@ -853,10 +935,10 @@ def bcr_100x100_phase(report, mat):
 
     Du, sig = states[47]
     load = loads[47]
-    counts = bcr_counts(m, B)
+    counts = roofline.bcr_counts(m, B)
     layers = bcr_layers(fp, Du, sig, load)
-    f_bound, f_by = bound(counts["factor_ops"], counts["factor_bytes"])
-    a_bound, a_by = bound(counts["apply_ops"], counts["apply_bytes"])
+    f_bound, f_by = roofline.bound(counts["factor_ops"], counts["factor_bytes"])
+    a_bound, a_by = roofline.bound(counts["apply_ops"], counts["apply_bytes"])
     out.update(layers=layers, counts=counts, factor_bound_ms=f_bound, factor_bound_by=f_by,
                apply_bound_ms=a_bound, apply_bound_by=a_by)
     print("100x100 layers, step 48 (ms, CUDA events): "
@@ -884,44 +966,6 @@ def bcr_100x100_phase(report, mat):
     return launches
 
 
-def mg_counts(plan, gamma, nc, nk):
-    """Bytes and operations of ``mg_setup`` and of one cycle as the port
-    runs them (banded level 0).  Each level's operator has ``nnz`` values:
-    bands x rows (banded), n^2 (dense), rows x ELL width.  A cycle applies
-    the level-0 operator 6 times (2 pre-smoothing, the residual, 3
-    post-smoothing), each level k below it 6 times per visit plus
-    gamma_k - 1 residuals on level k + 1, and the coarse inverse once per
-    visit of the coarsest level (visits multiply by gamma_k level by
-    level); it reads each level's values and the coarse inverse once, r in
-    and z out.  Setup reads the (nc, nk, nk) element blocks, writes every
-    level's values (ELL, bands, dense) and the coarse inverse, and does the
-    per-cell triple product (nk x nk1 by nk x nk), 8 power iterations per
-    level and the (nL, nL) inverse; f32 throughout."""
-    levels = plan["levels"]
-    L = len(levels)
-    gammas = (gamma,) if isinstance(gamma, int) else tuple(gamma)
-
-    def nnz(lvl):
-        return {"dia": lvl.get("dia", {}).get("nb", 0) * lvl["n"], "dense": lvl["n"] ** 2,
-                "ell": lvl["n"] * lvl["cols"].shape[1]}[lvl["kind"]]
-
-    nnz0 = plan["dia0"]["nb"] * plan["n0"]
-    nL = levels[-1]["n"]
-    ops, visits = 6 * nnz0, 1
-    for k in range(1, L):
-        g = gammas[min(k - 1, len(gammas) - 1)]
-        ops += visits * (6 * nnz(levels[k - 1]) + (g - 1) * nnz(levels[k]))
-        visits *= g
-    ops = 2 * (ops + visits * nL * nL)
-    values = nnz0 + sum(nnz(lvl) for lvl in levels) + nL * nL
-    ell = sum(lvl["n"] * lvl["cols"].shape[1] for lvl in levels)
-    nk1 = plan["transfers"][0]["W"].shape[2]
-    setup_ops = (2 * nc * nk * nk1 * (nk + nk1) + 8 * 2 * (nnz0 + sum(nnz(lvl) for lvl in levels))
-                 + 2 * nL ** 3)
-    return {"cycle_ops": ops, "cycle_bytes": 4 * (values + 2 * plan["n0"]),
-            "setup_ops": setup_ops, "setup_bytes": 4 * (nc * nk * nk + values + ell)}
-
-
 def mg_layers(fp, Du, sig_n, load):
     """Where one AMG-CG update's time goes at the iterate (Du, sig_n): CUDA
     events around the eager calls (``mg_setup``, one cycle, the f32
@@ -929,7 +973,7 @@ def mg_layers(fp, Du, sig_n, load):
     level-0 matvec replayed from a CUDA graph (device time without the
     host's launches); one ``mg.cuda_graphed`` call on the host's clock (its
     eager warm-up cycle and the capture, as every mg solve makes them); one
-    whole solve and its inner iterations; bounds from ``mg_counts``, and for the level-0
+    whole solve and its inner iterations; bounds from ``roofline.mg_counts``, and for the level-0
     matvec its bands and x read once, its result written once, or its
     multiply-adds at the f32 peak."""
     plan = fp._mg
@@ -942,10 +986,10 @@ def mg_layers(fp, Du, sig_n, load):
         r = torch.where(plan["mask0_lat"], 0.0, r[plan["perm0_l2o"]])
     mv64 = mg.ebe_matvec(K_cell, plan["ebe"])
     n, nb = fp.n_dofs, plan["dia0"]["nb"]
-    counts = mg_counts(plan, fp._mg_gamma, *K32.shape[:2])
-    bounds = {"mv0": bound(2 * nb * n, 4 * n * (nb + 2)),
-              "vcycle": bound(counts["cycle_ops"], counts["cycle_bytes"]),
-              "mg_setup": bound(counts["setup_ops"], counts["setup_bytes"])}
+    counts = roofline.mg_counts(plan, fp._mg_gamma, *K32.shape[:2])
+    bounds = {"mv0": roofline.bound(2 * nb * n, 4 * n * (nb + 2)),
+              "vcycle": roofline.bound(counts["cycle_ops"], counts["cycle_bytes"]),
+              "mg_setup": roofline.bound(counts["setup_ops"], counts["setup_bytes"])}
 
     def cycle():
         return mg.vcycle(plan, rt, r, gamma_coarse=fp._mg_gamma)
@@ -971,6 +1015,19 @@ def mg_layers(fp, Du, sig_n, load):
     for name, (ms, by) in bounds.items():
         out[f"{name}_bound_ms"], out[f"{name}_bound_by"] = ms, by
     return out
+
+
+def dia_roofline(fp, label):
+    """The roofline entry of the step's level-0 DIA matvec
+    (``roofline.dia_roofline_from_fp``), printed."""
+    e = roofline.dia_roofline_from_fp(fp)
+    check("error" not in e, f"{label}: {e.get('error')}")
+    print(f"{label} level-0 DIA matvec roofline ({e['card']}): {e['n_rows']} rows, {e['n_bands']} "
+          f"bands, {e['bytes_per_matvec']} B; one per dispatch {e['single_dispatch_ms'] * 1e3:.2f} "
+          f"us, chained in a CUDA graph {e['chained_per_matvec_us']:.3f} us a matvec against "
+          f"{e['bound_us']:.3f} us (bytes), {e['achieved_gbps_chained']:.1f} GB/s = "
+          f"{e['pct_hbm_peak_chained']:.1f}% of HBM", flush=True)
+    return e
 
 
 def print_mg_layers(title, layers):
@@ -1022,6 +1079,7 @@ def mg_25x25_phase(report, fp_dense, state):
     layers = mg_layers(fp, Du, sig, loads[49])
     out["layers"] = layers
     print_mg_layers("25x25 mg layers, step 50", layers)
+    out["dia_roofline"] = dia_roofline(fp, "25x25 mg")
     C_tang, b = newton_rhs(fp_dense, *state, loads[49])
     _, k = fp._mg_solve(C_tang, b, fp.cg_rtol)
     times = {"dense_ms": [], "mg_ms": []}
@@ -1080,7 +1138,7 @@ def elastic_25x25_phase(report):
     # n^3 / 3 each); it reads the f32 element blocks and writes the inverse
     C_tang, _ = fp._constitutive(*states[49])
     n, (nc, nk) = fp.n_dofs, fp.statics["dofmap"].shape
-    refresh_bound, refresh_by = bound(n ** 3, 4 * (nc * nk * nk + n * n + n))
+    refresh_bound, refresh_by = roofline.bound(n ** 3, 4 * (nc * nk * nk + n * n + n))
     refresh_ms = cuda_time_ms(lambda: fp._refresh_elastic(C_tang), 5, warmup=1)
     print(f"  end-of-step refresh at step 50: {refresh_ms:.3f} ms against {refresh_bound:.4g} ms "
           f"({refresh_by})", flush=True)
@@ -1150,6 +1208,7 @@ def mg_100x100_phase(report, steps=MG_100_STEPS):
     layers = mg_layers(fp, *state, loads[-1])
     out["layers"] = layers
     print_mg_layers(f"100x100 mg layers, step {steps}", layers)
+    out["dia_roofline"] = dia_roofline(fp, "100x100 mg")
     return launches
 
 
@@ -1286,9 +1345,9 @@ def general_layers(run, step, loads):
         "constitutive_update_ms": host_time_ms(run["constitutive_update"]),
         "F_vector_ms": host_time_ms(problem.F.vector),
         "J_matrix_ms": host_time_ms(problem.J.matrix),
-        "J_matrix_bound_ms": n * n * 8 / HBM_BYTES_PER_S * 1e3,
+        "J_matrix_bound_ms": n * n * 8 / roofline.H100_HBM_BYTES_PER_S * 1e3,
         "lu_factor_ms": host_time_ms(lambda: lu_factor32(A)),
-        "lu_factor_bound_ms": 2.0 / 3.0 * n**3 / F32_FLOPS_PER_S * 1e3,
+        "lu_factor_bound_ms": 2.0 / 3.0 * n**3 / roofline.H100_F32_FLOPS_PER_S * 1e3,
         "refine_4_rounds_ms": host_time_ms(lambda: lu_refine(factors, b, 4)),
         "solve_rel_residual": rel,
     }
@@ -1834,7 +1893,7 @@ def main():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     report = {}
-    card = card_line()
+    card = roofline.card_line()
     print(card, flush=True)
     report["card"] = card
 
@@ -1850,18 +1909,27 @@ def main():
                   f"stores, {u.get('spill_loads')} B spill loads, {u.get('stack')} B stack",
                   flush=True)
 
-    n_main = 3750 + (-3750 % 512)  # the main path's 3,750 points padded to the tile
-    shapes = [kernel_phase(n) for n in (3750, n_main, 65536)]
+    # phase 3: K2's two entries; 4,096 is the 3,750 points padded to the
+    # 512 tile, as the old route called the f32 entry
+    n_pad = 3750 + (-3750 % 512)
+    shapes = [kernel_phase(n) for n in (3750, n_pad, 65536)]
     for s in shapes:
-        print(f"vonmises n={s['n']}: rel err {s['max_rel_err']:.2e}, dp err "
+        print(f"vonmises f32 entry n={s['n']}: rel err {s['max_rel_err']:.2e}, dp err "
               f"{s['abs_err_dp']:.2e}, kernel {s['ms'] * 1e3:.2f} us in a graph, "
-              f"{s['call_ms'] * 1e3:.2f} us a call, plain "
-              f"{s['plain_ms'] * 1e3:.2f} us, bound {s['bound_ms'] * 1e3:.3f} us", flush=True)
+              f"{s['call_ms'] * 1e3:.2f} us a call, plain {s['plain_ms'] * 1e3:.2f} us, "
+              f"bound {s['bound_ms'] * 1e3:.3f} us ({s['bound_ms'] / s['ms']:.1%})", flush=True)
     report["vonmises_shapes"] = shapes
     floor_ms = empty_graph_ms()
-    print(f"empty kernel in a graph: {floor_ms * 1e3:.2f} us (von Mises kernel at n={n_main}: "
+    print(f"empty kernel in a graph: {floor_ms * 1e3:.2f} us (von Mises f32 entry at n={n_pad}: "
           f"{shapes[1]['ms'] * 1e3:.2f} us)", flush=True)
     report["empty_graph_ms"] = floor_ms
+    f64_shapes = [vm_f64_phase(n, floor_ms) for n in (3750, n_pad, 65536)]
+    for s in f64_shapes:
+        print(f"vonmises f64 entry n={s['n']}: bitwise equal to the old route (the step's "
+              f"layout, point-major, SoA), rel err to plain C {s['step']['rel_err_C']:.2e}, "
+              f"sigma {s['step']['rel_err_sig']:.2e}; "
+              + vm_times_line(s), flush=True)
+    report["vonmises_f64_shapes"] = f64_shapes
 
     # phase 4: the main path; counts start at 0 here and are read after it
     fp64 = pt.von_mises_block_step(25, 25, "f64", linear_solver="dense")
@@ -1870,15 +1938,17 @@ def main():
     warm_up(fp64, MAIN_LOADS[0])
     warm_up(fp32, MAIN_LOADS[0])
     vm_ops.vonmises_return_map.launches = 0
+    vm_ops.vonmises_return_map_f64.launches = 0
     Du64, its64, _, wall64, _ = run_loads(fp64, MAIN_LOADS)
-    check(vm_ops.vonmises_return_map.launches == 0, "f64 path launched the f32 kernel")
+    check(vm_ops.vonmises_return_map_f64.launches == 0, "f64 path launched K2")
     Du32, its32, _, wall32, _ = run_loads(fp32, MAIN_LOADS)
-    launches = vm_ops.vonmises_return_map.launches
+    launches = vm_ops.vonmises_return_map_f64.launches
+    check(vm_ops.vonmises_return_map.launches == 0, "the K2 path launched the f32 entry")
     print(f"25x25 dense f64: newton {its64}, s/step {[round(w, 4) for w in wall64]}", flush=True)
     print(f"25x25 dense f32 kernel: newton {its32}, s/step {[round(w, 4) for w in wall32]}, "
           f"launches {launches}", flush=True)
     check(its64 == [4, 5, 7], f"f64 Newton list {its64} != [4, 5, 7]")
-    check(all(i < fp32.newton_max_it for i in its32), f"f32 path hit newton_max_it: {its32}")
+    check(its32 == [3, 4, 6], f"f32 Newton list {its32} != [3, 4, 6]")
     du_err = float((Du32 - Du64).abs().max() / Du64.abs().max())
     check(du_err < 1e-3, f"f32 Du differs from f64 by {du_err:.3e}")
     # one constitutive evaluation per Newton pass, and each step ends on a
@@ -1897,6 +1967,15 @@ def main():
               + ", ".join(f"{k[:-3]} {v:.3f}" for k, v in layers[name].items()), flush=True)
     report["layers"] = layers
     os.makedirs(OUT_DIR, exist_ok=True)
+    vm_call = vm_call_launches(fp32, Du, sig, floor_ms)
+    print(f"one K2 call of the block step (n={vm_call['n']}, strides {vm_call['strides']}): "
+          f"bitwise equal to the old route, rel err to plain C {vm_call['rel_err_C']:.2e}, "
+          f"sigma {vm_call['rel_err_sig']:.2e}; " + vm_times_line(vm_call), flush=True)
+    print(f"  from a trace: old route {vm_call['old']['device_events_per_call']:.0f} device "
+          f"events and {vm_call['old']['host_launches_per_call']:.0f} host launch calls a "
+          f"call, new {vm_call['new']['device_events_per_call']:.0f} and "
+          f"{vm_call['new']['host_launches_per_call']:.0f}", flush=True)
+    report["vonmises_call_launches"] = vm_call
     prof = profile_step(fp32, Du, sig, MAIN_LOADS[-1],
                         os.path.join(OUT_DIR, "trace_f32_step.json"))
     print(f"25x25 f32 load {MAIN_LOADS[-1]:.0f} under the profiler: wall "
@@ -1919,7 +1998,10 @@ def main():
     mat = pt.MohrCoulombMaterial()
     fp_k, states, mc_launches = mc_main_path(report)
     mc_shapes = [mc_kernel_phase(mat, *kernel_inputs(fp_k, *states[49]), "step 50 iterate"),
-                 mc_kernel_phase(mat, *bench_mix(65536), "bench mix")]
+                 mc_kernel_phase(mat, *bench_mix(65536), "bench mix"),
+                 mc_kernel_phase(mat, *bench_mix(65536, seed=6, shear=1.2e-2), "all plastic")]
+    check(mc_shapes[2]["plastic_lanes"] == 65536,
+          f"all-plastic input: {mc_shapes[2]['plastic_lanes']} of 65536 lanes plastic")
     for s in mc_shapes:
         print(f"mohr_coulomb {s['label']} n={s['n']}: rel err C {s['rel_err_C']:.2e} "
               f"({s['lanes_C_above_1e-10']} lanes > 1e-10), sigma {s['rel_err_sig']:.2e}, "
@@ -1933,6 +2015,16 @@ def main():
         print(f"  niter of the listed lanes {s['niter_hist']}, {s['warp_groups']} warp groups, "
               f"lockstep share {s['lockstep_share']}", flush=True)
     report["mc_shapes"] = mc_shapes
+    mix = mc_shapes[1]
+    mfu = roofline.return_map_mfu(mix["n"] / (mix["ms"] * 1e-3), mix["flops_per_pt"],
+                                  roofline.return_map_flops_per_pt_hi(mat), card=card)
+    print(f"K1 return-map MFU on the bench mix ({card}): {mfu['pts_per_s']:.4g} pts/s, "
+          f"{mfu['flops_per_pt_lo_hi'][0]:.1f} / {mfu['flops_per_pt_lo_hi'][1]:.1f} operations a "
+          f"point (these inputs / the trip bound), {mfu['achieved_gflops_lo_hi'][0]:.1f} / "
+          f"{mfu['achieved_gflops_lo_hi'][1]:.1f} GFLOP/s, "
+          f"{mfu['pct_h100_f32_peak_lo_hi'][0]:.2f}% / {mfu['pct_h100_f32_peak_lo_hi'][1]:.2f}% "
+          f"of the f32 peak", flush=True)
+    report["mfu_k1_bench_mix"] = mfu
     Du, sig = states[49]
     report["mc_layers"] = layer_phase(fp_k, Du, sig, pt.SLOPE_LOADS[49])
     print("25x25 slope layers, step 50 (ms): "
@@ -1999,24 +2091,39 @@ def main():
     # phase 24: the port's five demos on the card
     demos_phase(report)
 
-    main_shape = shapes[1]
+    # K2's row: the f64 entry, which the von Mises block path launches, on
+    # that path's own call (3,750 points, its layout); the f32 entry (the
+    # Pallas kernel's contract) beside it at 4,096 and 65,536 points
+    vm_main = vm_call
     kernels = [{
         "name": "vonmises_return_map",
         "route": "cuda",
         "source": "dolfinx_external_operator_torch/csrc/vonmises.cu",
         "replaces": "dolfinx_external_operator_tpu/ops/vonmises_pallas.py:97",
         "launches": launches,
-        "max_abs_err": main_shape["max_abs_err"],
-        "max_rel_err": max(s["max_rel_err"] for s in shapes),
-        "ms": main_shape["ms"],
-        "kernel_ms": main_shape["ms"],
-        "call_ms": main_shape["call_ms"],
-        "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"],
+        "entry": "vonmises_return_map_f64",
+        "max_abs_err": vm_main["max_abs_err"],
+        "max_rel_err": max([vm_main["rel_err_C"], vm_main["rel_err_sig"]]
+                           + [max(s[k]["rel_err_C"], s[k]["rel_err_sig"]) for s in f64_shapes
+                              for k in ("step", "point_major", "soa")]),
+        "ms": vm_main["ms"],
+        "kernel_ms": vm_main["ms"],
+        "call_ms": vm_main["call_ms"],
+        "plain_ms": vm_main["plain_ms"],
+        "bound_ms": vm_main["bound_ms"],
+        "bound_by": vm_main["bound_by"],
         "library_ms": None,
-        "n": main_shape["n"],
+        "n": vm_main["n"],
         "empty_graph_ms": floor_ms,
+        "old_route_ms": vm_main["old_route_ms"],
+        "strides": vm_main["strides"],
+        "launches_per_call": {w: vm_call[w]["device_events_per_call"] for w in ("old", "new")},
+        "f64_entry_65536": {k: f64_shapes[2][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                          "bound_by", "max_abs_err")},
+        "f32_entry": {"n": shapes[1]["n"], **{k: shapes[1][k] for k in (
+            "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}},
+        "f32_entry_65536": {k: shapes[2][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                      "max_abs_err")},
     }, {
         "name": "mc_return_map",
         "route": "cuda",
@@ -2044,6 +2151,9 @@ def main():
                                               "plain_ms", "bound_ms", "max_abs_err")},
     }]
     report["kernels"] = kernels
+    report["roofline"] = {"dia_25x25_mg": report["mg_25x25"]["dia_roofline"],
+                          "dia_100x100_mg": report["mg_100x100"]["dia_roofline"],
+                          "mfu_k1_bench_mix": mfu}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
 

@@ -7,7 +7,8 @@ per-point body that the tests compare with the plain PyTorch version.  The
 library's file name carries a hash of its flags and of every file it is
 built from (the tables below list each source with the headers it
 includes), so an edited source or header is always rebuilt and two
-processes never write the same file.  A failed build raises.
+processes never write the same file.  Entries with the same sources
+share one library, built once.  A failed build raises.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -26,6 +28,20 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 # the TPU; -Xptxas -v reports registers and spills into BUILD_LOG
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# flags of one kernel's build, after NVCC_FLAGS.  K1 without FMA
+# contraction: nvcc's fused multiply-adds move its f32 phase's iterate,
+# the start of the f64 polish, by f32 ulps, and a polish that then stops on
+# the other side of its tolerance left the tangent 1.9e-6 from the plain
+# map's on 65,536 sheared points, above chip_smoke.MC_TOL.  Contraction
+# confined to the f32 phase (each product __fmul_rn), the narrower repair,
+# met MC_TOL as well, but in one run the AMG-CG inner counts of
+# chip_smoke.py's two-rank phase then left their per-step band; the flag
+# on the whole kernel passed every check in its runs.  That band moves
+# with the last bit of any input and its failure rate was not measured, so
+# the choice rests on one run of a fragile check; the narrower repair is
+# queued (ROADMAP queue 3, PERF.md).  It costs K1 ~6% at the main path's
+# 3,750 points and ~28% at 65,536
+KERNEL_NVCC_FLAGS = {"mohr_coulomb": ["-fmad=false"]}
 GXX_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC"]
 
 _VP = ctypes.c_void_p
@@ -38,6 +54,8 @@ _INT = ctypes.c_int
 KERNELS = {
     "vonmises": (("vonmises.cu", "vonmises.cuh"), "vonmises_return_map_launch",
                  [_VP] * 6 + [_LL] + [_FL] * 4 + [_VP]),
+    "vonmises_f64": (("vonmises.cu", "vonmises.cuh"), "vonmises_f64_launch",
+                     [_VP, _LL, _LL] * 2 + [_VP] * 4 + [_LL] + [_FL] * 4 + [_VP]),
     "mohr_coulomb": (("mohr_coulomb.cu", "mohr_coulomb.cuh"), "mohr_coulomb_launch",
                      [_VP] * 9 + [_LL] + [_VP] * 2),
     "empty": (("empty.cu",), "empty_launch", [_VP]),
@@ -45,6 +63,8 @@ KERNELS = {
 _HOST = {
     "vonmises": (("vonmises_host.cpp", "vonmises.cuh"), "vonmises_return_map_host",
                  [_VP] * 6 + [_LL] + [_FL] * 4),
+    "vonmises_f64": (("vonmises_host.cpp", "vonmises.cuh"), "vonmises_f64_host",
+                     [_VP, _LL, _LL] * 2 + [_VP] * 4 + [_LL] + [_FL] * 4),
     "mohr_coulomb": (("mohr_coulomb_host.cpp", "mohr_coulomb.cuh"), "mohr_coulomb_host",
                      [_VP] * 8 + [_LL] + [_VP] + [_INT]),
 }
@@ -53,6 +73,10 @@ _HOST = {
 BUILD_LOG: dict[str, str] = {}
 
 _loaded: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+# one lock per library, so that threads building entries of one library
+# build it once
+_locks: dict[str, threading.Lock] = {}
+_locks_guard = threading.Lock()
 
 
 def find_nvcc() -> str:
@@ -63,27 +87,32 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set NVCC or CUDA_HOME, or put nvcc on PATH")
 
 
-def _compile(compiler: list[str], flags: list[str], sources, tag: str) -> str:
+def _compile(compiler: list[str], flags: list[str], sources) -> str:
     """Build ``sources[0]`` (which includes the rest) from ``CSRC_DIR``
-    into a shared library under ``BUILD_DIR``; returns its path."""
-    digest = hashlib.sha256()
-    for part in flags:
-        digest.update(part.encode())
-    for src in sources:
-        with open(os.path.join(CSRC_DIR, src), "rb") as f:
-            digest.update(f.read())
-    out = os.path.join(BUILD_DIR, f"lib{tag}_{digest.hexdigest()[:16]}.so")
-    if os.path.exists(out):
+    into a shared library under ``BUILD_DIR``, named after that source;
+    returns its path."""
+    tag = sources[0].replace(".", "_")
+    with _locks_guard:
+        lock = _locks.setdefault(tag, threading.Lock())
+    with lock:
+        digest = hashlib.sha256()
+        for part in flags:
+            digest.update(part.encode())
+        for src in sources:
+            with open(os.path.join(CSRC_DIR, src), "rb") as f:
+                digest.update(f.read())
+        out = os.path.join(BUILD_DIR, f"lib{tag}_{digest.hexdigest()[:16]}.so")
+        if os.path.exists(out):
+            return out
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out[:-3]}.{os.getpid()}.tmp.so"
+        cmd = compiler + flags + ["-o", tmp, os.path.join(CSRC_DIR, sources[0])]
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise RuntimeError(f"kernel build failed: {' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        os.replace(tmp, out)
+        BUILD_LOG[tag] = res.stdout + res.stderr
         return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out[:-3]}.{os.getpid()}.tmp.so"
-    cmd = compiler + flags + ["-o", tmp, os.path.join(CSRC_DIR, sources[0])]
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if res.returncode != 0:
-        raise RuntimeError(f"kernel build failed: {' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    os.replace(tmp, out)
-    BUILD_LOG[tag] = res.stdout + res.stderr
-    return out
 
 
 def _bind(path: str, fn_name: str, argtypes, restype):
@@ -98,7 +127,7 @@ def cuda_function(name: str):
     key = ("cuda", name)
     if key not in _loaded:
         sources, fn, argtypes = KERNELS[name]
-        path = _compile([find_nvcc()], NVCC_FLAGS, sources, f"{name}_cuda")
+        path = _compile([find_nvcc()], NVCC_FLAGS + KERNEL_NVCC_FLAGS.get(name, []), sources)
         _loaded[key] = _bind(path, fn, argtypes, ctypes.c_int)
     return _loaded[key]
 
@@ -111,6 +140,6 @@ def host_function(name: str):
         cxx = shutil.which(os.environ.get("CXX", "g++"))
         if cxx is None:
             raise RuntimeError("no C++ compiler found: set CXX or put g++ on PATH")
-        path = _compile([cxx], GXX_FLAGS, sources, f"{name}_host")
+        path = _compile([cxx], GXX_FLAGS, sources)
         _loaded[key] = _bind(path, fn, argtypes, None)
     return _loaded[key]

@@ -56,6 +56,15 @@
 //   version's I + 0 * C Hg, for a finite Hg), so no Hessian is evaluated,
 //   and the tangent J^-1 [C; 0] is C itself: solve_small of I against C
 //   returns C bit for bit.
+// - The f32 phase's rounding on the card.  Its iterate is the start of the
+//   f64 polish, and a polish that stops on the other side of its tol
+//   leaves the tangent up to ~2e-6 from the plain map's where every lane is
+//   plastic.  Two things moved that iterate: nvcc fuses a multiply and the
+//   add that takes its result into one FMA, rounded once, where the plain
+//   versions round each operation; and torch on the card (like XLA) takes
+//   I1 / 3 as I1 * (1/3).  So the kernel is built without FMA contraction
+//   (-fmad=false, _native/cuda.py) and its f32 phase takes I1 * (1/3) on
+//   the card (terms()).
 // - Trig.  The f32 phase uses the C library's (host) or CUDA's (device)
 //   asinf, sinf, cosf; the plain versions use PyTorch's and XLA's.  These
 //   differ in the last bits; the f64 polish absorbs it, but a lane that
@@ -405,7 +414,18 @@ MC_HD void terms(const S sig[4], const Surface<T>& p, const Consts<T>& k, S& f, 
   const S dK_dx = select(outer, dKout_dx, dKin_dx);
 
   const S Q = m_sqrt(J2 * K * K + p.asa2);
-  f = I1 / T(3) * p.sin_a + Q - p.c_cos_a;
+  // I1 / 3 in the f32 phase as the plain version computes it on each side:
+  // on the card torch folds a division by a constant into a product by its
+  // reciprocal, as XLA does (the JAX package's own arithmetic); torch on
+  // the CPU divides.  It moves f by an f32 ulp, and so where the f32
+  // Newton stops on some lanes; the f64 polish absorbs its own rounding
+#ifdef __CUDA_ARCH__
+  constexpr bool kReciprocal = sizeof(T) == sizeof(float);
+#else
+  constexpr bool kReciprocal = false;
+#endif
+  const S I1_3 = kReciprocal ? I1 * T(1.0 / 3.0) : I1 / T(3);
+  f = I1_3 * p.sin_a + Q - p.c_cos_a;
 
   S dJ3_ds[4], dJ3[4];
   dJ3_ds[0] = s[1] * s[2];

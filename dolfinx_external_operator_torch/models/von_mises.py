@@ -21,9 +21,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
-from ..ops.vonmises import vonmises_return_map
+from ..ops.vonmises import vonmises_return_map_f64
 
 __all__ = ["VonMisesMaterial", "batched_kernel_f32", "batched_kernel_f64",
            "return_mapping_kernel", "solve_von_mises", "solve_von_mises_pure_form"]
@@ -97,21 +96,17 @@ def batched_kernel_f64():
 
 def batched_kernel_f32(tile=512):
     """The hand-written f32 kernel (``ops.vonmises``) in the fused step's
-    SoA contract: the counterpart of ``pallas_batched_kernel``.  The batch
-    is padded to ``tile`` as the JAX wrapper pads it, cast to f32 and back,
-    and ``p = 0``.  An opt-in fast path; the f64 kernel stays the parity
-    path."""
+    SoA contract: the counterpart of ``pallas_batched_kernel``, f64 in and
+    out with the f32 body between, ``p = 0``, one launch per call (the f64
+    entry casts in registers and reads the strided batch where it lies).
+    ``tile`` is the JAX wrapper's padding tile, kept for its signature: the
+    kernel takes any n, so nothing is padded.  An opt-in fast path; the f64
+    kernel stays the parity path."""
+    del tile
 
     def batched(deps_soa, sn_soa):
-        n = deps_soa.shape[1]
-        pad = -n % tile
-        d32 = F.pad(deps_soa.to(torch.float32), (0, pad)).contiguous()
-        s32 = F.pad(sn_soa.to(torch.float32), (0, pad)).contiguous()
-        p32 = torch.zeros(n + pad, dtype=torch.float32, device=deps_soa.device)
-        C, sig, _ = vonmises_return_map(d32, s32, p32, PARAMS)
-        C = C[:, :n].reshape(4, 4, n).to(deps_soa.dtype)
-        sig = sig[:, :n].to(deps_soa.dtype)
-        return C, sig
+        C, sig, _ = vonmises_return_map_f64(deps_soa, sn_soa, None, PARAMS)
+        return C.view(4, 4, -1), sig
 
     return batched
 

@@ -22,11 +22,10 @@ import ctypes
 
 import torch
 
+from ..utils.roofline import MC_BYTES_PER_POINT as BYTES_PER_POINT
+
 __all__ = ["mc_return_map", "mc_return_map_host", "BYTES_PER_POINT"]
 
-# read: deps, sig_n (8 f64); written: C (16), sig (4), yielding, norm_res,
-# dlambda (f64) and niter (int32)
-BYTES_PER_POINT = 8 * 8 + (16 + 4 + 3) * 8 + 4
 # the workspace: the plastic lanes' count, the next list entry, the list
 LIST_OFFSET = 2
 

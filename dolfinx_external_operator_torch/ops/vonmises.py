@@ -1,24 +1,37 @@
-"""Von Mises return map with consistent tangent (f32, SoA layout).
+"""Von Mises return map with consistent tangent (f32 body, SoA layout).
 
-The port of ``dolfinx_external_operator_tpu/ops/vonmises_pallas.py``: on a
-CUDA tensor ``vonmises_return_map`` launches the hand-written kernel of
-``csrc/vonmises.cu`` (one thread per Gauss point, body in
-``csrc/vonmises.cuh``); on a CPU tensor it runs
-``vonmises_return_map_reference``, the plain PyTorch version of the same
-f32 formula.  There is no fallback from the kernel to the plain version.
+The port of ``dolfinx_external_operator_tpu/ops/vonmises_pallas.py``, two
+entry points of one hand-written kernel (``csrc/vonmises.cu``, body in
+``csrc/vonmises.cuh``):
 
-Bound on an H100: 120 bytes per point (36 read, 84 written) over 3.35 TB/s;
-at the main path's 4,096 padded points that is 0.15 us, below one launch.
+* ``vonmises_return_map``: the Pallas kernel's contract, f32 in and out;
+* ``vonmises_return_map_f64``: the fused step's contract, f64 in and out
+  with the f32 body between, casts in registers, any n, p optional (none
+  means p = 0).  It gives the f32 entry's results on the inputs rounded to
+  f32, widened, bit for bit, in one launch.
+
+On a CUDA tensor each launches the kernel; on a CPU tensor it runs its
+plain PyTorch version (``vonmises_return_map_reference``, for the f64 entry
+with the casts around it).  There is no fallback from the kernel to the
+plain version.
+
+Bound on an H100: bytes (``BYTES_PER_POINT`` = 120 for the f32 entry,
+``BYTES_PER_POINT_F64`` = 224 for the f64 entry without p and dp) over
+3.35 TB/s; at the main path's 3,750 points that is 0.13 or 0.25 us, below
+one launch (``utils/roofline.py``).
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["vonmises_return_map", "vonmises_return_map_reference",
-           "vonmises_return_map_host", "BYTES_PER_POINT"]
+from ..utils.roofline import VM_BYTES_PER_POINT as BYTES_PER_POINT
+from ..utils.roofline import VM_F64_BYTES_PER_POINT as BYTES_PER_POINT_F64
 
-BYTES_PER_POINT = (4 + 4 + 1) * 4 + (16 + 4 + 1) * 4
+__all__ = ["vonmises_return_map", "vonmises_return_map_reference",
+           "vonmises_return_map_host", "vonmises_return_map_f64",
+           "vonmises_return_map_f64_reference", "vonmises_return_map_f64_host",
+           "BYTES_PER_POINT", "BYTES_PER_POINT_F64"]
 
 
 def _check(deps, sig_n, p, device_type):
@@ -100,8 +113,8 @@ def vonmises_return_map(deps, sig_n, p, params):
     """deps/sig_n (4, N) f32, p (N,) f32, params [lmbda, mu, H, sig0] ->
     (C_tang (16, N), sig (4, N), dp (N,)) f32.
 
-    CUDA tensors go through the kernel (any N: it masks the ragged edge);
-    CPU tensors through the plain version.  ``vonmises_return_map.launches``
+    CUDA tensors go through the kernel (any N), CPU tensors through the
+    plain version.  ``vonmises_return_map.launches``
     counts kernel launches."""
     if deps.device.type == "cpu":
         _check(deps, sig_n, p, "cpu")
@@ -139,4 +152,87 @@ def vonmises_return_map_host(deps, sig_n, p, params):
     C, sig, dp = _outputs(n, deps.device)
     fn(deps.data_ptr(), sig_n.data_ptr(), p.data_ptr(), C.data_ptr(), sig.data_ptr(),
        dp.data_ptr(), n, *_params(params))
+    return C, sig, dp
+
+
+def _check_f64(deps, sig_n, p, device_type):
+    n = deps.shape[-1]
+    for name, t, shape in (("deps", deps, (4, n)), ("sig_n", sig_n, (4, n)), ("p", p, (n,))):
+        if t is None:
+            continue
+        if t.dtype != torch.float64:
+            raise TypeError(f"{name} must be float64, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+        if t.device.type != device_type or t.device != deps.device:
+            raise ValueError(f"{name} lies on {t.device}, expected {deps.device}")
+    if p is not None and p.stride(0) != 1:
+        raise ValueError("p must be contiguous")
+    return n
+
+
+def _outputs_f64(n, device, want_dp):
+    """C (16, n), sig (4, n) and dp (n,) or None: contiguous row blocks of
+    one f64 buffer."""
+    out = torch.empty((21 if want_dp else 20, n), dtype=torch.float64, device=device)
+    return out[:16], out[16:20], out[20] if want_dp else None
+
+
+def vonmises_return_map_f64_reference(deps, sig_n, p, params, want_dp=False):
+    """Plain version of the f64 entry: the inputs rounded to f32, the plain
+    f32 map, the results widened to f64 (dp None unless ``want_dp``)."""
+    f32, f64 = torch.float32, torch.float64
+    p32 = (torch.zeros(deps.shape[-1], dtype=f32, device=deps.device) if p is None
+           else p.to(f32))
+    C, sig, dp = vonmises_return_map_reference(deps.to(f32), sig_n.to(f32), p32, params)
+    return C.to(f64), sig.to(f64), dp.to(f64) if want_dp else None
+
+
+def vonmises_return_map_f64(deps, sig_n, p, params, want_dp=False):
+    """The fused step's contract: deps/sig_n (4, N) f64 at any strides, p
+    (N,) f64 or None (p = 0), params [lmbda, mu, H, sig0] -> (C_tang (16,
+    N), sig (4, N), dp (N,) or None) f64, C and sig contiguous (C views as
+    (4, 4, N)).  The values are those of ``vonmises_return_map`` on the
+    inputs cast to f32, cast back.
+
+    CUDA tensors go through the kernel in one launch, CPU tensors through
+    the plain version.  ``vonmises_return_map_f64.launches`` counts
+    kernel launches."""
+    if deps.device.type == "cpu":
+        _check_f64(deps, sig_n, p, "cpu")
+        return vonmises_return_map_f64_reference(deps, sig_n, p, params, want_dp)
+    if deps.device.type != "cuda":
+        raise ValueError(f"unsupported device {deps.device}")
+    from .._native.cuda import cuda_function
+
+    n = _check_f64(deps, sig_n, p, "cuda")
+    if deps.device.index != torch.cuda.current_device():
+        raise ValueError(f"inputs lie on {deps.device}, but the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    launch = cuda_function("vonmises_f64")
+    C, sig, dp = _outputs_f64(n, deps.device, want_dp)
+    err = launch(deps.data_ptr(), deps.stride(0), deps.stride(1), sig_n.data_ptr(),
+                 sig_n.stride(0), sig_n.stride(1), None if p is None else p.data_ptr(),
+                 C.data_ptr(), sig.data_ptr(), None if dp is None else dp.data_ptr(), n,
+                 *_params(params), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"vonmises f64 kernel launch failed: cudaError {err}")
+    vonmises_return_map_f64.launches += 1
+    return C, sig, dp
+
+
+vonmises_return_map_f64.launches = 0
+
+
+def vonmises_return_map_f64_host(deps, sig_n, p, params, want_dp=False):
+    """The f64 entry's body, built for the CPU with g++ (tests only): same
+    contract as ``vonmises_return_map_f64`` on CPU tensors."""
+    from .._native.cuda import host_function
+
+    n = _check_f64(deps, sig_n, p, "cpu")
+    fn = host_function("vonmises_f64")
+    C, sig, dp = _outputs_f64(n, deps.device, want_dp)
+    fn(deps.data_ptr(), deps.stride(0), deps.stride(1), sig_n.data_ptr(), sig_n.stride(0),
+       sig_n.stride(1), None if p is None else p.data_ptr(), C.data_ptr(), sig.data_ptr(),
+       None if dp is None else dp.data_ptr(), n, *_params(params))
     return C, sig, dp

@@ -1,7 +1,8 @@
 """The Mohr-Coulomb kernel K1 of this checkout against another checkout's,
 on one NVIDIA GPU, each built from its own sources:
 
-    python3 -m dolfinx_external_operator_torch.tools.k1_compare OTHER [--fmad false]
+    python3 -m dolfinx_external_operator_torch.tools.k1_compare OTHER [--fmad true|false]
+        [--other-fmad true|false]
 
 ``OTHER`` is a directory that holds ``dolfinx_external_operator_torch/csrc``
 of the other commit, for example from ``git archive <commit>
@@ -14,9 +15,12 @@ On each input, both kernels against the plain f64 map (the largest
 per-lane gap of C and sigma relative to the largest entry, and the lanes
 whose ``niter`` differs), the two kernels against each other (the same,
 and whether every output is bitwise equal), and each kernel's device time
-in a CUDA graph, timed in turns (other, this, this, other).  ``--fmad
-false`` builds both without FMA contraction: two kernels that do the same
-arithmetic, operation for operation, then give the same bits.
+in a CUDA graph, timed in turns (other, this, this, other).  Both are built
+with this checkout's flags for K1 (``_native/cuda.py``: no FMA
+contraction); ``--fmad true`` builds both with it, and ``--other-fmad``
+sets it for the other kernel alone (``--other-fmad true`` with an earlier
+commit: K1 as that commit built it, against this one).  Two kernels that
+do the same arithmetic, operation for operation, give the same bits.
 
 The inputs: the real iterate of step 50's first Newton pass on the 25x25
 slope (the main path of ``chip_smoke.py``); the strain mix of
@@ -197,8 +201,12 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", help="a directory holding the other commit's "
                                   "dolfinx_external_operator_torch/csrc")
-    ap.add_argument("--fmad", choices=("true", "false"), default="true",
-                    help="nvcc's FMA contraction, for both kernels")
+    ap.add_argument("--fmad", choices=("true", "false"), default=None,
+                    help="nvcc's FMA contraction, for both kernels (default: K1's own "
+                         "flags)")
+    ap.add_argument("--other-fmad", choices=("true", "false"), default=None,
+                    help="nvcc's FMA contraction for the other kernel alone (default: as "
+                         "--fmad)")
     ap.add_argument("--out", default=os.path.join("chiprun_out", "k1_compare.json"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -207,11 +215,15 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(card, flush=True)
-    extra = [f"-fmad={args.fmad}"]
+    extra = (native.KERNEL_NVCC_FLAGS.get("mohr_coulomb", []) if args.fmad is None
+             else [f"-fmad={args.fmad}"])
+    flags = {"other": extra if args.other_fmad is None else [f"-fmad={args.other_fmad}"],
+             "this": extra}
     srcs = {"other": os.path.join(args.other, "dolfinx_external_operator_torch", "csrc"),
             "this": native.CSRC_DIR}
     with ThreadPoolExecutor(max_workers=2) as ex:
-        futures = {who: ex.submit(Kernel, src, extra, f"k1_{who}_fmad_{args.fmad}")
+        futures = {who: ex.submit(Kernel, src, flags[who],
+                                  f"k1_{who}_{'_'.join(flags[who]) or 'plain'}")
                    for who, src in srcs.items()}
         kernels = {who: f.result() for who, f in futures.items()}
     print(json.dumps({who: k.interface for who, k in kernels.items()}), flush=True)
@@ -222,7 +234,7 @@ def main():
         print(json.dumps(rows[-1]), flush=True)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
-        json.dump({"card": card, "fmad": args.fmad, "rows": rows}, f, indent=1)
+        json.dump({"card": card, "flags": flags, "rows": rows}, f, indent=1)
     return 0
 
 

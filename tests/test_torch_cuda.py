@@ -51,6 +51,41 @@ def test_cuda_kernel_matches_plain(cuda):
     assert float((dp - dp_r).abs().max()) < 1e-7
 
 
+def _old_vm_route(deps, sn, tile=512):
+    """``batched_kernel_f32`` before K2 took f64: pad to the 512 tile, cast
+    to f32, p = 0, the f32 entry, slice and cast back."""
+    n = deps.shape[1]
+    pad = -n % tile
+    d32 = torch.nn.functional.pad(deps.to(torch.float32), (0, pad)).contiguous()
+    s32 = torch.nn.functional.pad(sn.to(torch.float32), (0, pad)).contiguous()
+    p32 = torch.zeros(n + pad, dtype=torch.float32, device=deps.device)
+    C, sig, _ = ops.vonmises_return_map(d32, s32, p32, vm.PARAMS)
+    return C[:, :n].reshape(4, 4, n).double(), sig[:, :n].double()
+
+
+@pytest.mark.parametrize("layout", ["step", "point_major", "soa"])
+@pytest.mark.parametrize("n", [1, 1001, 3750, 4096, 65536])
+def test_cuda_vonmises_f64_entry_bitwise_old_route(cuda, n, layout):
+    """K2's f64 entry (one launch, casts in registers) against the route
+    it replaced, on the card: the same bits, on the block step's layout
+    (deps the transpose of a point-major array, sig_n SoA), point-major
+    and SoA."""
+    rng = np.random.default_rng(n)
+    deps = rng.normal(scale=2e-3, size=(n, 4))
+    deps[: n // 2, 3] += 6e-3
+    sig_n = rng.normal(scale=20.0, size=(n, 4))
+    pm = [torch.tensor(a, device=cuda).T for a in (deps, sig_n)]
+    soa = [torch.tensor(a.T.copy(), device=cuda) for a in (deps, sig_n)]
+    d, s = {"step": (pm[0], soa[1]), "point_major": pm, "soa": soa}[layout]
+    C_o, sig_o = _old_vm_route(d, s)
+    before = ops.vonmises_return_map_f64.launches
+    C, sig, dp = ops.vonmises_return_map_f64(d, s, None, vm.PARAMS)
+    torch.cuda.synchronize()
+    assert dp is None
+    assert torch.equal(C.view(4, 4, n), C_o) and torch.equal(sig, sig_o)
+    assert ops.vonmises_return_map_f64.launches == before + 1
+
+
 def _run(fp):
     Du, sig = fp.zero_state()
     its = []
@@ -63,19 +98,21 @@ def _run(fp):
 def test_cuda_fused_step_through_kernel(cuda):
     """The fused step on the card, 8x8 block, dense solver: the f64 path
     gives the JAX package's Newton list [1, 5, 7]; the f32 kernel path
-    converges within 10 updates a step, launches the kernel once per Newton
-    pass, agrees with the f64 path to 1e-3, and repeats bitwise (the
-    scatters use no atomics)."""
+    converges within 10 updates a step, launches the kernel (its f64 entry,
+    never the f32 one) once per Newton pass, agrees with the f64 path to
+    1e-3, and repeats bitwise (the scatters use no atomics)."""
     fp64 = pt.von_mises_block_step(8, 8, "f64", linear_solver="dense")
     fp32 = pt.von_mises_block_step(8, 8, "f32", linear_solver="dense",
                                    newton_rtol=1e-5, newton_atol=1e-3)
     assert fp32.device.type == "cuda" and fp32._dense_fact == "chol"
     Du64, its64 = _run(fp64)
-    before = ops.vonmises_return_map.launches
+    before = ops.vonmises_return_map_f64.launches
+    before32 = ops.vonmises_return_map.launches
     Du32, its32 = _run(fp32)
     assert its64 == [1, 5, 7]
     assert all(i <= 10 for i in its32), its32
-    assert ops.vonmises_return_map.launches - before == sum(its32) + len(its32)
+    assert ops.vonmises_return_map_f64.launches - before == sum(its32) + len(its32)
+    assert ops.vonmises_return_map.launches == before32
     assert float((Du32 - Du64).abs().max() / Du64.abs().max()) < 1e-3
     Du32_again, its32_again = _run(fp32)
     assert its32_again == its32 and torch.equal(Du32_again, Du32)

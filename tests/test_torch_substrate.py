@@ -119,7 +119,7 @@ def test_port_imports_no_jax():
             "expression, assembly, external_operator, solvers, petsc, krylov); "
             "from dolfinx_external_operator_torch.models import hyperelasticity, icnn, von_mises; "
             "icnn.load_isihara_weights(); "
-            "from dolfinx_external_operator_torch.utils import checkpoint, plots, probes, profiling, "
+            "from dolfinx_external_operator_torch.utils import checkpoint, plots, probes, profiling, roofline, "
             "taylor; from dolfinx_external_operator_torch import parallel; "
             "sys.path.insert(0, 'demos_torch'); import _common, demo_simple_example, "
             "demo_nonlinear_heat, demo_plasticity_von_mises, demo_plasticity_mohr_coulomb, "

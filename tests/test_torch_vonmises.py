@@ -144,3 +144,108 @@ def test_wrapper_rejects_bad_input(bad):
         deps = deps.T.contiguous().T
     with pytest.raises((TypeError, ValueError)):
         ops_t.vonmises_return_map(deps, sig_n, p, PARAMS)
+
+
+def _old_composition(f32_map, deps, sig_n, p=None, tile=512):
+    """``batched_kernel_f32`` as it was before K2 took f64: pad to the
+    JAX wrapper's tile, cast to f32, the f32 map (p = 0 unless given),
+    slice and cast back."""
+    f32, f64 = torch.float32, torch.float64
+    n = deps.shape[1]
+    pad = -n % tile
+    d32 = torch.nn.functional.pad(deps.to(f32), (0, pad)).contiguous()
+    s32 = torch.nn.functional.pad(sig_n.to(f32), (0, pad)).contiguous()
+    p32 = (torch.zeros(n + pad, dtype=f32) if p is None
+           else torch.nn.functional.pad(p.to(f32), (0, pad)).contiguous())
+    C, sig, dp = f32_map(d32, s32, p32, PARAMS)
+    return (C[:, :n].reshape(4, 4, n).to(f64), sig[:, :n].to(f64), dp[:n].to(f64))
+
+
+def _f64_case(case, n):
+    """f64 point-major inputs: the mix, or every point elastic (small
+    strain on a small stress) or plastic (sheared far past yield)."""
+    deps, sig_n, p = _inputs(n, seed=n + 17)
+    if case == "all_elastic":
+        deps, sig_n = deps * 1e-3, sig_n * 1e-3
+    elif case == "all_plastic":
+        deps[:, 3] += 2e-2
+    return deps, sig_n, p
+
+
+F64_CASES = [("mix", 3750), ("mix", 4096), ("all_elastic", 3750), ("all_plastic", 4096),
+             ("mix", 1), ("mix", 1001)]
+
+
+def _f64_layout(layout, deps, sig_n):
+    """(4, n) views of point-major deps and sig_n: as the block step hands
+    them (deps the transpose of a point-major array, strides (1, 4); sig_n
+    SoA), both point-major, or both SoA."""
+    pm = torch.tensor(deps).T, torch.tensor(sig_n).T
+    soa = torch.tensor(deps.T.copy()), torch.tensor(sig_n.T.copy())
+    return {"step": (pm[0], soa[1]), "point_major": pm, "soa": soa}[layout]
+
+
+@pytest.mark.parametrize("layout", ["step", "point_major", "soa"])
+@pytest.mark.parametrize("case,n", F64_CASES)
+def test_f64_entry_body_bitwise_old_composition(case, n, layout):
+    """The g++ build of the f64 entry (casts in registers, the f32 body,
+    widened stores) gives the old composition around the f32 body, bit for
+    bit: on the block step's layout (deps strides (1, 4), sig_n SoA),
+    point-major and SoA, with p = 0 and with p given, at ragged n."""
+    deps, sig_n, p = _f64_case(case, n)
+    d, s = _f64_layout(layout, deps, sig_n)
+    plastic = None
+    for pp in (None, torch.tensor(p)):
+        C, sig, dp = ops_t.vonmises_return_map_f64_host(d, s, pp, PARAMS, want_dp=True)
+        C_o, sig_o, dp_o = _old_composition(ops_t.vonmises_return_map_host, d, s, pp)
+        assert C.dtype == sig.dtype == torch.float64 and C.is_contiguous()
+        assert torch.equal(C.view(4, 4, n), C_o) and torch.equal(sig, sig_o)
+        assert torch.equal(dp, dp_o)
+        plastic = int((dp > 0).sum())
+    if case == "all_elastic":
+        assert plastic == 0
+    elif case == "all_plastic":
+        assert plastic == n
+
+
+@pytest.mark.parametrize("case,n", F64_CASES)
+def test_f64_entry_plain_is_the_cast_plain_map(case, n):
+    """On CPU tensors the f64 entry runs its plain version: the old
+    composition around the plain f32 map, bit for bit, and within the f32
+    tolerances of the kernel body."""
+    deps, sig_n, _ = _f64_case(case, n)
+    d, s = torch.tensor(deps).T, torch.tensor(sig_n).T
+    C, sig, dp = ops_t.vonmises_return_map_f64(d, s, None, PARAMS)
+    assert dp is None
+    C_o, sig_o, _ = _old_composition(ops_t.vonmises_return_map_reference, d, s)
+    assert torch.equal(C.view(4, 4, n), C_o) and torch.equal(sig, sig_o)
+    C_b, sig_b, _ = ops_t.vonmises_return_map_f64_host(d, s, None, PARAMS)
+    err_C, err_s, _ = _errs((C, sig, np.zeros(1)), (C_b, sig_b, np.zeros(1)))
+    assert err_C < 1e-6 and err_s < 1e-6, (err_C, err_s)
+
+
+def test_batched_f32_is_the_f64_entry():
+    """``batched_kernel_f32`` hands the fused step's strided batch to the
+    f64 entry as it is (no pad, no copy) and views C as (4, 4, n)."""
+    n = 700
+    deps, sig_n, _ = _inputs(n, seed=9)
+    d, s = torch.tensor(deps).T, torch.tensor(sig_n).T
+    C_t, s_t = vm_t.batched_kernel_f32(tile=512)(d, s)
+    C_e, s_e, _ = ops_t.vonmises_return_map_f64(d, s, None, PARAMS)
+    assert torch.equal(C_t, C_e.view(4, 4, n)) and torch.equal(s_t, s_e)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "p_stride", "device_mix"])
+def test_f64_entry_rejects_bad_input(bad):
+    deps, sig_n, p = _inputs(64)
+    d, s, pp = (torch.tensor(deps.T.copy()), torch.tensor(sig_n.T.copy()), torch.tensor(p))
+    if bad == "dtype":
+        d = d.float()
+    elif bad == "shape":
+        pp = pp[:-1]
+    elif bad == "p_stride":
+        pp = torch.tensor(np.repeat(p, 2))[::2]
+    else:
+        s = s.to("meta")
+    with pytest.raises((TypeError, ValueError)):
+        ops_t.vonmises_return_map_f64(d, s, pp, PARAMS)
