@@ -92,11 +92,16 @@ Phases, in order; any failed check exits non-zero without the ``ok`` line:
 15. two ranks on the one card over gloo with CUDA tensors (NCCL refuses two
    ranks on one GPU; gloo stages each all-reduce through the host, so these
    times check parity, not multi-GPU speed): phase 11's program over the
-   52 steps, the record's Newton list and a K1 launch
-   per Newton pass on each rank, every rank's residual norms bitwise equal,
-   Du within 1e-9 of phase 11's, inner counts within max(10, 0.4 n1) per
-   step; s/step, all-reduces per Newton pass, and the time of one
-   all-reduce of a dof vector and of the level-0 band values;
+   52 steps, the record's Newton list and a K1 launch per Newton pass on
+   each rank, every rank's residual norms bitwise equal, and phase 11's
+   bits: Du, sigma (the ranks' slices in rank order), the Newton and the
+   inner lists (each sum all-reduces every cell's contributions beside
+   exact zeros, ``dist.cell_sum``); the JAX test's bands are kept beside
+   (Du within 1e-9, inner counts within max(10, 0.4 n1) per step); s/step,
+   all-reduces and their bytes per Newton pass, and the time of one
+   all-reduce of each payload (every cell's dof contributions, element
+   blocks, level-1 blocks) beside the old ones (a dof vector, the level-0
+   band values);
 16. ``dryrun_multichip(2)`` on the card over gloo: Newton counts 1 and 2
    (``MULTICHIP_r05.json``), inner counts beside that record's;
 17. with two cards or more, phases 15 and 16 over NCCL, one rank per card
@@ -589,7 +594,7 @@ def run_loads(fp, loads, capture=()):
         cgs.append(cg)
     check(tuple(Du.shape) == (fp.n_dofs,) and bool(torch.isfinite(Du).all()), "bad Du")
     check(bool(torch.isfinite(sig).all()), "bad sigma")
-    states["u"] = u
+    states["u"], states["sigma"] = u, sig
     return Du, its, cgs, walls, states
 
 
@@ -1108,7 +1113,8 @@ def mg_25x25_phase(report, fp_dense, state):
     Du_again, *_ = run_loads(fp, loads[:10])
     check(torch.equal(Du_again, Du10), "25x25 mg: the first 10 steps run twice differ")
     print("25x25 mg: the first 10 steps run a second time give Du bitwise equal", flush=True)
-    return launches, {"state10": states[10], "newton": its, "inner": inner, "du": Du_end}
+    return launches, {"state10": states[10], "newton": its, "inner": inner, "du": Du_end,
+                      "sigma": states["sigma"]}
 
 
 def elastic_25x25_phase(report):
@@ -1254,8 +1260,9 @@ def sharded_one_rank_phase(report, ref):
 
 
 def sharded_schedule_phase(report, ref, n, backend):
-    """Phase 15 (and 17 over NCCL): phase 11's program on ``n`` ranks; the
-    time of one all-reduce."""
+    """Phase 15 (and 17 over NCCL): phase 11's program on ``n`` ranks,
+    phase 11's bits; the all-reduce payload per Newton pass and the time
+    of one all-reduce of each payload."""
     with open(RECORD) as f:
         rec = json.load(f)["newton_per_step"]
     loads = pt.SLOPE_LOADS
@@ -1263,7 +1270,7 @@ def sharded_schedule_phase(report, ref, n, backend):
     runs = dist.spawn(slope_schedule, n, backend, None, 25, loads, "mg")
     wall = time.perf_counter() - t0
     label = f"{n} ranks over {backend} on {torch.cuda.device_count()} card(s)"
-    ref_du = ref["du"].cpu().numpy()
+    ref_du, ref_sig = ref["du"].cpu().numpy(), ref["sigma"].cpu().numpy()
     first = runs[0]
     for run in runs:
         check(run["newton"] == rec, f"{label}: rank {run['rank']} Newton list {run['newton']}")
@@ -1276,21 +1283,35 @@ def sharded_schedule_phase(report, ref, n, backend):
     for k, k1 in zip(first["inner"], ref["inner"]):
         check(abs(k - k1) <= max(10, 0.4 * k1),
               f"{label}: inner {first['inner']} against one rank's {ref['inner']}")
+    # every sum all-reduces every cell's contributions beside exact zeros:
+    # phase 11's bits
+    sigma = np.concatenate([r["sigma"] for r in runs])
+    check(np.array_equal(first["du"], ref_du) and first["newton"] == ref["newton"]
+          and first["inner"] == ref["inner"], f"{label}: Du, Newton or inner list not phase 11's")
+    check(np.array_equal(sigma[:len(ref_sig)], ref_sig), f"{label}: sigma not phase 11's")
     steps = sum(first["wall_s"])
-    # a dof vector (the residual, a matvec) and the level-0 band values
-    # (43 bands of 5,202 rows, mg_setup)
-    ar = dist.spawn(allreduce_ms, n, backend, None, [(5202, "float64"), (43 * 5202, "float32")])
+    # the payloads: every cell's dof contributions (1,250 cells x 12, f64:
+    # the residual, a matvec of the refinement), element blocks (x 144,
+    # f32: the level-0 band values, mg_setup) and level-1 blocks (x 36,
+    # f32); beside them the payloads they replace, a dof vector and the 43
+    # level-0 bands of 5,202 rows
+    sizes = [(1250 * 12, "float64"), (1250 * 144, "float32"), (1250 * 36, "float32"),
+             (5202, "float64"), (43 * 5202, "float32")]
+    ar = dist.spawn(allreduce_ms, n, backend, None, sizes)
+    per_pass = first["psum_bytes"] / first["passes"]
     print(f"25x25 mg sharded, {label}, {len(loads)} steps: newton {sum(first['newton'])} "
           f"per rank, K1 launches {[r['launches'] for r in runs]}, inner {sum(first['inner'])} "
-          f"(one rank: {sum(ref['inner'])}), Du {du_err:.2e} from one rank's, "
-          f"{steps:.2f} s of steps ({steps / len(loads):.4f} s/step), {wall:.1f} s with the "
-          f"processes' start; {first['psum_calls']} all-reduces for {first['passes']} Newton "
-          f"passes ({first['psum_calls'] / first['passes']:.2f} per pass); one all-reduce (ms, "
-          f"host clock, rank 0): {ar[0]}", flush=True)
+          f"(one rank: {sum(ref['inner'])}), Du, sigma, Newton and inner lists bitwise phase "
+          f"11's, {steps:.2f} s of steps ({steps / len(loads):.4f} s/step), {wall:.1f} s with "
+          f"the processes' start; {first['psum_calls']} all-reduces for {first['passes']} "
+          f"Newton passes ({first['psum_calls'] / first['passes']:.2f} per pass, "
+          f"{per_pass / 1e6:.3f} MB per pass); one all-reduce (ms, host clock, rank 0): "
+          f"{ar[0]}", flush=True)
     print(f"  s/step rank 0 {[round(w, 4) for w in first['wall_s']]}", flush=True)
     report[f"sharded_{n}_{backend}"] = {
         "ranks": [dict(r, du=None, sigma=None) for r in runs], "du_err": du_err,
-        "wall_total_s": wall, "allreduce_ms": ar, "cards": torch.cuda.device_count()}
+        "bitwise": True, "allreduce_bytes_per_pass": per_pass, "wall_total_s": wall,
+        "allreduce_ms": ar, "cards": torch.cuda.device_count()}
     return [r["launches"] for r in runs]
 
 

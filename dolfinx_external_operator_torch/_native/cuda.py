@@ -25,23 +25,11 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 # no --use_fast_math: f32 sqrt, division and trig stay IEEE-accurate, as on
-# the TPU; -Xptxas -v reports registers and spills into BUILD_LOG
+# the TPU; -Xptxas -v reports registers and spills into BUILD_LOG.  Every
+# kernel takes these flags alone: where K1 must not fuse a product with an
+# add, its source says so (mohr_coulomb.cuh, mul())
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# flags of one kernel's build, after NVCC_FLAGS.  K1 without FMA
-# contraction: nvcc's fused multiply-adds move its f32 phase's iterate,
-# the start of the f64 polish, by f32 ulps, and a polish that then stops on
-# the other side of its tolerance left the tangent 1.9e-6 from the plain
-# map's on 65,536 sheared points, above chip_smoke.MC_TOL.  Contraction
-# confined to the f32 phase (each product __fmul_rn), the narrower repair,
-# met MC_TOL as well, but in one run the AMG-CG inner counts of
-# chip_smoke.py's two-rank phase then left their per-step band; the flag
-# on the whole kernel passed every check in its runs.  That band moves
-# with the last bit of any input and its failure rate was not measured, so
-# the choice rests on one run of a fragile check; the narrower repair is
-# queued (ROADMAP queue 3, PERF.md).  It costs K1 ~6% at the main path's
-# 3,750 points and ~28% at 65,536
-KERNEL_NVCC_FLAGS = {"mohr_coulomb": ["-fmad=false"]}
 GXX_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC"]
 
 _VP = ctypes.c_void_p
@@ -127,7 +115,7 @@ def cuda_function(name: str):
     key = ("cuda", name)
     if key not in _loaded:
         sources, fn, argtypes = KERNELS[name]
-        path = _compile([find_nvcc()], NVCC_FLAGS + KERNEL_NVCC_FLAGS.get(name, []), sources)
+        path = _compile([find_nvcc()], NVCC_FLAGS, sources)
         _loaded[key] = _bind(path, fn, argtypes, ctypes.c_int)
     return _loaded[key]
 

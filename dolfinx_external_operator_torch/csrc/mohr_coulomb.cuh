@@ -62,9 +62,14 @@
 //   plastic.  Two things moved that iterate: nvcc fuses a multiply and the
 //   add that takes its result into one FMA, rounded once, where the plain
 //   versions round each operation; and torch on the card (like XLA) takes
-//   I1 / 3 as I1 * (1/3).  So the kernel is built without FMA contraction
-//   (-fmad=false, _native/cuda.py) and its f32 phase takes I1 * (1/3) on
-//   the card (terms()).
+//   I1 / 3 as I1 * (1/3).  So every product of the templates below is
+//   mul(), which on the card is __fmul_rn for f32 (nvcc never fuses it into
+//   an FMA) and a plain * for f64, whose polish keeps nvcc's FMAs; and the
+//   f32 phase takes I1 * (1/3) on the card (terms()).  Built instead with
+//   -fmad=false over the whole kernel, K1 gives the same gaps to the plain
+//   map and is 2.4% slower at 3,750 points of the slope's step 50, 10% at
+//   65,536 (in turns on an NVIDIA H100 80GB HBM3 at 700 W,
+//   tools/k1_compare.py).
 // - Trig.  The f32 phase uses the C library's (host) or CUDA's (device)
 //   asinf, sinf, cosf; the plain versions use PyTorch's and XLA's.  These
 //   differ in the last bits; the f64 polish absorbs it, but a lane that
@@ -190,6 +195,19 @@ MC_HD T m_nan() {
   return static_cast<T>(NAN);
 }
 
+// a * b.  On the card an f32 product is __fmul_rn, rounded on its own: nvcc
+// fuses a plain * with the add that takes its result into one FMA, and
+// never this one.  f64 products (and every product of the g++ build, which
+// does not contract) are a plain *.
+MC_HD float mul(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fmul_rn(a, b);
+#else
+  return a * b;
+#endif
+}
+MC_HD double mul(double a, double b) { return a * b; }
+
 // index of the lowest set bit of m != 0
 MC_HD int lowest_bit(unsigned m) {
 #ifdef __CUDA_ARCH__
@@ -247,12 +265,12 @@ MC_HD Dual1<T> operator-(const Dual1<T>& a) {
 }
 template <typename T>
 MC_HD Dual1<T> operator*(const Dual1<T>& a, const Dual1<T>& b) {
-  return {a.v * b.v, a.d * b.v + a.v * b.d};
+  return {mul(a.v, b.v), mul(a.d, b.v) + mul(a.v, b.d)};
 }
 template <typename T>
 MC_HD Dual1<T> operator/(const Dual1<T>& a, const Dual1<T>& b) {
-  const T inv_b2 = T(1) / (b.v * b.v);
-  return {a.v / b.v, a.d / b.v + (-b.d * a.v) * inv_b2};
+  const T inv_b2 = T(1) / mul(b.v, b.v);
+  return {a.v / b.v, a.d / b.v + mul(mul(-b.d, a.v), inv_b2)};
 }
 template <typename T>
 MC_HD Dual1<T> operator+(const Dual1<T>& a, T c) {
@@ -272,11 +290,11 @@ MC_HD Dual1<T> operator-(T c, const Dual1<T>& a) {
 }
 template <typename T>
 MC_HD Dual1<T> operator*(const Dual1<T>& a, T c) {
-  return {a.v * c, a.d * c};
+  return {mul(a.v, c), mul(a.d, c)};
 }
 template <typename T>
 MC_HD Dual1<T> operator*(T c, const Dual1<T>& a) {
-  return {c * a.v, c * a.d};
+  return {mul(c, a.v), mul(c, a.d)};
 }
 template <typename T>
 MC_HD Dual1<T> operator/(const Dual1<T>& a, T c) {
@@ -284,26 +302,40 @@ MC_HD Dual1<T> operator/(const Dual1<T>& a, T c) {
 }
 template <typename T>
 MC_HD Dual1<T> operator/(T c, const Dual1<T>& b) {
-  const T inv_b2 = T(1) / (b.v * b.v);
-  return {c / b.v, (-b.d * c) * inv_b2};
+  const T inv_b2 = T(1) / mul(b.v, b.v);
+  return {c / b.v, mul(mul(-b.d, c), inv_b2)};
+}
+
+// mul() on duals: the operators above, which take mul() of the values
+template <typename T>
+MC_HD Dual1<T> mul(const Dual1<T>& a, const Dual1<T>& b) {
+  return a * b;
+}
+template <typename T>
+MC_HD Dual1<T> mul(const Dual1<T>& a, T c) {
+  return a * c;
+}
+template <typename T>
+MC_HD Dual1<T> mul(T c, const Dual1<T>& a) {
+  return c * a;
 }
 
 template <typename T>
 MC_HD Dual1<T> m_sqrt(const Dual1<T>& a) {  // d sqrt = da * (0.5 / sqrt(a))
   const T r = m_sqrt(a.v);
-  return {r, a.d * (T(0.5) / r)};
+  return {r, mul(a.d, T(0.5) / r)};
 }
 template <typename T>
 MC_HD Dual1<T> m_asin(const Dual1<T>& a) {  // d asin = da / sqrt(1 - a^2)
-  return {m_asin(a.v), a.d * (T(1) / m_sqrt(T(1) - a.v * a.v))};
+  return {m_asin(a.v), mul(a.d, T(1) / m_sqrt(T(1) - mul(a.v, a.v)))};
 }
 template <typename T>
 MC_HD Dual1<T> m_sin(const Dual1<T>& a) {
-  return {m_sin(a.v), a.d * m_cos(a.v)};
+  return {m_sin(a.v), mul(a.d, m_cos(a.v))};
 }
 template <typename T>
 MC_HD Dual1<T> m_cos(const Dual1<T>& a) {
-  return {m_cos(a.v), -(a.d * m_sin(a.v))};
+  return {m_cos(a.v), -mul(a.d, m_sin(a.v))};
 }
 
 // select, and max/min against a constant as lax.max/lax.min: NaN in, NaN
@@ -327,12 +359,12 @@ MC_HD T min_c(T x, T c) {
 template <typename T>
 MC_HD Dual1<T> max_c(const Dual1<T>& x, T c) {
   const T w = x.v > c ? T(1) : (x.v == c ? T(0.5) : T(0));
-  return {x.v < c ? c : x.v, x.d * w};
+  return {x.v < c ? c : x.v, mul(x.d, w)};
 }
 template <typename T>
 MC_HD Dual1<T> min_c(const Dual1<T>& x, T c) {
   const T w = x.v < c ? T(1) : (x.v == c ? T(0.5) : T(0));
-  return {x.v > c ? c : x.v, x.d * w};
+  return {x.v > c ? c : x.v, mul(x.d, w)};
 }
 
 template <typename S>
@@ -355,17 +387,17 @@ MC_HD void sincos_third(const S& x, const Consts<T>& k, S& st, S& ct) {
     // f32 seed with no tangent, clamped to the inner-branch range, then two
     // f64 triple-angle Newton steps: s <- s - (3s - 4s^3 - x) / (3 - 12 s^2)
     const float x32 = static_cast<float>(val(x));
-    const float s32 = sinf(asinf(x32) * (1.0f / 3.0f));
+    const float s32 = sinf(mul(asinf(x32), 1.0f / 3.0f));
     const T s0 = min_c(max_c(static_cast<T>(s32), -k.sinT), k.sinT);
     S s = zero_like(x) + s0;
 #pragma unroll
     for (int it = 0; it < 2; ++it) {
-      s = s - (T(3) * s - T(4) * s * s * s - x) / (T(3) - T(12) * s * s);
+      s = s - (mul(T(3), s) - mul(mul(mul(T(4), s), s), s) - x) / (T(3) - mul(mul(T(12), s), s));
     }
     st = s;
-    ct = m_sqrt(T(1) - st * st);
+    ct = m_sqrt(T(1) - mul(st, st));
   } else {
-    const S theta = m_asin(x) * T(1.0 / 3.0);
+    const S theta = mul(m_asin(x), T(1.0 / 3.0));
     st = m_sin(theta);
     ct = m_cos(theta);
   }
@@ -375,9 +407,9 @@ MC_HD void sincos_third(const S& x, const Consts<T>& k, S& st, S& ct) {
 template <typename T, typename S>
 MC_HD void dev4(const S v[4], S out[4]) {
   const T d23 = T(2.0 / 3.0), d13 = T(-1.0 / 3.0);
-  out[0] = d23 * v[0] + d13 * v[1] + d13 * v[2];
-  out[1] = d13 * v[0] + d23 * v[1] + d13 * v[2];
-  out[2] = d13 * v[0] + d13 * v[1] + d23 * v[2];
+  out[0] = mul(d23, v[0]) + mul(d13, v[1]) + mul(d13, v[2]);
+  out[1] = mul(d13, v[0]) + mul(d23, v[1]) + mul(d13, v[2]);
+  out[2] = mul(d13, v[0]) + mul(d13, v[1]) + mul(d23, v[2]);
   out[3] = v[3];
 }
 
@@ -387,33 +419,33 @@ MC_HD void terms(const S sig[4], const Surface<T>& p, const Consts<T>& k, S& f, 
   S s[4];
   dev4<T>(sig, s);
   const S I1 = sig[0] + sig[1] + sig[2];
-  const S J2 = T(0.5) * (s[0] * s[0] + s[1] * s[1] + s[2] * s[2] + s[3] * s[3]);
+  const S J2 = mul(T(0.5), mul(s[0], s[0]) + mul(s[1], s[1]) + mul(s[2], s[2]) + mul(s[3], s[3]));
   const bool safe = val(J2) > T(0);
   const S J2s = select(safe, J2, zero_like(J2) + T(1));
-  const S J3 = s[2] * (s[0] * s[1] - s[3] * s[3] / T(2));
+  const S J3 = mul(s[2], mul(s[0], s[1]) - mul(s[3], s[3]) / T(2));
   const S sqJ2 = m_sqrt(J2s);
-  const S invJ2_32 = T(1) / (J2s * sqJ2);
-  const S arg_raw = select(safe, -k.c0 * J3 * invJ2_32, zero_like(J2));
+  const S invJ2_32 = T(1) / mul(J2s, sqJ2);
+  const S arg_raw = select(safe, mul(mul(-k.c0, J3), invJ2_32), zero_like(J2));
   const S x = min_c(max_c(arg_raw, k.lo), k.hi);  // == sin(3 theta)
 
   S st, ct;
   sincos_third<T>(x, k, st, ct);
-  const S c3t = m_sqrt(T(1) - x * x);  // cos(3 theta)
+  const S c3t = m_sqrt(T(1) - mul(x, x));  // cos(3 theta)
 
   const bool pos = val(x) >= T(0);
   const T Ac = pos ? p.Ap : p.Am;
   const T Bc = pos ? p.Bp : p.Bm;
   const T Cc = pos ? p.Cp : p.Cm;
 
-  const S K_in = ct - p.sin_a * st * k.inv_sqrt3;
-  const S K_out = Ac + (Bc + Cc * x) * x;
-  const S dKin_dx = (-st - p.sin_a * ct * k.inv_sqrt3) / (T(3) * c3t);
-  const S dKout_dx = Bc + T(2) * Cc * x;
+  const S K_in = ct - mul(mul(p.sin_a, st), k.inv_sqrt3);
+  const S K_out = Ac + mul(Bc + mul(Cc, x), x);
+  const S dKin_dx = (-st - mul(mul(p.sin_a, ct), k.inv_sqrt3)) / mul(T(3), c3t);
+  const S dKout_dx = Bc + mul(mul(T(2), Cc), x);
   const bool outer = m_abs(val(x)) > k.sin3T;
   const S K = select(outer, K_out, K_in);
   const S dK_dx = select(outer, dKout_dx, dKin_dx);
 
-  const S Q = m_sqrt(J2 * K * K + p.asa2);
+  const S Q = m_sqrt(mul(mul(J2, K), K) + p.asa2);
   // I1 / 3 in the f32 phase as the plain version computes it on each side:
   // on the card torch folds a division by a constant into a product by its
   // reciprocal, as XLA does (the JAX package's own arithmetic); torch on
@@ -424,26 +456,26 @@ MC_HD void terms(const S sig[4], const Surface<T>& p, const Consts<T>& k, S& f, 
 #else
   constexpr bool kReciprocal = false;
 #endif
-  const S I1_3 = kReciprocal ? I1 * T(1.0 / 3.0) : I1 / T(3);
-  f = I1_3 * p.sin_a + Q - p.c_cos_a;
+  const S I1_3 = kReciprocal ? mul(I1, T(1.0 / 3.0)) : I1 / T(3);
+  f = mul(I1_3, p.sin_a) + Q - p.c_cos_a;
 
   S dJ3_ds[4], dJ3[4];
-  dJ3_ds[0] = s[1] * s[2];
-  dJ3_ds[1] = s[0] * s[2];
-  dJ3_ds[2] = s[0] * s[1] - s[3] * s[3] / T(2);
-  dJ3_ds[3] = -s[2] * s[3];
+  dJ3_ds[0] = mul(s[1], s[2]);
+  dJ3_ds[1] = mul(s[0], s[2]);
+  dJ3_ds[2] = mul(s[0], s[1]) - mul(s[3], s[3]) / T(2);
+  dJ3_ds[3] = mul(-s[2], s[3]);
   dev4<T>(dJ3_ds, dJ3);
   const bool unclipped = safe && m_abs(val(arg_raw)) < k.hi;
-  const S ratio = T(1.5) * (J3 / J2s);
+  const S ratio = mul(T(1.5), J3 / J2s);
   const S Qs = max_c(Q, k.q_floor);
-  const S coef = T(2) * J2 * K * dK_dx;
-  const S KK = K * K;
-  const S den = T(2) * Qs;
+  const S coef = mul(mul(mul(T(2), J2), K), dK_dx);
+  const S KK = mul(K, K);
+  const S den = mul(T(2), Qs);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const S darg = -k.c0 * (dJ3[i] - ratio * s[i]) * invJ2_32;
+    const S darg = mul(mul(-k.c0, dJ3[i] - mul(ratio, s[i])), invJ2_32);
     const S dx = select(unclipped, darg, zero_like(darg));
-    const S frac = (KK * s[i] + coef * dx) / den;
+    const S frac = (mul(KK, s[i]) + mul(coef, dx)) / den;
     df[i] = i < 3 ? p.sin_a_3 + frac : frac;
   }
 }
@@ -455,7 +487,7 @@ MC_HD void terms(const S sig[4], const Surface<T>& p, const Consts<T>& k, S& f, 
 // C @ v over 4 entries, summed in column order
 template <typename T>
 MC_HD T row_dot(const T* Crow, const T v[4]) {
-  return Crow[0] * v[0] + Crow[1] * v[1] + Crow[2] * v[2] + Crow[3] * v[3];
+  return mul(Crow[0], v[0]) + mul(Crow[1], v[1]) + mul(Crow[2], v[2]) + mul(Crow[3], v[3]);
 }
 
 // r(y), y = (sig, dlambda) (mohr_coulomb.py:184-191)
@@ -473,7 +505,7 @@ MC_HD void residual(const T y[5], const T d[4], const T sn[4], bool plastic, con
   const T dlp = plastic ? y[4] : T(0);
   T v[4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) v[j] = d[j] - dlp * dg[j];
+  for (int j = 0; j < 4; ++j) v[j] = d[j] - mul(dlp, dg[j]);
 #pragma unroll
   for (int i = 0; i < 4; ++i) r[i] = y[i] - sn[i] - row_dot(k.C + 4 * i, v);
   r[4] = plastic ? ff : y[4];
@@ -508,9 +540,9 @@ MC_HD void solve_small(const T A[5][5], const T B[5][M], T X[5][M]) {
     const T inv_piv = T(1) / R[kk][kk];
 #pragma unroll
     for (int i = kk + 1; i < N; ++i) {
-      const T f = R[i][kk] * inv_piv;
+      const T f = mul(R[i][kk], inv_piv);
 #pragma unroll
-      for (int j = kk + 1; j < N + M; ++j) R[i][j] = R[i][j] - f * R[kk][j];
+      for (int j = kk + 1; j < N + M; ++j) R[i][j] = R[i][j] - mul(f, R[kk][j]);
     }
   }
 #pragma unroll
@@ -520,15 +552,16 @@ MC_HD void solve_small(const T A[5][5], const T B[5][M], T X[5][M]) {
     for (int j = 0; j < M; ++j) {
       T acc = R[i][N + j];
 #pragma unroll
-      for (int kk = i + 1; kk < N; ++kk) acc = acc - R[i][kk] * X[kk][j];
-      X[i][j] = acc * inv_d;
+      for (int kk = i + 1; kk < N; ++kk) acc = acc - mul(R[i][kk], X[kk][j]);
+      X[i][j] = mul(acc, inv_d);
     }
   }
 }
 
 template <typename T>
 MC_HD T norm5(const T r[5]) {
-  return m_sqrt(r[0] * r[0] + r[1] * r[1] + r[2] * r[2] + r[3] * r[3] + r[4] * r[4]);
+  return m_sqrt(mul(r[0], r[0]) + mul(r[1], r[1]) + mul(r[2], r[2]) + mul(r[3], r[3]) +
+                mul(r[4], r[4]));
 }
 
 // ---------------------------------------------------------------------------
@@ -568,7 +601,7 @@ MC_HD void hg_column(const T y[5], int r, const Consts<T>& k, T col[4], T grad[4
     h[i] = dd[i].d;  // Hg[i][r]
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) col[i] = (i == r ? T(1) : T(0)) + y[4] * row_dot(k.C + 4 * i, h);
+  for (int i = 0; i < 4; ++i) col[i] = (i == r ? T(1) : T(0)) + mul(y[4], row_dot(k.C + 4 * i, h));
 }
 
 // Line-search role a: the candidate y + alpha_a dy, its residual and |r|
@@ -578,7 +611,7 @@ MC_HD void candidate(const T y[5], const T dy[5][1], const T (&alphas)[NA], int 
                      const T sn[4], bool plastic, const Consts<T>& k, T out[11]) {
   const T al = pick(alphas, a);
 #pragma unroll
-  for (int i = 0; i < 5; ++i) out[i] = y[i] + al * dy[i][0];
+  for (int i = 0; i < 5; ++i) out[i] = y[i] + mul(al, dy[i][0]);
   residual(out, d, sn, plastic, k, out + 5);
   out[10] = norm5(out + 5);
 }
@@ -718,7 +751,7 @@ MC_HD int newton(G& g, T y[5], T res[5], T& norm, const T (&alphas)[NA], T scale
       res[i] = v[5 + i];
     }
     norm = v[10];
-    stalled = norm >= old * k.stall;
+    stalled = norm >= mul(old, k.stall);
     ++it;
   }
   return it;
@@ -760,7 +793,8 @@ MC_HD void set_yield(Trial& t, double f_tr) {
   t.f_tr = f_tr;
   const double f_pl = f_tr > 0.0 ? f_tr : 0.0;
   const double* c = t.Cd;
-  t.scale0 = max_c(m_sqrt(c[0] * c[0] + c[1] * c[1] + c[2] * c[2] + c[3] * c[3] + f_pl * f_pl),
+  t.scale0 = max_c(m_sqrt(mul(c[0], c[0]) + mul(c[1], c[1]) + mul(c[2], c[2]) + mul(c[3], c[3]) +
+                          mul(f_pl, f_pl)),
                    1e-30);
 }
 

@@ -46,13 +46,13 @@ def slope_schedule(mesh, N, loads, linear_solver="mg", **opts):
 
     Returns, as host values: the Newton list, inner counts, residual norms
     and host seconds per step, the final Du (whole), this rank's sigma and
-    its shape, the rank's K1 launches and all-reduces over the schedule,
-    and its Newton passes (updates + steps: every step ends on a pass that
-    makes no update)."""
+    its shape, the rank's K1 launches, all-reduces and their bytes over the
+    schedule, and its Newton passes (updates + steps: every step ends on a
+    pass that makes no update)."""
     fp = mohr_coulomb_slope_step(N, N, linear_solver=linear_solver, device_mesh=mesh, **opts)
     Du, sig = fp.zero_state()
     cuda = mesh.device.type == "cuda"
-    mc_ops.mc_return_map.launches = dist.psum.calls = 0
+    mc_ops.mc_return_map.launches = dist.psum.calls = dist.psum.bytes = 0
     its, inner, norms, walls = [], [], [], []
     for load in loads:
         t0 = time.perf_counter()
@@ -68,7 +68,8 @@ def slope_schedule(mesh, N, loads, linear_solver="mg", **opts):
             "inner": inner, "norms": norms, "wall_s": walls, "du": Du.cpu().numpy(),
             "sigma": sig.cpu().numpy(), "sigma_shape": tuple(sig.shape), "nc_pad": fp.nc_pad,
             "nq": fp.nq, "launches": mc_ops.mc_return_map.launches,
-            "psum_calls": dist.psum.calls, "passes": sum(its) + len(its)}
+            "psum_calls": dist.psum.calls, "psum_bytes": dist.psum.bytes,
+            "passes": sum(its) + len(its)}
 
 
 def _collective_ms(mesh, calls, reps=20):

@@ -15,9 +15,11 @@ size``; the padded rows' contributions are zeroed (forms) or sliced off
 Functions, stay whole and identical on every rank (owner computes, no
 ghost cells), so every rank takes the same branches.  The collectives are
 ``dist.all_gather`` (a form's per-cell contributions, an expression's
-values, an external operator's results) and ``dist.psum`` (the AMG
-level-0 sums), which every rank calls in the same order.  Without a mesh
-every path is the unsharded one.
+values, an external operator's results) and ``dist.cell_sum`` (the AMG
+level-0 contributions, one all-reduce through ``dist.psum`` each), which
+every rank calls in the same order; both give every cell's values whole,
+which the unsharded tables sum, so no sum depends on the rank count.
+Without a mesh every path is the unsharded one.
 
 The hand-sharded fused step (``spmd.FusedPlasticityStep(device_mesh=
 ...)``) takes its mesh as an argument and does not read the default.

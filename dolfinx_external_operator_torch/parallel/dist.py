@@ -31,7 +31,7 @@ import torch.multiprocessing as mp
 
 from .. import resolve_device
 
-__all__ = ["DeviceMesh", "all_gather", "make_device_mesh", "psum", "spawn"]
+__all__ = ["DeviceMesh", "all_gather", "cell_sum", "make_device_mesh", "psum", "spawn"]
 
 # a rank that waits longer than this in a collective raises
 _TIMEOUT = datetime.timedelta(minutes=10)
@@ -93,16 +93,33 @@ def make_device_mesh(n_devices=None, backend=None, device=None):
 def psum(x, group=None):
     """Sum of ``x`` over the ranks of ``group``, in place; returns it.
 
-    Every collective of the sharded step goes through this function, and
-    ``psum.calls`` counts them.  Every rank receives the same bits: the
-    sharded Newton and Krylov loops branch on host floats derived from
-    these sums, and ranks that branched apart would deadlock."""
+    Every collective of the sharded step goes through this function:
+    ``psum.calls`` counts them and ``psum.bytes`` adds up their payloads.
+    Every rank receives the same bits: the sharded Newton and Krylov loops
+    branch on host floats derived from these sums, and ranks that branched
+    apart would deadlock."""
     psum.calls += 1
+    psum.bytes += x.numel() * x.element_size()
     tdist.all_reduce(x, op=tdist.ReduceOp.SUM, group=group)
     return x
 
 
-psum.calls = 0
+psum.calls = psum.bytes = 0
+
+
+def cell_sum(x, mesh):
+    """Every rank's block of a per-cell array, whole on every rank, by one
+    ``psum``: ``x`` is this rank's block of ``k`` rows (the same ``k`` on
+    every rank), written at rows ``[rank k, (rank + 1) k)`` of a zeroed
+    ``(size k, ...)`` buffer that ``psum`` sums over the ranks of
+    ``mesh``.  Each row then holds one rank's values plus exact zeros, so
+    the result does not depend on the order of the sum: the same bits on
+    every rank for any rank count, which a table of every cell then sums
+    in the unsharded order."""
+    k = x.shape[0]
+    buf = x.new_zeros((mesh.size * k,) + tuple(x.shape[1:]))
+    buf[mesh.rank * k:(mesh.rank + 1) * k] = x
+    return psum(buf, mesh.group)
 
 
 def all_gather(x, n=None, group=None):

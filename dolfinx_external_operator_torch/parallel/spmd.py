@@ -27,11 +27,18 @@ order (``scatter.py``), so results are bitwise repeatable on every device.
 With a ``device_mesh`` (``dist.make_device_mesh``, one process per rank)
 the cells are padded to a multiple of the rank count and each rank owns a
 contiguous slice of them: its B-matrices, weights, dofmap and Gauss-point
-state.  Dof vectors are whole on every rank.  Each scatter is the rank's
-segment sum over its own cells followed by one all-reduce
-(``dist.psum``), as the JAX package's ``shard_map`` follows each with
-``psum`` (``spmd.py:955-989``); everything after a sum is the same work on
-the same bits on every rank, so the ranks take the same branches.
+state, from which it computes its cells' contributions.  Dof vectors are
+whole on every rank.  Each scatter makes every cell's contributions whole
+by one all-reduce (``dist.cell_sum``: each rank's at its own block of a
+zeroed buffer, summed through ``dist.psum``), where the JAX package's
+``shard_map`` follows each segment sum with ``psum`` (``spmd.py:955-989``),
+and sums them through the table of every cell that ``device_mesh=None``
+builds.  The all-reduce adds exact zeros only, so no sum depends on the
+rank count and every rank holds the same bits, so the ranks take the same
+branches.  The step gives the unsharded bits wherever a rank's per-cell
+products give those that the whole batch gives: on the CPU, and on the
+card where cuBLAS picks the same kernel for the rank's batch as for the
+whole (it picks by the batch count; PERF.md §6).
 """
 
 from __future__ import annotations
@@ -189,12 +196,12 @@ class FusedPlasticityStep:
         self.device_mesh = device_mesh
         if device_mesh is None:
             self.device = resolve_device(device)
-            self._psum = _mg._no_sum
+            self._whole = _mg._one_device
         else:
             if device is not None and resolve_device(device) != device_mesh.device:
                 raise ValueError(f"device {device!r} is not the mesh's {device_mesh.device}")
             self.device = device_mesh.device
-            self._psum = functools.partial(dist.psum, group=device_mesh.group)
+            self._whole = functools.partial(dist.cell_sum, mesh=device_mesh)
         self._vkernel = batched_kernel
         self.newton_atol = newton_atol
         self.newton_rtol = newton_rtol
@@ -227,16 +234,18 @@ class FusedPlasticityStep:
                      bc_vals=st_np["bc_vals"])
         self.statics = statics_from_numpy(local, self.device)
         dofmap = local["dofmap"].astype(np.int64)
+        # every cell's dofs: the sums' tables, those of device_mesh=None
+        dofmap_all = self._padded(st_np["dofmap"], n).astype(np.int64)
 
         # deterministic scatter: dof <- its (cell, local dof) slots
         dev = self.device
-        self._scatter_table = torch.as_tensor(segment_table(dofmap, n), device=dev)
+        self._scatter_table = torch.as_tensor(segment_table(dofmap_all, n), device=dev)
         # bc mask of each cell dof (padded cells: all masked)
         keep_ext = np.concatenate([~st_np["bc_mask"], [False]])
         self._keep_cell = torch.as_tensor(keep_ext[dofmap], dtype=_F, device=dev)
         self._dense_asm = None
         if linear_solver in ("dense", "elastic"):
-            self._dense_asm = dedup_table(*self._dense_keys(dofmap), device=dev)
+            self._dense_asm = dedup_table(*self._dense_keys(dofmap_all), device=dev)
         self._bcr = None
         if linear_solver == "bcr" and not self._setup_bcr(st_np, auto):
             # auto-selected BCR on a mesh that turned out non-lattice
@@ -245,9 +254,9 @@ class FusedPlasticityStep:
         # the hierarchy and the elastic inverse are built from all cells,
         # the same on every rank (the JAX package's design)
         if linear_solver == "mg":
-            self._setup_mg(st_np, dict(mg_opts or {}), dofmap)
+            self._setup_mg(st_np, dict(mg_opts or {}), dofmap, dofmap_all)
         elif linear_solver == "elastic":
-            self._setup_elastic_inverse(st_np, dofmap)
+            self._setup_elastic_inverse(st_np, dofmap, dofmap_all)
         # dense-path factorization: "lu" on the CPU, "chol" on the card,
         # from where the statics landed (spmd.py:802-804)
         self._dense_fact = "lu" if dev.type == "cpu" else "chol"
@@ -255,27 +264,35 @@ class FusedPlasticityStep:
         # JAX package's default is 1, validated Newton-iterate-identical)
         self._dense_refine = int(dense_refine)
 
-    def _cells(self, a, pad=0):
-        """This rank's rows of the per-cell array ``a`` (all cells), after
-        padding it to ``nc_pad`` rows of ``pad``: the index that drops a
-        padded cell's contributions from its map."""
+    def _padded(self, a, pad=0):
+        """The per-cell array ``a`` (all cells) padded to ``nc_pad`` rows of
+        ``pad``: the index that drops a padded cell's contributions from
+        its map."""
         a = np.asarray(a)
-        a = np.concatenate([a, np.full((self.nc_pad - a.shape[0],) + a.shape[1:], pad, a.dtype)])
+        return np.concatenate([a, np.full((self.nc_pad - a.shape[0],) + a.shape[1:], pad,
+                                          a.dtype)])
+
+    def _cells(self, a, pad=0):
+        """This rank's rows of ``_padded(a, pad)``."""
+        a = self._padded(a, pad)
         if self.device_mesh is None:
             return a
         k = self.nc_pad // self.device_mesh.size
         return a[self.device_mesh.rank * k:(self.device_mesh.rank + 1) * k]
 
     def _dense_keys(self, dofmap_p):
-        """Flat index into the (n + 1, n + 1) matrix of each per-cell
-        (nk, nk) contribution, and that size: the dense assembly map, summed
-        per unique (i, j) and written once (the JAX package's sorted
-        ``segment_sum`` + unique scatter)."""
+        """Flat index into the (n, n) matrix of each per-cell (nk, nk)
+        contribution, and that size: the dense assembly map, summed per
+        unique (i, j) and written once (the JAX package's sorted
+        ``segment_sum`` + unique scatter).  A padded cell's entries (the
+        dummy dof n) get -1, which the map drops: gathered into a slot of
+        their own, they would widen the table of every slot, and a wider
+        row sums in another order."""
         n = self.n_dofs
         nk = dofmap_p.shape[1]
         ii = np.repeat(dofmap_p, nk, axis=1).ravel()
         jj = np.tile(dofmap_p, (1, nk)).ravel()
-        return ii * np.int64(n + 1) + jj, (n + 1) * (n + 1)
+        return np.where((ii < n) & (jj < n), ii * np.int64(n) + jj, -1), n * n
 
     def _setup_bcr(self, st_np, auto):
         """Host build of the block-cyclic-reduction map (spmd.py:455-474):
@@ -308,9 +325,9 @@ class FusedPlasticityStep:
 
         self._bcr = {
             "m": m, "B": B, "n": n,
-            # this rank's cells; padded cells point at the sentinel, which
-            # the map drops
-            "bands": dedup_table(self._cells(info["dst"], sentinel), sentinel, dev),
+            # every cell; padded cells point at the sentinel, which the map
+            # drops
+            "bands": dedup_table(self._padded(info["dst"], sentinel), sentinel, dev),
             "diag_fix": t(info["diag_fix"]),
             "diag_slot": t(info["diag_slot"]),
             "perm_l2o": t(info["perm_l2o"]),
@@ -333,15 +350,16 @@ class FusedPlasticityStep:
         return np.einsum("cqik,ij,cqjl,cq->ckl", B_np, self._elastic_tangent(), B_np,
                          st_np["wdet"][:self.nc], optimize=True)
 
-    def _setup_mg(self, st_np, mg_opts, dofmap):
+    def _setup_mg(self, st_np, mg_opts, dofmap, dofmap_all):
         """The AMG hierarchy (spmd.py:391-453): built on the host from the
         elastic tangent (``mg.build_mg_statics``), or taken from
         ``statics["mg"]`` without a mesh; then its device plan
-        (``mg.mg_plan``) over this rank's cells (``dofmap``): the level-0
-        maps ``W``, ``blk_dst`` and ``dia0_dst`` are sliced as the JAX
-        package shards them (spmd.py:308-314, :449-452), each scatter of
-        ``mg_setup`` and of the level-0 element-blocked matvecs is
-        followed by ``psum``, and the coarse levels stay whole."""
+        (``mg.mg_plan``): this rank's cells (``dofmap``, the level-0
+        ``W``, as the JAX package shards them, spmd.py:308-314) compute
+        the contributions, which each scatter of ``mg_setup`` and of the
+        level-0 element-blocked matvecs makes whole (``dist.cell_sum``)
+        and sums through every cell's map (``dofmap_all``, ``blk_dst``,
+        ``dia0_dst``); the coarse levels stay whole."""
         if self.mesh is not None:
             # above ~30k dofs the aggregation levels keep their elastic
             # Galerkin values (the per-Newton maps would dwarf the few CG
@@ -374,13 +392,14 @@ class FusedPlasticityStep:
         dia = mode == "dia"
         t0 = dict(mgs["transfers"][0])
         t0["W"] = self._cells(t0["W"])
-        t0["blk_dst"] = self._cells(t0["blk_dst"], np.asarray(mgs["levels"][0]["cols"]).size)
+        t0["blk_dst"] = self._padded(t0["blk_dst"], np.asarray(mgs["levels"][0]["cols"]).size)
         mgs["transfers"] = [t0] + list(mgs["transfers"][1:])
         if static["dia0_offsets"] is not None:
-            mgs["dia0_dst"] = self._cells(mgs["dia0_dst"],
-                                          len(static["dia0_offsets"]) * self.n_dofs)
+            mgs["dia0_dst"] = self._padded(mgs["dia0_dst"],
+                                           len(static["dia0_offsets"]) * self.n_dofs)
         self._mg = _mg.mg_plan(
-            mgs, dofmap, st_np["bc_mask"], self.device, psum=self._psum, mv0_mode=mode,
+            mgs, dofmap, st_np["bc_mask"], self.device, whole=self._whole,
+            dofmap_all=dofmap_all, mv0_mode=mode,
             dia_offsets=static["dia0_offsets"],
             dia1_offsets=static["dia1_offsets"] if dia else None,
             t0_stencil=static["t0_stencil"] if dia else None,
@@ -388,14 +407,15 @@ class FusedPlasticityStep:
         # dofs per level: level 0, then the P1 level and the aggregates
         self.mg_sizes = [self.n_dofs] + [lvl["n"] for lvl in self._mg["levels"]]
 
-    def _setup_elastic_inverse(self, st_np, dofmap):
+    def _setup_elastic_inverse(self, st_np, dofmap, dofmap_all):
         """Dense f32 inverse of the Jacobi-equilibrated ELASTIC stiffness,
         the first preconditioner of ``linear_solver="elastic"``
         (spmd.py:360-389).  Built with numpy from all cells as in the JAX
         package, so it is the same matrix bit for bit (and on every rank).
         The (Minv, d) pair is step state: every load step refreshes it from
         its converged tangent.  The element-blocked matvecs run over this
-        rank's cells (``dofmap``)."""
+        rank's cells (``dofmap``) and sum over every cell
+        (``dofmap_all``)."""
         n = self.n_dofs
         dm = st_np["dofmap"][:self.nc].astype(np.int64)
         K = np.zeros((n, n), np.float64)
@@ -407,14 +427,15 @@ class FusedPlasticityStep:
         Ks = (K * d[:, None] * d[None, :]).astype(np.float32)
         self._el_precond = (torch.as_tensor(np.linalg.inv(Ks), device=self.device),
                             torch.as_tensor(d, dtype=torch.float32, device=self.device))
-        self._el_ebe = _mg.ebe_plan(dofmap, mask, n, self.device, psum=self._psum)
+        self._el_ebe = _mg.ebe_plan(dofmap, mask, n, self.device, whole=self._whole,
+                                    dofmap_all=dofmap_all)
 
     def _assemble_dense_f32(self, K_cell32):
         """Global (n, n) f32 matrix from per-cell (nk, nk) blocks (sharded:
-        an all-reduce of the (n + 1)^2 matrix, spmd.py:356-358)."""
+        an all-reduce of every cell's blocks, where the JAX package
+        all-reduces the (n + 1)^2 matrix, spmd.py:356-358)."""
         n = self.n_dofs
-        K = self._psum(dedup_write(K_cell32.reshape(-1), self._dense_asm))
-        return K.view(n + 1, n + 1)[:n, :n]
+        return dedup_write(self._whole(K_cell32).reshape(-1), self._dense_asm).view(n, n)
 
     # ------------------------------------------------------------------
     # element chain (spmd.py:477-524)
@@ -422,7 +443,7 @@ class FusedPlasticityStep:
         return torch.cat([u, u.new_zeros(1)])[self.statics["dofmap"]]  # (nc, nk)
 
     def _scatter(self, cell_vals):
-        return self._psum(segment_sum(cell_vals.reshape(-1), self._scatter_table))
+        return segment_sum(self._whole(cell_vals).reshape(-1), self._scatter_table)
 
     def _constitutive(self, Du, sigma_n):
         st = self.statics
@@ -569,9 +590,9 @@ class FusedPlasticityStep:
         lattice numbering, with identity bc and padding rows
         (spmd.py:745-763)."""
         plan = self._bcr
-        Tflat = self._psum(dedup_write(self._k_cell_masked(C_tang, torch.float32),
-                                       plan["bands"]))
-        Tflat[plan["diag_fix"]] += 1.0  # unique slots, after the sum over ranks
+        Tflat = dedup_write(self._whole(self._k_cell_masked(C_tang, torch.float32)),
+                            plan["bands"])
+        Tflat[plan["diag_fix"]] += 1.0  # unique slots
         return Tflat
 
     def _bcr_apply(self, fact, d, rr):

@@ -32,9 +32,10 @@ every rank (``assembly``), so the dense path factorizes the same matrix on
 every rank and the Newton loop reads the same norms; the element tensors
 are the rank's, and each element-by-element matvec gathers its per-cell
 products whole (``CompiledForm._scatter_rows``).  The AMG hierarchy is
-built whole on every rank from the gathered element tensors, with the
-rank's level-0 maps and their sums through ``dist.psum`` (the fused
-step's ``parallel/mg.py`` hooks).
+built whole on every rank from the gathered element tensors; each rank
+computes its cells' level-0 contributions, which ``dist.cell_sum`` makes
+whole and the tables of every cell sum (the fused step's
+``parallel/mg.py`` hooks), so no sum depends on the rank count.
 """
 
 from __future__ import annotations
@@ -274,29 +275,43 @@ class NewtonSolver:
         for bc in problem.bcs:
             bc_only[bc.dofs] = True
         gmres = self.ksp_type == "gmres"
-        dmesh, psum = problem.J.device_mesh, None
+        dmesh, whole = problem.J.device_mesh, None
         K_dom0 = elems[dom][0]
+
+        def padded(a, fill):
+            """Every cell's rows of ``a``, sharded padded to the rank count
+            with ``fill``, an index past the end that the sums drop."""
+            a = np.asarray(a)
+            if dmesh is None:
+                return a
+            extra = padded_cell_count(len(a), dmesh) - len(a)
+            return np.concatenate([a, np.full((extra,) + a.shape[1:], fill, a.dtype)])
+
         if dmesh is not None:  # the hierarchy is built whole on every rank
-            from .parallel import dist, rank_rows
+            from .parallel import dist, padded_cell_count, rank_rows
 
             K_dom0 = dist.all_gather(K_dom0, dm_V.shape[0], dmesh.group)
-            psum = functools.partial(dist.psum, group=dmesh.group)
+            whole = functools.partial(dist.cell_sum, mesh=dmesh)
+        # the tables of the sums: every cell's test dofs
+        dofs_all = [padded(s["test_dofs_all"], n) for s in problem.J._statics()]
         K_dom0 = K_dom0.cpu().numpy()
         if gmres:
             K_dom0 = 0.5 * (K_dom0 + np.swapaxes(K_dom0, 1, 2))
         mgs = mgmod.build_mg_statics(problem.J.mesh, V, bc_only, K_dom0,
                                      galerkin_levels=None if n <= 30_000 else 1)
-        if dmesh is not None:  # the level-0 maps of the rank's cells
-            rows = rank_rows(dm_V.shape[0], dmesh)[0]
+        if dmesh is not None:  # the rank's cells' W, every cell's blk_dst
             t0 = dict(mgs["transfers"][0])
-            t0["W"], t0["blk_dst"] = np.asarray(t0["W"])[rows], np.asarray(t0["blk_dst"])[rows]
+            t0["W"] = np.asarray(t0["W"])[rank_rows(dm_V.shape[0], dmesh)[0]]
+            t0["blk_dst"] = padded(t0["blk_dst"], np.asarray(mgs["levels"][0]["cols"]).size)
             mgs["transfers"] = [t0] + list(mgs["transfers"][1:])
         dev = elems[dom][0].device
         return {"dom": dom, "gmres": gmres, "n": n,
-                "plan": mgmod.mg_plan(mgs, elems[dom][1].cpu().numpy(), bc_only, dev, psum=psum,
-                                      mv0_mode="scalar", cheb_degree=mgs["cheb_degree"]),
-                "ebe": [mgmod.ebe_plan(td.cpu().numpy(), bc_only, n, dev, psum=psum)
-                        for _, td, _ in elems]}
+                "plan": mgmod.mg_plan(mgs, elems[dom][1].cpu().numpy(), bc_only, dev, whole=whole,
+                                      dofmap_all=dofs_all[dom], mv0_mode="scalar",
+                                      cheb_degree=mgs["cheb_degree"]),
+                "ebe": [mgmod.ebe_plan(td.cpu().numpy(), bc_only, n, dev, whole=whole,
+                                       dofmap_all=d_all)
+                        for (_, td, _), d_all in zip(elems, dofs_all)]}
 
     def _mg_solve(self, problem, elems, mask, b, maxiter):
         """AMG-preconditioned Krylov on the element-blocked Jacobian

@@ -16,11 +16,12 @@ per-lane gap of C and sigma relative to the largest entry, and the lanes
 whose ``niter`` differs), the two kernels against each other (the same,
 and whether every output is bitwise equal), and each kernel's device time
 in a CUDA graph, timed in turns (other, this, this, other).  Both are built
-with this checkout's flags for K1 (``_native/cuda.py``: no FMA
-contraction); ``--fmad true`` builds both with it, and ``--other-fmad``
-sets it for the other kernel alone (``--other-fmad true`` with an earlier
-commit: K1 as that commit built it, against this one).  Two kernels that
-do the same arithmetic, operation for operation, give the same bits.
+with this checkout's flags (``_native/cuda.py``, ``NVCC_FLAGS``);
+``--fmad true|false`` adds nvcc's FMA contraction on or off for both, and
+``--other-fmad`` for the other kernel alone (``--other-fmad false`` with
+a commit that built K1 so: K1 as that commit built it, against this
+one).  Two kernels that do the same
+arithmetic, operation for operation, give the same bits.
 
 The inputs: the real iterate of step 50's first Newton pass on the 25x25
 slope (the main path of ``chip_smoke.py``); the strain mix of
@@ -202,8 +203,8 @@ def main():
     ap.add_argument("other", help="a directory holding the other commit's "
                                   "dolfinx_external_operator_torch/csrc")
     ap.add_argument("--fmad", choices=("true", "false"), default=None,
-                    help="nvcc's FMA contraction, for both kernels (default: K1's own "
-                         "flags)")
+                    help="nvcc's FMA contraction, for both kernels (default: nvcc's, "
+                         "on)")
     ap.add_argument("--other-fmad", choices=("true", "false"), default=None,
                     help="nvcc's FMA contraction for the other kernel alone (default: as "
                          "--fmad)")
@@ -215,8 +216,7 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(card, flush=True)
-    extra = (native.KERNEL_NVCC_FLAGS.get("mohr_coulomb", []) if args.fmad is None
-             else [f"-fmad={args.fmad}"])
+    extra = [] if args.fmad is None else [f"-fmad={args.fmad}"]
     flags = {"other": extra if args.other_fmad is None else [f"-fmad={args.other_fmad}"],
              "this": extra}
     srcs = {"other": os.path.join(args.other, "dolfinx_external_operator_torch", "csrc"),

@@ -435,9 +435,14 @@ def test_cuda_one_nccl_rank_is_the_unsharded_step(cuda, mode):
 def test_cuda_two_gloo_ranks_on_one_card(cuda, mode):
     """Two gloo ranks with CUDA tensors on one card (NCCL refuses that):
     the one-rank Newton list, Du within 1e-10, the ranks' norms bitwise
-    equal, one K1 launch per Newton pass on each rank.  In node mode the
-    cycle's level-0 matvec all-reduces over gloo, so the cycle runs eager
-    (no CUDA graph can hold a gloo all-reduce); in dia mode it is graphed."""
+    equal, one K1 launch per Newton pass on each rank.  Not bitwise at 8x8:
+    the sums are order-free, but cuBLAS picks a batched product's kernel by
+    the batch count, and for a rank's 64 cells against all 128 the strain
+    and residual einsums and the f32 element-blocked matvec pick others
+    (``chip_smoke.py`` phase 15 holds 25x25 bitwise, where the mg path's
+    products pick the same kernels).  In node mode the cycle's level-0
+    matvec all-reduces over gloo, so the cycle runs eager (no CUDA graph
+    can hold a gloo all-reduce); in dia mode it is graphed."""
     from dolfinx_external_operator_torch.entry import slope_schedule
     from dolfinx_external_operator_torch.parallel import dist
 
@@ -540,3 +545,74 @@ def test_cuda_two_gloo_ranks_gather_and_general_slope(cuda):
         assert float(np.abs(run["u"] - u_ref).max()) <= 1e-10 * float(np.abs(u_ref).max())
         assert run["points"] == [3 * 8 * 8] and run["launches"] == run["map_calls"]
         assert np.array_equal(run["u"], runs[0]["u"])
+
+
+def test_cuda_determinism(cuda):
+    """``tests/test_torch_determinism.py`` on the card: the heat forms'
+    vector, matrix and action bitwise repeatable and across rebuilt
+    objects (every scatter a gather table, no atomics), and within 1e-12
+    of the CPU's; the 4x4 fused dense step through K1 at load 8 run twice,
+    bitwise, and within 1e-8 of the CPU's plain step (Cholesky on the
+    card, LU on the CPU)."""
+    from dolfinx_external_operator_torch import convert
+
+    def heat(device):
+        mesh = pt.create_unit_square(6, 6)
+        V = pt.functionspace(mesh, ("Lagrange", 2))
+        u0 = 1.0 + 0.2 * np.random.default_rng(11).standard_normal(V.num_dofs)
+        u = convert.function_from_numpy(V, u0, device=device)
+        v, uh = pt.TestFunction(V), pt.TrialFunction(V)
+        dx = pt.Measure("dx", metadata={"quadrature_degree": 4, "quadrature_scheme": "default"})
+        F = pt.inner((1.0 + u * u) * pt.grad(u), pt.grad(v)) * dx
+        return F, pt.derivative(F, u, uh)
+
+    def close(a, b, tol):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        return float(np.abs(a - b).max()) <= tol * float(np.abs(b).max())
+
+    F, J = heat(cuda)
+    Fc, Jc = heat("cpu")
+    b1, b2 = pt.assemble_vector(F, device=cuda), pt.assemble_vector(heat(cuda)[0], device=cuda)
+    A1, A2 = pt.assemble_matrix(J, device=cuda), pt.assemble_matrix(J, device=cuda)
+    form = pt.create_form(J, device=cuda)
+    x = torch.tensor(np.random.default_rng(7).normal(size=form.test_space.num_dofs), device=cuda)
+    y1, y2 = form.action(x), form.action(x)
+    assert torch.equal(b1, b2) and torch.equal(A1, A2) and torch.equal(y1, y2)
+    assert close(b1, pt.assemble_vector(Fc, device="cpu"), 1e-12)
+    assert close(A1, pt.assemble_matrix(Jc, device="cpu"), 1e-12)
+    assert close(y1, pt.create_form(Jc, device="cpu").action(x.cpu()), 1e-12)
+
+    outs = []
+    for device, route in ((cuda, "cuda"), (cuda, "cuda"), ("cpu", "plain")):
+        fp = pt.mohr_coulomb_slope_step(4, 4, route=route, device=device, linear_solver="dense")
+        Du, sig = fp.zero_state()
+        before = mc_ops.mc_return_map.launches
+        Du, sig, _, its, _ = fp.run_step(Du, sig, 8.0)
+        outs.append((Du, sig, int(its), mc_ops.mc_return_map.launches - before))
+    (Du1, sig1, its1, n1), (Du2, sig2, its2, _), (Du_c, sig_c, its_c, _) = outs
+    assert torch.equal(Du1, Du2) and torch.equal(sig1, sig2) and its1 == its2 == its_c
+    assert n1 == its1 + 1  # one K1 launch per Newton pass
+    assert close(Du1, Du_c, 1e-8) and close(sig1, sig_c, 1e-8)
+
+
+def test_cuda_yield_surface_sweep(cuda):
+    """``tests/test_torch_yield_surface.py``'s Lode sweep through K1 on the
+    card: predictors beyond the surface return to |f| < 5e-7 with a
+    positive multiplier, sigma within 1e-9 of the plain map's on the CPU
+    (relative to its largest entry), one launch."""
+    mat = pt.MohrCoulombMaterial()
+    c = np.sqrt(2.0 / 3.0)
+    xi, rho = -6.0, 14.0
+    sigs = np.array([[xi / np.sqrt(3.0) + c * rho * np.cos(t + k * 2.0 * np.pi / 3.0)
+                      for k in (0, -1, 1)] + [0.0]
+                     for t in np.linspace(-np.pi / 6 + 0.02, np.pi / 6 - 0.02, 11)])
+    deps = torch.tensor((sigs @ np.linalg.inv(mat.C_elas).T).T.copy())
+    zero = torch.zeros_like(deps)
+    before = mc_ops.mc_return_map.launches
+    _, sig, _, _, _, dlambda = mc_ops.mc_return_map(deps.to(cuda), zero.to(cuda), mat)
+    torch.cuda.synchronize()
+    assert mc_ops.mc_return_map.launches == before + 1
+    sig_p, _, _, _, _ = mat.return_map(deps, zero)
+    assert float(mat.f_yield(sig).abs().max()) < 5e-7
+    assert bool((dlambda > 0.0).all())
+    assert float((sig.cpu() - sig_p).abs().max() / sig_p.abs().max()) < 1e-9

@@ -21,13 +21,13 @@ each also against the JAX package sharded over 8 devices (the same inputs,
 made with numpy from a seed, through ``convert.function_from_numpy``)
 within 1e-12.  Added: GMRES and AMG-CG on the von Mises cylinder (lc=0.5,
 3 increments) and the 4x4 slope through ``solve_slope_stability`` on 2
-ranks, against one rank (the Newton lists, the inner counts within 2x a
-step + 10) and the slope against the JAX package; each rank's callback
-sees half the Gauss points; ICNN hyperelasticity (``run_comparison``,
-lc=0.12, 2 steps) on 2 ranks against one.  Every collective is counted: only
-``all_reduce`` (through ``dist.psum``, AMG's level-0 sums) and
-``all_gather`` (through ``dist.all_gather``) are called.  One rank gives
-the unsharded bits.
+ranks, against one rank (the cylinder bit for bit: AMG's level-0 sums go
+through ``dist.cell_sum``) and the slope against the JAX package; each
+rank's callback sees half the Gauss points; ICNN hyperelasticity
+(``run_comparison``, lc=0.12, 2 steps) on 2 ranks against one.  Every
+collective is counted: only ``all_reduce`` (through ``dist.psum``: AMG's
+level-0 sums, by ``dist.cell_sum``) and ``all_gather`` (through
+``dist.all_gather``) are called.  One rank gives the unsharded bits.
 
 All cases of a rank count run in one spawn
 (``_torch_general_shard_worker.suite``); the JAX runs happen in the test
@@ -275,22 +275,25 @@ def test_krylov_sharded(ranks, jax_runs, n):
 @pytest.mark.parametrize("case", ["gmres", "mg"])
 def test_cylinder_krylov_two_ranks(ranks, case):
     """The von Mises cylinder with GMRES and with AMG-CG on 2 ranks: one
-    rank's Newton list, inner counts within 2x a step + 10, the probes and
-    u within 1e-8 of one rank's, relative to u's largest entry, the
-    Newton tolerance: AMG's level-0 maps sum through psum, whose order
-    follows the rank count, and each update ends at its own Krylov
-    tolerance (on the CPU GMRES gives one rank's bits, AMG-CG is 3.4e-14
-    off)."""
+    rank's bits.  AMG's level-0 sums all-reduce every cell's contributions
+    (``dist.cell_sum``: each rank's beside exact zeros) and sum them in
+    the unsharded order, so the Newton list, the inner counts, u and the
+    probes are one rank's; the bounds the test held before (inner counts
+    within 2x a step + 10, u and the probes within 1e-8 of u's largest
+    entry) are kept beside them."""
     one = _unsharded(ranks, 2, case)
     assert sum(one["newton"]) > len(one["newton"])  # the plastic step is reached
     for res in ranks[2]:
         run = res[case]
         assert run["newton"] == one["newton"]
+        assert run["inner"] == one["inner"]
         for k, k1 in zip(run["inner"], one["inner"]):
             assert k <= 2 * k1 + 10 and k1 <= 2 * k + 10, (run["inner"], one["inner"])
         scale = np.abs(one["u"]).max()
         assert _diff(run["u"], one["u"]) <= 1e-8 * scale
         assert _diff(run["results"], one["results"]) <= 1e-8 * scale
+        assert np.array_equal(run["u"], one["u"])
+        assert np.array_equal(run["results"], one["results"])
 
 
 def test_slope_two_ranks(ranks, jax_runs):
