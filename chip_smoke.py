@@ -96,7 +96,9 @@ Phases, in order; any failed check exits non-zero without the ``ok`` line:
    each rank, every rank's residual norms bitwise equal, and phase 11's
    bits: Du, sigma (the ranks' slices in rank order), the Newton and the
    inner lists (each sum all-reduces every cell's contributions beside
-   exact zeros, ``dist.cell_sum``); the JAX test's bands are kept beside
+   exact zeros, ``dist.cell_sum``, and each per-cell product is a kernel
+   of fixed summation order, ``ops/element_chain.py``); the JAX test's
+   bands are kept beside
    (Du within 1e-9, inner counts within max(10, 0.4 n1) per step); s/step,
    all-reduces and their bytes per Newton pass, and the time of one
    all-reduce of each payload (every cell's dof contributions, element
@@ -156,7 +158,18 @@ Phases, in order; any failed check exits non-zero without the ``ok`` line:
    own, all started together, ``--no-plot``): the simple example, nonlinear heat, von Mises
    ``--small`` on one process and on ``--ranks 2`` (gloo; the final
    displacements within 1e-12 relative), Mohr-Coulomb ``--small`` and
-   hyperelasticity ``--small``; each holds its own asserts.
+   hyperelasticity ``--small``; each holds its own asserts;
+25. the element chain's kernels E1-E4 (``ops/element_chain.py``, one
+   launch a product, each output one sum of fixed order): ``tools/
+   slice_bits.py`` on the card, every per-cell product of the slope's
+   AMG-CG step (8x8 dia and node, 25x25 dia) on the cells of each of 2
+   and 3 ranks bitwise the whole batch's, the return map included, and
+   the general pipeline's beside them (its action and Krylov operator,
+   E4, bitwise; its operand evaluation recorded); at step 50's iterate of
+   phase 6, each kernel and mode against its plain version (``EC_TOL``),
+   timed in a CUDA graph and a call beside its plain version and one
+   einsum or ``torch.bmm`` that computes its function, against its bound.  Their launches are counted over phases
+   6 (E1-E3), 11 and 12 (E4 too), and each of those checks them.
 
 Peaks, bounds and work counts come from
 ``dolfinx_external_operator_torch/utils/roofline.py``.  The line before the
@@ -187,6 +200,7 @@ import torch.nn.functional as F
 import dolfinx_external_operator_torch as pt
 from dolfinx_external_operator_torch._native import cuda as native
 from dolfinx_external_operator_torch.models import von_mises as vm
+from dolfinx_external_operator_torch.ops import element_chain as ec
 from dolfinx_external_operator_torch.ops import mohr_coulomb as mc_ops
 from dolfinx_external_operator_torch.ops import vonmises as vm_ops
 from dolfinx_external_operator_torch.entry import (
@@ -195,6 +209,7 @@ from dolfinx_external_operator_torch.entry import (
     slope_schedule,
 )
 from dolfinx_external_operator_torch.parallel import bcr, dist, mg
+from dolfinx_external_operator_torch.tools import slice_bits
 from dolfinx_external_operator_torch.utils import roofline
 
 # kernel vs plain on the card: the f64 polish stops once |r| <= 1e-8 of the
@@ -827,10 +842,12 @@ def mc_main_path(report):
     report["mc_first_solve"] = first
     warm_up(fp_k, loads[0])
     warm_up(fp_p, loads[0])
-    # the main path: the kernel's count starts at 0 here and is read after it
+    # the main path: the kernels' counts start at 0 here and are read after it
     mc_ops.mc_return_map.launches = 0
+    ec.reset_launches()
     Du_k, its_k, _, wall_k, states = run_loads(fp_k, loads, capture=(49, 50))
     launches = mc_ops.mc_return_map.launches
+    ec_launches = ec.launch_counts()
     print(f"25x25 slope, kernel: newton {its_k} ({sum(its_k)}), launches {launches}, "
           f"{sum(wall_k):.2f} s, s/step {[round(w, 4) for w in wall_k]}", flush=True)
     Du_p, its_p, _, wall_p, _ = run_loads(fp_p, loads)
@@ -840,11 +857,17 @@ def mc_main_path(report):
     check(its_k == record, f"kernel Newton list {its_k} != record {record}")
     check(its_p == record, f"plain Newton list {its_p} != record {record}")
     check(launches == sum(its_k) + len(loads), f"{launches} launches for Newton {its_k}")
+    # one strain and one residual a Newton pass; an update's f32 blocks and
+    # its refinement rounds' tangent matvecs; no element-blocked matvec
+    want = {"cell_strain": launches, "cell_residual": launches,
+            "cell_tangent": sum(its_k) * (1 + fp_k._dense_refine), "ebe_cell_matvec": 0}
+    print(f"25x25 slope, kernel: element-chain launches {ec_launches}", flush=True)
+    check(ec_launches == want, f"element-chain launches {ec_launches}, expected {want}")
     du_err = float((Du_k - Du_p).abs().max() / Du_p.abs().max())
     check(du_err < 1e-8, f"kernel Du differs from plain by {du_err:.3e}")
     report["mc_main"] = {"newton_kernel": its_k, "newton_plain": its_p, "launches": launches,
-                         "wall_kernel_s": wall_k, "wall_plain_s": wall_p,
-                         "du_rel_err": du_err}
+                         "ec_launches": ec_launches, "wall_kernel_s": wall_k,
+                         "wall_plain_s": wall_p, "du_rel_err": du_err}
     return fp_k, states, launches
 
 
@@ -1059,8 +1082,10 @@ def mg_25x25_phase(report, fp_dense, state):
     warm_up(fp, loads[0])
     torch.cuda.reset_peak_memory_stats()
     mc_ops.mc_return_map.launches = 0
+    ec.reset_launches()
     Du_end, its, inner, walls, states = run_loads(fp, loads, capture=(10, 49, 50))
     launches = mc_ops.mc_return_map.launches
+    ec_launches = ec.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     print(f"25x25 slope, mg (dia) + kernel: newton {sum(its)}, launches {launches}, inner "
           f"{sum(inner)} ({sum(inner) / sum(its):.1f} per update), levels {fp.mg_sizes} "
@@ -1070,13 +1095,19 @@ def mg_25x25_phase(report, fp_dense, state):
     print(f"  s/step {[round(w, 4) for w in walls]}", flush=True)
     check(its == rec, f"25x25 mg Newton list {its} != record {rec}")
     check(launches == sum(its) + len(its), f"{launches} launches for Newton {its}")
+    # the f64 blocks once an update, the element-blocked f64 matvec in
+    # each refinement round (dia mode's f32 level-0 matvec is banded)
+    print(f"  element-chain launches {ec_launches}", flush=True)
+    check(ec_launches["cell_strain"] == ec_launches["cell_residual"] == launches
+          and ec_launches["cell_tangent"] == sum(its) and ec_launches["ebe_cell_matvec"] > 0,
+          f"element-chain launches {ec_launches} for {launches} passes, {sum(its)} updates")
     gap = sum(inner) / MG_25_INNER_JAX - 1.0
     print(f"  inner iterations {sum(inner)} against the JAX package's {MG_25_INNER_JAX} on the "
           f"CPU: {gap:+.1%} (bound {MG_INNER_TOL:.0%})", flush=True)
     check(abs(gap) <= MG_INNER_TOL, f"25x25 mg inner iterations {sum(inner)} beyond "
           f"{MG_INNER_TOL:.0%} of {MG_25_INNER_JAX}")
-    out = {"newton": its, "inner": inner, "launches": launches, "wall_s": walls,
-           "peak_bytes": peak, "levels": fp.mg_sizes,
+    out = {"newton": its, "inner": inner, "launches": launches, "ec_launches": ec_launches,
+           "wall_s": walls, "peak_bytes": peak, "levels": fp.mg_sizes,
            "kinds": [lvl["kind"] for lvl in fp._mg["levels"]]}
     report["mg_25x25"] = out
 
@@ -1131,14 +1162,18 @@ def elastic_25x25_phase(report):
     warm_up(fp, pt.SLOPE_LOADS[0])
     fp._el_precond = first
     mc_ops.mc_return_map.launches = 0
+    ec.reset_launches()
     _, its, inner, walls, states = run_loads(fp, pt.SLOPE_LOADS, capture=(49,))
     launches = mc_ops.mc_return_map.launches
+    ec_launches = ec.launch_counts()
     print(f"25x25 slope, elastic + kernel: newton {sum(its)}, launches {launches}, inner "
           f"{sum(inner)} ({sum(inner) / sum(its):.1f} per update), setup {setup_s:.2f} s, "
           f"{sum(walls):.2f} s, {sum(walls) / len(walls):.4f} s/step", flush=True)
     print(f"  inner per step {inner}", flush=True)
     check(its == rec, f"25x25 elastic Newton list {its} != record {rec}")
     check(launches == sum(its) + len(its), f"{launches} launches for Newton {its}")
+    print(f"  element-chain launches {ec_launches}", flush=True)
+    check(ec_launches["ebe_cell_matvec"] > 0, f"element-chain launches {ec_launches}")
     # the end-of-step refresh at step 50's first tangent: the SPD inverse
     # does n^3 operations (Cholesky, triangular inverse and the product,
     # n^3 / 3 each); it reads the f32 element blocks and writes the inverse
@@ -1149,7 +1184,8 @@ def elastic_25x25_phase(report):
     print(f"  end-of-step refresh at step 50: {refresh_ms:.3f} ms against {refresh_bound:.4g} ms "
           f"({refresh_by})", flush=True)
     report["elastic_25x25"] = {"newton": its, "inner": inner, "launches": launches,
-                               "wall_s": walls, "setup_s": setup_s, "refresh_ms": refresh_ms,
+                               "ec_launches": ec_launches, "wall_s": walls, "setup_s": setup_s,
+                               "refresh_ms": refresh_ms,
                                "refresh_bound_ms": refresh_bound, "refresh_bound_by": refresh_by}
     return launches
 
@@ -1859,6 +1895,145 @@ def sharded_general_phase(report, ref, n, backend, loads=pt.SLOPE_LOADS):
     return [r["launches"] for r in runs] if n > 1 else first["launches"]
 
 
+# phase 25: the element chain's kernels against their plain versions, the
+# gap over the largest sum of the terms' magnitudes (the plain version on
+# the inputs' absolute values: the scale a sum's rounding grows with; the
+# outputs themselves cancel, an f32 element-blocked matvec to ~1e-5 of its
+# largest entry); in the first chip run f64 stayed below 2e-14 and f32
+# below 3e-7 of the largest entry where the outputs do not cancel
+EC_TOL = {torch.float64: 1e-13, torch.float32: 1e-5}
+
+
+def ec_cases(fp, Du, sig_n):
+    """The element chain's products at the iterate ``(Du, sig_n)`` of the
+    step ``fp``, as the step calls them: dicts of the row, the mode, the
+    kernel call, the plain call, the plain call on the inputs' absolute
+    values (the error's scale), the library call and the bound's
+    arguments.  The library call is one einsum or ``torch.bmm`` that
+    computes the kernel's function, on inputs gathered beforehand (the
+    tangent matvec's: one five-operand einsum, where the step ran three)."""
+    st, f32, f64 = fp.statics, torch.float32, torch.float64
+    B, w, dof, keep = st["B"], st["wdet"], st["dofmap"], fp._keep_cell
+    C, sigma = fp._constitutive(Du, sig_n)
+    x = torch.where(st["bc_mask"], 0.0, Du)  # as _bc_matvec hands it
+    node = (dof[:, ::2] // 2).contiguous()
+    K = ec.cell_tangent_reference("blocks", B, C, w, keep=keep)
+    nc, nq, ni, nk = B.shape
+    shape = (nc, nq, ni, nk, fp.n_dofs)
+    u_cell = torch.cat([Du, Du.new_zeros(1)])[dof]
+    x_cell = torch.cat([x, x.new_zeros(1)])[dof]
+    B32, C32, w32 = B.to(f32), C.to(f32), w.to(f32)
+    aB, aC, aw, ax = B.abs(), C.abs(), w.abs(), x.abs()
+
+    def case(row, mode, kernel, plain, scale, library, bound):
+        return {"row": row, "mode": mode, "kernel": kernel, "plain": plain, "scale": scale,
+                "library": library, "bound": bound}
+
+    ref = ec.cell_tangent_reference
+    cases = [
+        case("cell_strain", "strain", lambda: ec.cell_strain(B, dof, Du),
+             lambda: ec.cell_strain_reference(B, dof, Du),
+             lambda: ec.cell_strain_reference(aB, dof, Du.abs()),
+             lambda: torch.einsum("cqik,ck->cqi", B, u_cell), ("cell_strain",)),
+        case("cell_residual", "residual", lambda: ec.cell_residual(B, sigma, w),
+             lambda: ec.cell_residual_reference(B, sigma, w),
+             lambda: ec.cell_residual_reference(aB, sigma.abs(), aw),
+             lambda: torch.einsum("cqik,cqi,cq->ck", B, sigma, w), ("cell_residual",)),
+        case("cell_tangent", "matvec", lambda: ec.cell_tangent("matvec", B, C, w, dof, x),
+             lambda: ref("matvec", B, C, w, dof, x), lambda: ref("matvec", aB, aC, aw, dof, ax),
+             lambda: torch.einsum("cqik,cqij,cqjl,cq,cl->ck", B, C, B, w, x_cell),
+             ("cell_tangent", "matvec")),
+        case("cell_tangent", "diag", lambda: ec.cell_tangent("diag", B, C, w),
+             lambda: ref("diag", B, C, w), lambda: ref("diag", aB, aC, aw),
+             lambda: torch.einsum("cqik,cqij,cqjk,cq->ck", B, C, B, w),
+             ("cell_tangent", "diag")),
+        case("cell_tangent", "blocks_f64_masked",
+             lambda: ec.cell_tangent("blocks", B, C, w, keep=keep),
+             lambda: ref("blocks", B, C, w, keep=keep),
+             lambda: ref("blocks", aB, aC, aw, keep=keep),
+             lambda: torch.einsum("cqik,cqij,cqjl,cq,ck,cl->ckl", B, C, B, w, keep, keep),
+             ("cell_tangent", "blocks", 8, True)),
+        case("cell_tangent", "blocks_f32", lambda: ec.cell_tangent("blocks", B, C, w, dtype=f32),
+             lambda: ref("blocks", B, C, w, dtype=f32),
+             lambda: ref("blocks", aB, aC, aw, dtype=f32),
+             lambda: torch.einsum("cqik,cqij,cqjl,cq->ckl", B32, C32, B32, w32),
+             ("cell_tangent", "blocks", 4)),
+    ]
+    for dt in (f64, f32):
+        Kd, xd = K.to(dt), x.to(dt)
+        isz = 4 if dt == f32 else 8
+        for bs, idx in ((2, node), (1, dof)):
+            u = (F.pad(xd, (0, 1)) if bs == 1 else F.pad(xd.view(-1, 2), (0, 0, 0, 1)))[idx]
+            u = u.reshape(nc, nk, 1)
+            cases.append(case(
+                "ebe_matvec", f"{'node' if bs == 2 else 'dof'}_{'f32' if dt == f32 else 'f64'}",
+                lambda Kd=Kd, idx=idx, xd=xd, bs=bs: ec.ebe_cell_matvec(Kd, idx, xd, bs),
+                lambda Kd=Kd, idx=idx, xd=xd, bs=bs: ec.ebe_cell_matvec_reference(Kd, idx, xd, bs),
+                lambda Kd=Kd, idx=idx, xd=xd, bs=bs: ec.ebe_cell_matvec_reference(
+                    Kd.abs(), idx, xd.abs(), bs),
+                lambda Kd=Kd, u=u: torch.bmm(Kd, u), ("ebe_matvec", "matvec", isz, False, bs)))
+    return cases, shape
+
+
+def element_chain_phase(report, fp, state):
+    """Phase 25: ``tools/slice_bits.py``'s fused-step cases on 2 and 3
+    ranks, every product bitwise; the general pipeline's beside them, its
+    products through E4 bitwise, its operand evaluation recorded; E1-E4
+    against their plain versions on
+    step 50's iterate at 25x25, each timed in a CUDA graph
+    and per call beside its plain version and one PyTorch call that
+    computes its function.  Returns the rows' measurements by (row, mode)."""
+    t0 = time.perf_counter()
+    bits = {}
+    for N, mode in slice_bits.CASES:
+        bits[f"{N}x{N} {mode}"] = slice_bits.probe(N, mode, torch.device("cuda"))
+    for N in slice_bits.GENERAL_SIZES:
+        bits[f"general {N}x{N}"] = slice_bits.probe_general(N, torch.device("cuda"))
+    for case, res in bits.items():
+        print(f"slice_bits {case}: {res}", flush=True)
+    for case, res in bits.items():
+        # the general pipeline's operand evaluation (einsums) is recorded;
+        # its products through E4 are held like the fused step's
+        bad = [p for p, by_n in res.items()
+               if p != "operand" and not all(by_n.values())]
+        check(not bad, f"slice_bits {case}: {bad} differ on a rank's cells")
+    report["slice_bits"] = bits
+    print(f"slice_bits: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    cases, shape = ec_cases(fp, *state)
+    out = {}
+    for c in cases:
+        row, mode, kernel, plain, library = c["row"], c["mode"], c["kernel"], c["plain"], \
+            c["library"]
+        k, p, lib, scale = kernel(), plain(), library(), c["scale"]()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(k).all()), f"{row} {mode}: not finite")
+        abs_err = float((k - p).abs().max())
+        rel_err = abs_err / float(scale.max())
+        check(rel_err < EC_TOL[k.dtype], f"{row} {mode} differs from plain by {rel_err:.3e} "
+              "of the terms' scale")
+        lib_err = float((lib.reshape(p.shape) - p).abs().max()) / float(scale.max())
+        check(lib_err < EC_TOL[k.dtype], f"{row} {mode}: the library call differs from plain "
+              f"by {lib_err:.3e} of the terms' scale")
+        bound_ms, bound_by = roofline.element_chain_bound(c["bound"][0], *shape, *c["bound"][1:])
+        m = {"rel_err": rel_err, "rel_err_to_max": abs_err / float(p.abs().max()),
+             "max_abs_err": abs_err, "library_rel_err": lib_err, "tol": EC_TOL[k.dtype],
+             "ms": graph_time_ms(kernel, 200), "call_ms": cuda_time_ms(kernel, 200),
+             "plain_ms": graph_time_ms(plain, 100), "plain_call_ms": cuda_time_ms(plain, 100),
+             "library_ms": graph_time_ms(library, 100),
+             "library_call_ms": cuda_time_ms(library, 100),
+             "bound_ms": bound_ms, "bound_by": bound_by}
+        out[(row, mode)] = m
+        print(f"{row} {mode} at step 50 (25x25): err {rel_err:.2e} of the terms' scale "
+              f"({m['rel_err_to_max']:.2e} of the largest entry), kernel "
+              f"{m['ms'] * 1e3:.2f} us in a graph, {m['call_ms'] * 1e3:.2f} us a call; plain "
+              f"{m['plain_ms'] * 1e3:.2f} us ({m['plain_call_ms'] * 1e3:.2f} a call); library "
+              f"{m['library_ms'] * 1e3:.2f} us ({m['library_call_ms'] * 1e3:.2f} a call); "
+              f"bound {bound_ms * 1e3:.3f} us ({bound_by})", flush=True)
+    report["element_chain"] = {f"{row} {mode}": m for (row, mode), m in out.items()}
+    return out
+
+
 # phase 24: (demo, arguments); the von Mises demo runs on one process and
 # on two gloo ranks
 DEMOS = [("demo_simple_example.py", []), ("demo_nonlinear_heat.py", []),
@@ -2111,6 +2286,9 @@ def main():
     report["mc_half_shape"] = k1_half
     # phase 24: the port's five demos on the card
     demos_phase(report)
+    # phase 25: the element chain's kernels, slice by slice and against
+    # their plain versions at step 50's iterate
+    ec_meas = element_chain_phase(report, fp_k, states[49])
 
     # K2's row: the f64 entry, which the von Mises block path launches, on
     # that path's own call (3,750 points, its layout); the f32 entry (the
@@ -2171,6 +2349,32 @@ def main():
         "rank_half": {k: k1_half[k] for k in ("n", "ms", "call_ms", "pass_a_ms", "pass_b_ms",
                                               "plain_ms", "bound_ms", "max_abs_err")},
     }]
+    # E1-E4: each row's numbers are its mode on the main path (E4: the
+    # f64 node layout of the AMG-CG refinement, phase 11), its other modes
+    # beside them; launches over phase 6's dense schedule, E4's over
+    # phase 11's
+    jax_spmd = "dolfinx_external_operator_tpu/parallel/spmd.py"
+    by_path = {"slope_25x25_dense": report["mc_main"]["ec_launches"],
+               "slope_25x25_mg": report["mg_25x25"]["ec_launches"],
+               "slope_25x25_elastic": report["elastic_25x25"]["ec_launches"]}
+    for row, wrapper, line, head, path in (
+            ("cell_strain", "cell_strain", 493, "strain", "slope_25x25_dense"),
+            ("cell_residual", "cell_residual", 508, "residual", "slope_25x25_dense"),
+            ("cell_tangent", "cell_tangent", 514, "matvec", "slope_25x25_dense"),
+            ("ebe_matvec", "ebe_cell_matvec", 617, "node_f64", "slope_25x25_mg")):
+        m = ec_meas[(row, head)]
+        kernels.append({
+            "name": row, "route": "cuda",
+            "source": "dolfinx_external_operator_torch/csrc/element_chain.cu",
+            "replaces": f"{jax_spmd}:{line}", "launches": by_path[path][wrapper],
+            "launches_path": path,
+            "launches_by_path": {p: c[wrapper] for p, c in by_path.items()},
+            "mode": head, "max_abs_err": m["max_abs_err"], "max_rel_err": m["rel_err"],
+            "ms": m["ms"], "call_ms": m["call_ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": m["library_ms"], "n_cells": fp_k.nc,
+            "modes": {mode: m2 for (r2, mode), m2 in ec_meas.items()
+                      if r2 == row and mode != head}})
     report["kernels"] = kernels
     report["roofline"] = {"dia_25x25_mg": report["mg_25x25"]["dia_roofline"],
                           "dia_100x100_mg": report["mg_100x100"]["dia_roofline"],

@@ -47,6 +47,16 @@ KERNELS = {
     "mohr_coulomb": (("mohr_coulomb.cu", "mohr_coulomb.cuh"), "mohr_coulomb_launch",
                      [_VP] * 9 + [_LL] + [_VP] * 2),
     "empty": (("empty.cu",), "empty_launch", [_VP]),
+    # the element chain, E1-E4 (one library)
+    "cell_strain": (("element_chain.cu", "element_chain.cuh"), "ec_strain_launch",
+                    [_VP] * 3 + [_LL, _VP, _LL] + [_INT] * 3 + [_VP]),
+    "cell_residual": (("element_chain.cu", "element_chain.cuh"), "ec_residual_launch",
+                      [_VP] * 2 + [_LL] * 3 + [_VP] * 2 + [_LL] + [_INT] * 3 + [_VP]),
+    "cell_tangent": (("element_chain.cu", "element_chain.cuh"), "ec_tangent_launch",
+                     [_INT] + [_VP] * 2 + [_LL] * 4 + [_VP] * 3 + [_LL] + [_VP] * 2 + [_LL]
+                     + [_INT] * 3 + [_VP]),
+    "ebe_matvec": (("element_chain.cu", "element_chain.cuh"), "ec_ebe_launch",
+                   [_INT, _VP] + [_LL] * 3 + [_VP] * 2 + [_LL, _VP, _LL] + [_INT] * 3 + [_VP]),
 }
 _HOST = {
     "vonmises": (("vonmises_host.cpp", "vonmises.cuh"), "vonmises_return_map_host",
@@ -55,6 +65,15 @@ _HOST = {
                      [_VP, _LL, _LL] * 2 + [_VP] * 4 + [_LL] + [_FL] * 4),
     "mohr_coulomb": (("mohr_coulomb_host.cpp", "mohr_coulomb.cuh"), "mohr_coulomb_host",
                      [_VP] * 8 + [_LL] + [_VP] + [_INT]),
+    "cell_strain": (("element_chain_host.cpp", "element_chain.cuh"), "ec_strain_host",
+                    [_VP] * 3 + [_LL, _VP, _LL] + [_INT] * 3),
+    "cell_residual": (("element_chain_host.cpp", "element_chain.cuh"), "ec_residual_host",
+                      [_VP] * 2 + [_LL] * 3 + [_VP] * 2 + [_LL] + [_INT] * 3),
+    "cell_tangent": (("element_chain_host.cpp", "element_chain.cuh"), "ec_tangent_host",
+                     [_INT] + [_VP] * 2 + [_LL] * 4 + [_VP] * 3 + [_LL] + [_VP] * 2 + [_LL]
+                     + [_INT] * 3),
+    "ebe_matvec": (("element_chain_host.cpp", "element_chain.cuh"), "ec_ebe_host",
+                   [_INT, _VP] + [_LL] * 3 + [_VP] * 2 + [_LL, _VP, _LL] + [_INT] * 3),
 }
 # what each compiler printed for a library built by this process (nvcc's
 # -Xptxas -v: registers, stack and spills of each kernel)

@@ -61,6 +61,7 @@ from .compile import (
 )
 from .elements import Element
 from .mesh import CELL_FACETS, FACET_CELL, REFERENCE_VERTICES, Mesh
+from .ops import element_chain as ec
 from .parallel.scatter import dedup_table, segment_sum, segment_table
 from .quadrature import make_quadrature
 
@@ -549,9 +550,12 @@ class CompiledForm:
         return self._elements()
 
     def action(self, x):
-        """Matrix-free operator action ``A @ x`` of a rank-2 form."""
+        """Matrix-free operator action ``A @ x`` of a rank-2 form: each
+        cell's block against x at its trial dofs (``ops.element_chain.
+        ebe_cell_matvec``, a kernel of fixed summation order on the card),
+        summed into the test dofs."""
         x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
-        return self._scatter_rows([torch.einsum("cij,cj->ci", e, x[ud])
+        return self._scatter_rows([ec.ebe_cell_matvec(e, ud, x, 1)
                                    for e, _, ud in self._elements()])
 
     def diagonal(self):

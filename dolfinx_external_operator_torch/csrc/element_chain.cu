@@ -1,0 +1,210 @@
+// The element chain of the fused plasticity step: the CUDA kernels
+// (sm_90a).
+//
+// Replaces the per-cell products that the JAX package computes as XLA
+// einsums (dolfinx_external_operator_tpu/parallel/spmd.py:493 strain,
+// :508 residual, :514-516 tangent matvec, :521 diagonal, the element
+// blocks at :612, :651, :745, :794, :947, and the element-blocked matvec
+// at :617-620), which the port's plain versions (ops/element_chain.py)
+// run as torch einsums and torch.bmm.  Four kernels, one thread for each
+// output, each output one sum in the fixed order of element_chain.cuh:
+//
+//   E1 cell_strain    (c, q, i)  deps of the Gauss points, fed to K1 / K2
+//   E2 cell_residual  (c, k)     the cells' residual contributions
+//   E3 cell_tangent   (c, k) or (c, k, l): mode 0 the tangent matvec,
+//                     1 its diagonal, 2 the f64 blocks, 3 the f32 blocks
+//   E4 ebe_matvec     (c, a)     the element-blocked matvec, f64 or f32 (also
+//                                the general pipeline's matrix-free action)
+//
+// Why by hand: the batched products' kernels that cuBLAS picks depend on
+// the batch count, so a rank's cells gave other bits than the whole
+// batch's (tools/slice_bits.py).  Here no kernel reads the batch to pick
+// a tile, a grid split or a reduction: the grid only covers the outputs,
+// a thread computes one output from its own indices alone, with no split
+// sum and no atomics.
+//
+// What bounds them: at the main path's 1,250 cells each moves 1-3 MB
+// (B alone, 1,250 x 3 x 4 x 12 f64, is 1.44 MB), well under a microsecond
+// at 3.35 TB/s, below the ~1 us that a launch costs on this card; the
+// operations (at most ~0.2 MFLOP an E3 call) are further below their
+// f64 peak.  So one launch for each product, in place of a gather, a cat
+// and up to three einsums, is the design's aim; the threads of a cell
+// read its B rows from L1 and L2.  Each launcher runs on the caller's
+// stream, does not synchronise and allocates nothing (graph-capturable),
+// and returns cudaGetLastError().
+#include <cuda_runtime.h>
+
+#include "element_chain.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+// a grid-stride loop past this many blocks (never reached by this repo's
+// meshes; no output's value depends on the grid)
+constexpr long long kMaxBlocks = 1LL << 20;
+
+unsigned int grid_for(long long outputs) {
+  const long long need = (outputs + kThreads - 1) / kThreads;
+  return static_cast<unsigned int>(need < kMaxBlocks ? need : kMaxBlocks);
+}
+
+__device__ __forceinline__ long long first_output() {
+  return static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+}
+
+__device__ __forceinline__ long long output_stride() {
+  return static_cast<long long>(gridDim.x) * kThreads;
+}
+
+// the blocks' strides of E4, passed by value
+struct EcStrides3 {
+  long long s[3];
+};
+
+__global__ void __launch_bounds__(kThreads)
+cell_strain_kernel(const double* __restrict__ B, const long long* __restrict__ dof,
+                   const double* __restrict__ u, long long n, double* __restrict__ out,
+                   const EcShape s) {
+  const long long total = s.nc * s.nq * s.ni;
+  for (long long t = first_output(); t < total; t += output_stride()) {
+    const int i = static_cast<int>(t % s.ni);
+    const long long cq = t / s.ni;
+    out[t] = ec_strain(B, dof, u, n, s, cq / s.nq, static_cast<int>(cq % s.nq), i);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+cell_residual_kernel(const double* __restrict__ B, const double* __restrict__ sig, long long s0,
+                     long long s1, long long s2, const double* __restrict__ w,
+                     double* __restrict__ out, const EcShape s) {
+  const long long total = s.nc * s.nk;
+  for (long long t = first_output(); t < total; t += output_stride()) {
+    out[t] = ec_residual(B, sig, s0, s1, s2, w, s, t / s.nk, static_cast<int>(t % s.nk));
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+cell_tangent_vec_kernel(int mode, const double* __restrict__ B, const EcTangent tg,
+                        const double* __restrict__ w, const long long* __restrict__ dof,
+                        const double* __restrict__ x, long long n, double* __restrict__ out,
+                        const EcShape s) {
+  const long long total = s.nc * s.nk;
+  for (long long t = first_output(); t < total; t += output_stride()) {
+    const long long c = t / s.nk;
+    const int k = static_cast<int>(t % s.nk);
+    out[t] = mode == 0 ? ec_tangent_matvec(B, tg, w, dof, x, n, s, c, k)
+                       : ec_tangent_block<double>(B, tg, w, nullptr, s, c, k, k);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+cell_tangent_block_kernel(const double* __restrict__ B, const EcTangent tg,
+                          const double* __restrict__ w, const double* __restrict__ keep,
+                          T* __restrict__ out, const EcShape s) {
+  const long long kk = static_cast<long long>(s.nk) * s.nk;
+  const long long total = s.nc * kk;
+  for (long long t = first_output(); t < total; t += output_stride()) {
+    const long long r = t % kk;
+    out[t] = ec_tangent_block<T>(B, tg, w, keep, s, t / kk, static_cast<int>(r / s.nk),
+                                 static_cast<int>(r % s.nk));
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ebe_matvec_kernel(const T* __restrict__ K, const EcStrides3 ks, const long long* __restrict__ idx,
+                  const T* __restrict__ x, long long n, T* __restrict__ out, long long nc, int na,
+                  int nb, int bs) {
+  const long long total = nc * na;
+  for (long long t = first_output(); t < total; t += output_stride()) {
+    out[t] = ec_ebe<T>(K, ks.s, idx, x, n, t / na, static_cast<int>(t % na), nb, bs);
+  }
+}
+
+bool shape_ok(long long nc, int nq, int ni, int nk) {
+  return nc >= 0 && nq > 0 && ni > 0 && ni <= kEcMaxComp && nk > 0;
+}
+
+}  // namespace
+
+// E1: B (nc, nq, ni, nk), dof (nc, nk), u (n,), out (nc, nq, ni); all f64
+// but dof (int64), contiguous.
+extern "C" int ec_strain_launch(const double* B, const long long* dof, const double* u,
+                                long long n, double* out, long long nc, int nq, int ni, int nk,
+                                void* stream) {
+  if (!shape_ok(nc, nq, ni, nk)) return static_cast<int>(cudaErrorInvalidValue);
+  const EcShape s{nc, nq, ni, nk};
+  if (nc > 0) {
+    cell_strain_kernel<<<grid_for(nc * nq * ni), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(B, dof, u, n, out, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// E2: sigma (nc, nq, ni) at strides (s0, s1, s2), w (nc, nq), out (nc, nk).
+extern "C" int ec_residual_launch(const double* B, const double* sig, long long s0, long long s1,
+                                  long long s2, const double* w, double* out, long long nc,
+                                  int nq, int ni, int nk, void* stream) {
+  if (!shape_ok(nc, nq, ni, nk)) return static_cast<int>(cudaErrorInvalidValue);
+  const EcShape s{nc, nq, ni, nk};
+  if (nc > 0) {
+    cell_residual_kernel<<<grid_for(nc * nk), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        B, sig, s0, s1, s2, w, out, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// E3: C (nc, nq, ni, ni) at strides c0..c3.  mode 0: the matvec against x
+// (n,) gathered by dof, out (nc, nk) f64; 1: the diagonal, out (nc, nk)
+// f64; 2: the blocks, out (nc, nk, nk) f64; 3: the blocks in f32, out
+// f32.  keep (nc, nk) f64 or null masks the blocks (modes 2 and 3).
+extern "C" int ec_tangent_launch(int mode, const double* B, const double* C, long long c0,
+                                 long long c1, long long c2, long long c3, const double* w,
+                                 const long long* dof, const double* x, long long n,
+                                 const double* keep, void* out, long long nc, int nq, int ni,
+                                 int nk, void* stream) {
+  if (!shape_ok(nc, nq, ni, nk) || mode < 0 || mode > 3) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const EcShape s{nc, nq, ni, nk};
+  const EcTangent tg{C, {c0, c1, c2, c3}};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nc > 0) {
+    if (mode <= 1) {
+      cell_tangent_vec_kernel<<<grid_for(nc * nk), kThreads, 0, st>>>(
+          mode, B, tg, w, dof, x, n, static_cast<double*>(out), s);
+    } else if (mode == 2) {
+      cell_tangent_block_kernel<double><<<grid_for(nc * nk * nk), kThreads, 0, st>>>(
+          B, tg, w, keep, static_cast<double*>(out), s);
+    } else {
+      cell_tangent_block_kernel<float><<<grid_for(nc * nk * nk), kThreads, 0, st>>>(
+          B, tg, w, keep, static_cast<float*>(out), s);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// E4: K (nc, na, nb) at strides (k0, k1, k2), x (n,) and out (nc, na) in
+// f64 (f32 == 0) or f32, idx (nc, nb / bs) int64; x, idx, out contiguous.
+extern "C" int ec_ebe_launch(int f32, const void* K, long long k0, long long k1, long long k2,
+                             const long long* idx, const void* x, long long n, void* out,
+                             long long nc, int na, int nb, int bs, void* stream) {
+  if (nc < 0 || na <= 0 || nb <= 0 || bs <= 0 || nb % bs != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const EcStrides3 ks{{k0, k1, k2}};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nc > 0) {
+    if (f32) {
+      ebe_matvec_kernel<float><<<grid_for(nc * na), kThreads, 0, st>>>(
+          static_cast<const float*>(K), ks, idx, static_cast<const float*>(x), n,
+          static_cast<float*>(out), nc, na, nb, bs);
+    } else {
+      ebe_matvec_kernel<double><<<grid_for(nc * na), kThreads, 0, st>>>(
+          static_cast<const double*>(K), ks, idx, static_cast<const double*>(x), n,
+          static_cast<double*>(out), nc, na, nb, bs);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}

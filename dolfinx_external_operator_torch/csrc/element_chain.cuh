@@ -1,0 +1,195 @@
+// The element chain of the fused plasticity step: one output a call.
+//
+// The arithmetic shared by the CUDA kernels (element_chain.cu) and the CPU
+// build (element_chain_host.cpp) that the tests hold against the plain
+// PyTorch version (ops/element_chain.py).  The JAX package computes these
+// contractions as XLA einsums (parallel/spmd.py:493, :508, :514-516, :521,
+// the element blocks at :612, :651, :745, :794, :947 and the
+// element-blocked matvec at :617-620); the port's plain versions are
+// torch einsums and torch.bmm, which cuBLAS runs with a kernel it picks by
+// the batch count, so that a rank's slice of the cells could give other
+// bits than the same cells of the whole batch.
+//
+// The rule of this file: every output is one sum in a written, fixed
+// order that depends on nothing but the output's own indices.  No body
+// reads the cell count, the grid, the block or the position of its cell
+// in the batch; none splits a sum or picks an order by the shapes.  So a
+// cell gives the same bits in any batch, at any offset, on any rank.
+//
+// The orders (ascending in every index):
+//   E1 strain    deps[c,q,i] = sum_k B[c,q,i,k] u[dof[c,k]]
+//   E2 residual  r[c,k]      = sum_q w[c,q] (sum_i B[c,q,i,k] sig[c,q,i])
+//   E3 tangent   matvec  y[c,k]   = sum_q w (sum_i B[c,q,i,k] dsig_i),
+//                          dsig_i = sum_j C[c,q,i,j] de_j,
+//                          de_j   = sum_l B[c,q,j,l] x[dof[c,l]]
+//                blocks  K[c,k,l] = sum_q w (sum_i B[c,q,i,k] t_i),
+//                          t_i    = sum_j C[c,q,i,j] B[c,q,j,l]
+//                diag    d[c,k]   = K[c,k,k] of the blocks, the same bits
+//                masked  (K[c,k,l] * keep[c,k]) * keep[c,l]
+//   E4 ebe       y[c,a] = sum_b K[c,a,b] x[idx[c,b/bs] bs + b%bs]  (K may be
+//                non-square: a < na, b < nb)
+// A gathered index outside [0, n) is padding and reads 0, as the plain
+// version's appended zero does.
+//
+// Rounding: every step of a sum is one fused multiply-add, ec_fma(), and
+// the masking products are ec_mul(), a product rounded on its own.  Both
+// are spelt out, so nvcc fuses no f64 or f32 product of its own accord
+// and every operation rounds the same way on the card and in the g++
+// build (which does not contract, and whose fma() is correctly rounded):
+// the kernel's bits are the g++ build's.
+#pragma once
+
+#include <cmath>
+
+#ifdef __CUDACC__
+#define EC_HD __host__ __device__ __forceinline__
+#else
+#define EC_HD inline
+#endif
+
+// strain components a Gauss point may have (Mandel: 4 in 2D, 6 in 3D)
+constexpr int kEcMaxComp = 6;
+
+EC_HD double ec_fma(double a, double b, double c) {
+#ifdef __CUDA_ARCH__
+  return fma(a, b, c);
+#else
+  return std::fma(a, b, c);
+#endif
+}
+EC_HD float ec_fma(float a, float b, float c) {
+#ifdef __CUDA_ARCH__
+  return fmaf(a, b, c);
+#else
+  return std::fma(a, b, c);
+#endif
+}
+
+EC_HD double ec_mul(double a, double b) {
+#ifdef __CUDA_ARCH__
+  return __dmul_rn(a, b);
+#else
+  return a * b;
+#endif
+}
+EC_HD float ec_mul(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fmul_rn(a, b);
+#else
+  return a * b;
+#endif
+}
+
+// x[j] in T, or 0 where j is padding
+template <typename T, typename X>
+EC_HD T ec_read(const X* x, long long n, long long j) {
+  return (j >= 0 && j < n) ? static_cast<T>(x[j]) : T(0);
+}
+
+// The shapes of one batch: cells, Gauss points, strain components, dofs
+// of a cell.  B is (nc, nq, ni, nk), w (nc, nq) and dof (nc, nk), all
+// contiguous; sigma and C are read at the strides given.
+struct EcShape {
+  long long nc;
+  int nq, ni, nk;
+};
+
+// E1: deps[c, q, i]
+EC_HD double ec_strain(const double* B, const long long* dof, const double* u, long long n,
+                       const EcShape& s, long long c, int q, int i) {
+  const double* b = B + ((c * s.nq + q) * s.ni + i) * s.nk;
+  const long long* d = dof + c * s.nk;
+  double acc = 0.0;
+  for (int k = 0; k < s.nk; ++k) acc = ec_fma(b[k], ec_read<double>(u, n, d[k]), acc);
+  return acc;
+}
+
+// E2: r[c, k]; sigma[c, q, i] at sig + c*s0 + q*s1 + i*s2
+EC_HD double ec_residual(const double* B, const double* sig, long long s0, long long s1,
+                         long long s2, const double* w, const EcShape& s, long long c, int k) {
+  double acc = 0.0;
+  for (int q = 0; q < s.nq; ++q) {
+    const double* b = B + (c * s.nq + q) * s.ni * s.nk + k;
+    const double* sg = sig + c * s0 + q * s1;
+    double t = 0.0;
+    for (int i = 0; i < s.ni; ++i) t = ec_fma(b[i * s.nk], sg[i * s2], t);
+    acc = ec_fma(w[c * s.nq + q], t, acc);
+  }
+  return acc;
+}
+
+// The tangent C[c, q, i, j] at C + c*cs[0] + q*cs[1] + i*cs[2] + j*cs[3]
+struct EcTangent {
+  const double* C;
+  long long cs[4];
+};
+
+// E3, matvec: y[c, k]
+EC_HD double ec_tangent_matvec(const double* B, const EcTangent& t, const double* w,
+                               const long long* dof, const double* x, long long n,
+                               const EcShape& s, long long c, int k) {
+  const long long* d = dof + c * s.nk;
+  double acc = 0.0;
+  for (int q = 0; q < s.nq; ++q) {
+    const double* bq = B + (c * s.nq + q) * s.ni * s.nk;
+    const double* Cq = t.C + c * t.cs[0] + q * t.cs[1];
+    double de[kEcMaxComp];
+    for (int j = 0; j < s.ni; ++j) {
+      double e = 0.0;
+      for (int l = 0; l < s.nk; ++l) e = ec_fma(bq[j * s.nk + l], ec_read<double>(x, n, d[l]), e);
+      de[j] = e;
+    }
+    double y = 0.0;
+    for (int i = 0; i < s.ni; ++i) {
+      double ds = 0.0;
+      for (int j = 0; j < s.ni; ++j) ds = ec_fma(Cq[i * t.cs[2] + j * t.cs[3]], de[j], ds);
+      y = ec_fma(bq[i * s.nk + k], ds, y);
+    }
+    acc = ec_fma(w[c * s.nq + q], y, acc);
+  }
+  return acc;
+}
+
+// E3, blocks: K[c, k, l] in T (the inputs rounded to T first, as the plain
+// f32 version casts them), masked by keep[c, .] where keep is given
+template <typename T>
+EC_HD T ec_tangent_block(const double* B, const EcTangent& t, const double* w,
+                         const double* keep, const EcShape& s, long long c, int k, int l) {
+  T acc = T(0);
+  for (int q = 0; q < s.nq; ++q) {
+    const double* bq = B + (c * s.nq + q) * s.ni * s.nk;
+    const double* Cq = t.C + c * t.cs[0] + q * t.cs[1];
+    T y = T(0);
+    for (int i = 0; i < s.ni; ++i) {
+      T ti = T(0);
+      for (int j = 0; j < s.ni; ++j) {
+        ti = ec_fma(static_cast<T>(Cq[i * t.cs[2] + j * t.cs[3]]),
+                    static_cast<T>(bq[j * s.nk + l]), ti);
+      }
+      y = ec_fma(static_cast<T>(bq[i * s.nk + k]), ti, y);
+    }
+    acc = ec_fma(static_cast<T>(w[c * s.nq + q]), y, acc);
+  }
+  if (keep != nullptr) {
+    acc = ec_mul(ec_mul(acc, static_cast<T>(keep[c * s.nk + k])),
+                 static_cast<T>(keep[c * s.nk + l]));
+  }
+  return acc;
+}
+
+// E4: y[c, a] of the (nc, na, nb) blocks K in T, K[c, a, b] at K + c*ks[0]
+// + a*ks[1] + b*ks[2], against x (n,) in T, gathered by node: idx (nc,
+// nb / bs)
+template <typename T>
+EC_HD T ec_ebe(const T* K, const long long* ks, const long long* idx, const T* x, long long n,
+               long long c, int a, int nb, int bs) {
+  const T* row = K + c * ks[0] + a * ks[1];
+  const long long* d = idx + c * (nb / bs);
+  T acc = T(0);
+  for (int b = 0; b < nb; ++b) {
+    const long long node = d[b / bs];
+    const long long j = node < 0 ? -1 : node * bs + b % bs;
+    acc = ec_fma(row[b * ks[2]], ec_read<T>(x, n, j), acc);
+  }
+  return acc;
+}

@@ -1,0 +1,361 @@
+"""The fused step's element chain: per-cell products of fixed summation
+order.
+
+The JAX package computes these as XLA einsums (``parallel/spmd.py:493``
+strain, ``:508`` residual, ``:514-516`` tangent matvec, ``:521``
+diagonal, the element blocks at ``:612``, ``:651``, ``:745``, ``:794``,
+``:947``, the element-blocked matvec ``_ebe`` at ``:617-620``).  Here each
+is one hand-written kernel (``csrc/element_chain.cu``, bodies in
+``csrc/element_chain.cuh``) beside its plain PyTorch version:
+
+* E1 ``cell_strain``: ``deps[c,q,i] = sum_k B[c,q,i,k] u[dofmap[c,k]]``;
+* E2 ``cell_residual``: ``r[c,k] = sum_q w[c,q] sum_i B[c,q,i,k] sig[c,q,i]``;
+* E3 ``cell_tangent``: the tangent matvec against a gathered vector, its
+  diagonal, and the element blocks ``K[c,k,l]`` in f64 or f32 (masked by
+  ``keep`` where given);
+* E4 ``ebe_cell_matvec``: ``y[c,a] = sum_b K[c,a,b] x[idx[c,b]]``, per dof
+  (``bs = 1``) or per node (``bs = 2``), in f32 or f64: the AMG plan's
+  element-blocked matvec and the general pipeline's matrix-free action.
+
+On CUDA tensors each launches its kernel, in which every output is one
+sum in a fixed order that depends on nothing but the output's indices: a
+rank's cells give the whole batch's bits, on any slice.  On CPU tensors
+each runs its plain version (``*_reference``: the einsums and ``torch.bmm``
+that the fused step ran before), so the CPU bits stay those of the JAX
+comparisons.  There is no fallback from the kernel to the plain version.
+``*_host`` runs the kernel's own bodies, built with g++, on CPU tensors
+(tests only): they give the card's bits (every operation of the bodies
+rounds once, fused multiply-adds spelt out).
+
+Each wrapper counts its kernel launches (``.launches``).  The wrappers
+take B, w, the index maps and x contiguous, sigma, the tangent and the
+blocks at any strides (the return maps hand them as views), and raise on
+anything else.
+"""
+
+from __future__ import annotations
+
+import functools
+import re
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["cell_strain", "cell_residual", "cell_tangent", "ebe_cell_matvec",
+           "cell_strain_reference", "cell_residual_reference", "cell_tangent_reference",
+           "ebe_cell_matvec_reference", "cell_strain_host", "cell_residual_host",
+           "cell_tangent_host", "ebe_cell_matvec_host", "TANGENT_MODES", "max_components",
+           "reset_launches", "launch_counts"]
+
+_F64, _F32, _I64 = torch.float64, torch.float32, torch.int64
+# E3's modes, as the launcher numbers them ("blocks" in f32 is mode 3)
+TANGENT_MODES = ("matvec", "diag", "blocks")
+
+
+@functools.cache
+def max_components():
+    """The strain components a Gauss point may have: ``kEcMaxComp`` of
+    ``csrc/element_chain.cuh``, which sizes the kernels' per-thread
+    arrays."""
+    text = (Path(__file__).resolve().parent.parent / "csrc" / "element_chain.cuh").read_text()
+    return int(re.search(r"constexpr int kEcMaxComp = (\d+);", text).group(1))
+
+
+def _need(name, t, dtype, ndim, device, contiguous=True):
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must have {ndim} dimensions, got shape {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} lies on {t.device}, expected {device}")
+    if contiguous and not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _shape(name, t, shape):
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def _check_B(B):
+    if B.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {B.device}")
+    _need("B", B, _F64, 4, B.device)
+    nc, nq, ni, nk = B.shape
+    if not 0 < ni <= max_components():
+        raise ValueError(f"B has {ni} strain components, at most {max_components()} are taken")
+    return nc, nq, ni, nk
+
+
+def _check_gather(dofmap, u, nc, nk, device):
+    _need("dofmap", dofmap, _I64, 2, device)
+    _shape("dofmap", dofmap, (nc, nk))
+    _need("x", u, _F64, 1, device)
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _on_current(device):
+    """The launchers run on the runtime's current device."""
+    if device.index != torch.cuda.current_device():
+        raise ValueError(f"inputs lie on {device}, but the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+
+
+def _launched(name, err):
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def _gather(u, dofmap):
+    """u at the cells' dofs, the padding index ``n`` reading 0."""
+    return torch.cat([u, u.new_zeros(1)])[dofmap]
+
+
+# ----------------------------------------------------------------------
+# E1: strain
+def cell_strain_reference(B, dofmap, u):
+    """Plain version: (nc, nq, ni) f64."""
+    return torch.einsum("cqik,ck->cqi", B, _gather(u, dofmap))
+
+
+def _strain_args(B, dofmap, u, alloc=True):
+    nc, nq, ni, nk = _check_B(B)
+    _check_gather(dofmap, u, nc, nk, B.device)
+    if not alloc:
+        return None, None
+    out = torch.empty((nc, nq, ni), dtype=_F64, device=B.device)
+    return out, (B.data_ptr(), dofmap.data_ptr(), u.data_ptr(), u.shape[0], out.data_ptr(),
+                 nc, nq, ni, nk)
+
+
+def cell_strain(B, dofmap, u):
+    """E1: B (nc, nq, ni, nk), dofmap (nc, nk) int64 (an index >= n is
+    padding and reads 0), u (n,) -> deps (nc, nq, ni), all f64."""
+    if B.device.type == "cpu":
+        _strain_args(B, dofmap, u, alloc=False)
+        return cell_strain_reference(B, dofmap, u)
+    from .._native.cuda import cuda_function
+
+    out, args = _strain_args(B, dofmap, u)
+    _on_current(B.device)
+    _launched("cell_strain", cuda_function("cell_strain")(*args, _stream()))
+    cell_strain.launches += 1
+    return out
+
+
+def cell_strain_host(B, dofmap, u):
+    """E1's bodies built with g++, on CPU tensors (tests only)."""
+    from .._native.cuda import host_function
+
+    out, args = _strain_args(B, dofmap, u)
+    host_function("cell_strain")(*args)
+    return out
+
+
+# ----------------------------------------------------------------------
+# E2: residual
+def cell_residual_reference(B, sigma, wdet):
+    """Plain version: (nc, nk) f64."""
+    return torch.einsum("cqik,cqi,cq->ck", B, sigma, wdet)
+
+
+def _residual_args(B, sigma, wdet, alloc=True):
+    nc, nq, ni, nk = _check_B(B)
+    _need("sigma", sigma, _F64, 3, B.device, contiguous=False)
+    _shape("sigma", sigma, (nc, nq, ni))
+    _need("wdet", wdet, _F64, 2, B.device)
+    _shape("wdet", wdet, (nc, nq))
+    if not alloc:
+        return None, None
+    out = torch.empty((nc, nk), dtype=_F64, device=B.device)
+    return out, (B.data_ptr(), sigma.data_ptr(), *sigma.stride(), wdet.data_ptr(),
+                 out.data_ptr(), nc, nq, ni, nk)
+
+
+def cell_residual(B, sigma, wdet):
+    """E2: B (nc, nq, ni, nk), sigma (nc, nq, ni) at any strides, wdet (nc,
+    nq) -> r (nc, nk), all f64."""
+    if B.device.type == "cpu":
+        _residual_args(B, sigma, wdet, alloc=False)
+        return cell_residual_reference(B, sigma, wdet)
+    from .._native.cuda import cuda_function
+
+    out, args = _residual_args(B, sigma, wdet)
+    _on_current(B.device)
+    _launched("cell_residual", cuda_function("cell_residual")(*args, _stream()))
+    cell_residual.launches += 1
+    return out
+
+
+def cell_residual_host(B, sigma, wdet):
+    """E2's bodies built with g++, on CPU tensors (tests only)."""
+    from .._native.cuda import host_function
+
+    out, args = _residual_args(B, sigma, wdet)
+    host_function("cell_residual")(*args)
+    return out
+
+
+# ----------------------------------------------------------------------
+# E3: tangent
+def cell_tangent_reference(mode, B, C, wdet, dofmap=None, x=None, keep=None, dtype=_F64):
+    """Plain version of ``cell_tangent``."""
+    if mode == "matvec":
+        dde = torch.einsum("cqik,ck->cqi", B, _gather(x, dofmap))
+        dsig = torch.einsum("cqij,cqj->cqi", C, dde)
+        return torch.einsum("cqik,cqi,cq->ck", B, dsig, wdet)
+    if mode == "diag":
+        return torch.einsum("cqik,cqij,cqjk,cq->ck", B, C, B, wdet)
+    if dtype == _F64:
+        K = torch.einsum("cqik,cqij,cqjl,cq->ckl", B, C, B, wdet)
+    else:
+        K = torch.einsum("cqik,cqij,cqjl,cq->ckl", B.to(_F32), C.to(_F32), B.to(_F32),
+                         wdet.to(_F32))
+    if keep is None:
+        return K
+    km = keep.to(dtype)
+    return K * km[:, :, None] * km[:, None, :]
+
+
+def _tangent_args(mode, B, C, wdet, dofmap, x, keep, dtype, alloc=True):
+    if mode not in TANGENT_MODES:
+        raise ValueError(f"cell_tangent mode must be one of {TANGENT_MODES}, got {mode!r}")
+    nc, nq, ni, nk = _check_B(B)
+    dev = B.device
+    _need("C", C, _F64, 4, dev, contiguous=False)
+    _shape("C", C, (nc, nq, ni, ni))
+    _need("wdet", wdet, _F64, 2, dev)
+    _shape("wdet", wdet, (nc, nq))
+    if (mode == "matvec") != (dofmap is not None and x is not None):
+        raise ValueError("the matvec takes dofmap and x; the other modes take neither")
+    if mode == "matvec":
+        _check_gather(dofmap, x, nc, nk, dev)
+    if keep is not None:
+        if mode != "blocks":
+            raise ValueError("keep masks the blocks only")
+        _need("keep", keep, _F64, 2, dev)
+        _shape("keep", keep, (nc, nk))
+    if dtype not in (_F64, _F32) or (dtype == _F32 and mode != "blocks"):
+        raise TypeError(f"the {mode} is computed in float64 (blocks also in float32), "
+                        f"not {dtype}")
+    if not alloc:
+        return None, None
+    shape = (nc, nk, nk) if mode == "blocks" else (nc, nk)
+    out = torch.empty(shape, dtype=dtype, device=dev)
+    code = TANGENT_MODES.index(mode) + (dtype == _F32)
+    return out, (code, B.data_ptr(), C.data_ptr(), *C.stride(), wdet.data_ptr(),
+                 None if dofmap is None else dofmap.data_ptr(),
+                 None if x is None else x.data_ptr(), 0 if x is None else x.shape[0],
+                 None if keep is None else keep.data_ptr(), out.data_ptr(), nc, nq, ni, nk)
+
+
+def cell_tangent(mode, B, C, wdet, dofmap=None, x=None, keep=None, dtype=_F64):
+    """E3, one kernel in three modes; B (nc, nq, ni, nk), the tangent C (nc,
+    nq, ni, ni) at any strides and wdet (nc, nq), all f64:
+
+    * ``"matvec"``: with dofmap (nc, nk) int64 and x (n,) f64 (an index
+      >= n reads 0) -> (nc, nk) f64, the cells' ``B^T C B x``;
+    * ``"diag"``: -> (nc, nk) f64, the blocks' diagonal (the same bits as
+      the f64 blocks' diagonal);
+    * ``"blocks"``: -> (nc, nk, nk) in ``dtype`` (f64, or f32 from the
+      inputs rounded to f32), masked ``K * keep_k * keep_l`` by keep
+      (nc, nk) f64 where given."""
+    if B.device.type == "cpu":
+        _tangent_args(mode, B, C, wdet, dofmap, x, keep, dtype, alloc=False)
+        return cell_tangent_reference(mode, B, C, wdet, dofmap, x, keep, dtype)
+    from .._native.cuda import cuda_function
+
+    out, args = _tangent_args(mode, B, C, wdet, dofmap, x, keep, dtype)
+    _on_current(B.device)
+    _launched("cell_tangent", cuda_function("cell_tangent")(*args, _stream()))
+    cell_tangent.launches += 1
+    return out
+
+
+def cell_tangent_host(mode, B, C, wdet, dofmap=None, x=None, keep=None, dtype=_F64):
+    """E3's bodies built with g++, on CPU tensors (tests only)."""
+    from .._native.cuda import host_function
+
+    out, args = _tangent_args(mode, B, C, wdet, dofmap, x, keep, dtype)
+    host_function("cell_tangent")(*args)
+    return out
+
+
+# ----------------------------------------------------------------------
+# E4: element-blocked matvec
+def ebe_cell_matvec_reference(K, idx, x, bs):
+    """Plain version: ``torch.bmm`` of the blocks with the gathered x."""
+    nc, na, nb = K.shape
+    if bs == 1:
+        u = F.pad(x, (0, 1))
+        return torch.bmm(K, u[idx].unsqueeze(-1)).view(nc, na)
+    u = F.pad(x.view(-1, bs), (0, 0, 0, 1))
+    return torch.bmm(K, u[idx].view(nc, nb, 1)).view(nc, na)
+
+
+def _ebe_args(K, idx, x, bs, alloc=True):
+    if K.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {K.device}")
+    if K.dtype not in (_F64, _F32):
+        raise TypeError(f"K must be float64 or float32, got {K.dtype}")
+    _need("K", K, K.dtype, 3, K.device, contiguous=False)
+    nc, na, nb = K.shape
+    if bs not in (1, 2) or nb % bs:
+        raise ValueError(f"K's {nb} columns are not gathered by {bs} dofs a node")
+    _need("idx", idx, _I64, 2, K.device)
+    _shape("idx", idx, (nc, nb // bs))
+    _need("x", x, K.dtype, 1, K.device)
+    if x.shape[0] % bs:
+        raise ValueError(f"x's length {x.shape[0]} is not a multiple of {bs}")
+    if not alloc:
+        return None, None
+    out = torch.empty((nc, na), dtype=K.dtype, device=K.device)
+    return out, (int(K.dtype == _F32), K.data_ptr(), *K.stride(), idx.data_ptr(), x.data_ptr(),
+                 x.shape[0], out.data_ptr(), nc, na, nb, bs)
+
+
+def ebe_cell_matvec(K, idx, x, bs):
+    """E4: the blocks K (nc, na, nb) in f64 or f32, at any strides, against
+    x (n,) of the same dtype, gathered by ``idx`` (nc, nb // bs) int64 per
+    node of ``bs`` dofs (dof ``idx * bs + b % bs``; a node past the end is
+    padding and reads 0) -> (nc, na)."""
+    if K.device.type == "cpu":
+        _ebe_args(K, idx, x, bs, alloc=False)
+        return ebe_cell_matvec_reference(K, idx, x, bs)
+    from .._native.cuda import cuda_function
+
+    out, args = _ebe_args(K, idx, x, bs)
+    _on_current(K.device)
+    _launched("ebe_matvec", cuda_function("ebe_matvec")(*args, _stream()))
+    ebe_cell_matvec.launches += 1
+    return out
+
+
+def ebe_cell_matvec_host(K, idx, x, bs):
+    """E4's bodies built with g++, on CPU tensors (tests only)."""
+    from .._native.cuda import host_function
+
+    out, args = _ebe_args(K, idx, x, bs)
+    host_function("ebe_matvec")(*args)
+    return out
+
+
+_COUNTED = (cell_strain, cell_residual, cell_tangent, ebe_cell_matvec)
+
+
+def reset_launches():
+    """Set every E kernel's launch count to 0."""
+    for fn in _COUNTED:
+        fn.launches = 0
+
+
+def launch_counts():
+    """{wrapper name: kernel launches since the last reset}."""
+    return {fn.__name__: fn.launches for fn in _COUNTED}
+
+
+reset_launches()

@@ -51,6 +51,7 @@ import scipy.sparse as sp
 import torch
 import torch.nn.functional as F
 
+from ..ops import element_chain as ec
 from .bcr import _lattice_node_perm
 from .scatter import dedup_table, dedup_write, segment_sum, segment_table
 
@@ -906,18 +907,15 @@ def ebe_matvec(K_blocks, plan, free=None):
     dt = K_blocks.dtype
     idx, table, whole = plan["idx"], plan["table"], plan["whole"]
     free = plan["free"] if free is None else free
-    nc, nk = K_blocks.shape[:2]
     if plan["mode"] == "node":
         def mv(x):
-            u = F.pad(torch.where(free, x, 0.0).to(dt).view(-1, _BS), (0, 0, 0, 1))
-            y = whole(torch.bmm(K_blocks, u[idx].view(nc, nk, 1)).view(nc, nk)).view(-1, _BS)
-            out = F.pad(y, (0, 0, 0, 1))[table].sum(1).view(-1)
+            y = ec.ebe_cell_matvec(K_blocks, idx, torch.where(free, x, 0.0).to(dt), _BS)
+            out = F.pad(whole(y).view(-1, _BS), (0, 0, 0, 1))[table].sum(1).view(-1)
             return torch.where(free, out, x.to(dt))
     else:
         def mv(x):
-            u = F.pad(torch.where(free, x, 0.0).to(dt), (0, 1))
-            y = whole(torch.bmm(K_blocks, u[idx].unsqueeze(-1)).view(nc, nk)).view(-1)
-            return torch.where(free, segment_sum(y, table), x.to(dt))
+            y = whole(ec.ebe_cell_matvec(K_blocks, idx, torch.where(free, x, 0.0).to(dt), 1))
+            return torch.where(free, segment_sum(y.view(-1), table), x.to(dt))
     return mv
 
 

@@ -5,7 +5,7 @@ FusedPlasticityStep`` with every linear solver of the JAX package:
 ``"cg"``, ``"dense"``, ``"bcr"``, ``"mg"``, ``"elastic"`` and ``"auto"``.
 Per Newton pass:
 
-  deps = B @ u_cell                    (einsum over precomputed B-matrices)
+  deps = B @ u_cell                    (per-cell products, ops/element_chain.py)
   C_tang, sigma = batched return map   (the SoA constitutive kernel)
   r = scatter(B^T sigma) - load        (deterministic gather-table sum)
   K dx = -r                            (safeguarded Jacobi-CG; an f32
@@ -35,10 +35,14 @@ zeroed buffer, summed through ``dist.psum``), where the JAX package's
 and sums them through the table of every cell that ``device_mesh=None``
 builds.  The all-reduce adds exact zeros only, so no sum depends on the
 rank count and every rank holds the same bits, so the ranks take the same
-branches.  The step gives the unsharded bits wherever a rank's per-cell
-products give those that the whole batch gives: on the CPU, and on the
-card where cuBLAS picks the same kernel for the rank's batch as for the
-whole (it picks by the batch count; PERF.md §6).
+branches.  Every per-cell product (the strain, the residual, the tangent
+matvec, diagonal and element blocks, and the AMG plan's element-blocked
+matvec) goes through ``ops/element_chain.py``: on the card a hand kernel
+in which each output is one sum of fixed order, so a rank's cells give
+the whole batch's bits, and the step gives the unsharded bits on any rank
+count (on the CPU the plain einsums, whose bits the CPU tests hold).  The
+AMG setup's level-1 triple product stays a torch matmul, which gives the
+whole batch's bits on the slices ``tools/slice_bits.py`` probes.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ import torch
 
 from .. import resolve_device
 from ..convert import statics_from_numpy
+from ..ops import element_chain as ec
 from . import bcr as _bcr
 from . import dist
 from . import mg as _mg
@@ -438,17 +443,14 @@ class FusedPlasticityStep:
         return dedup_write(self._whole(K_cell32).reshape(-1), self._dense_asm).view(n, n)
 
     # ------------------------------------------------------------------
-    # element chain (spmd.py:477-524)
-    def _gather(self, u):
-        return torch.cat([u, u.new_zeros(1)])[self.statics["dofmap"]]  # (nc, nk)
-
+    # element chain (spmd.py:477-524): the per-cell products, hand kernels
+    # of fixed summation order on the card (ops/element_chain.py)
     def _scatter(self, cell_vals):
         return segment_sum(self._whole(cell_vals).reshape(-1), self._scatter_table)
 
     def _constitutive(self, Du, sigma_n):
         st = self.statics
-        u_cell = self._gather(Du)
-        deps = torch.einsum("cqik,ck->cqi", st["B"], u_cell)
+        deps = ec.cell_strain(st["B"], st["dofmap"], Du)
         nc = deps.shape[0]
         C_t, sig_t = self._vkernel(deps.reshape(-1, 4).T, sigma_n.reshape(-1, 4).T)
         C_tang = C_t.permute(2, 0, 1).reshape(nc, self.nq, 4, 4)
@@ -460,21 +462,16 @@ class FusedPlasticityStep:
 
     def _residual(self, sigma, load, fvec):
         st = self.statics
-        r_cell = torch.einsum("cqik,cqi,cq->ck", st["B"], sigma, st["wdet"])
-        return self._scatter(r_cell) - fvec * load
+        return self._scatter(ec.cell_residual(st["B"], sigma, st["wdet"])) - fvec * load
 
     def _tangent_matvec(self, C_tang, x):
         st = self.statics
-        x_cell = self._gather(x)
-        dde = torch.einsum("cqik,ck->cqi", st["B"], x_cell)
-        dsig = torch.einsum("cqij,cqj->cqi", C_tang, dde)
-        k_cell = torch.einsum("cqik,cqi,cq->ck", st["B"], dsig, st["wdet"])
-        return self._scatter(k_cell)
+        return self._scatter(ec.cell_tangent("matvec", st["B"], C_tang, st["wdet"],
+                                             st["dofmap"], x))
 
     def _tangent_diag(self, C_tang):
         st = self.statics
-        d_cell = torch.einsum("cqik,cqij,cqjk,cq->ck", st["B"], C_tang, st["B"], st["wdet"])
-        return self._scatter(d_cell)
+        return self._scatter(ec.cell_tangent("diag", st["B"], C_tang, st["wdet"]))
 
     def _bc_matvec(self, C_tang, x):
         mask = self.statics["bc_mask"]
@@ -569,21 +566,15 @@ class FusedPlasticityStep:
     def _k_cell32(self, C_tang):
         """Element stiffness in f32 (it only feeds an f32 factorization)."""
         st = self.statics
-        f32 = torch.float32
-        return torch.einsum("cqik,cqij,cqjl,cq->ckl", st["B"].to(f32), C_tang.to(f32),
-                            st["B"].to(f32), st["wdet"].to(f32))
+        return ec.cell_tangent("blocks", st["B"], C_tang, st["wdet"], dtype=torch.float32)
 
     def _k_cell_masked(self, C_tang, dtype=_F):
         """bc-masked element stiffness blocks ``km K km^T`` (padded cells:
         zero): in f64 the blocks of the exact refinement operator, in f32
         those of a factorization or preconditioner."""
-        km = self._keep_cell.to(dtype)
-        if dtype == _F:
-            st = self.statics
-            K = torch.einsum("cqik,cqij,cqjl,cq->ckl", st["B"], C_tang, st["B"], st["wdet"])
-        else:
-            K = self._k_cell32(C_tang)
-        return K * km[:, :, None] * km[:, None, :]
+        st = self.statics
+        return ec.cell_tangent("blocks", st["B"], C_tang, st["wdet"], keep=self._keep_cell,
+                               dtype=dtype)
 
     def _bcr_bands(self, C_tang):
         """The flat f32 row bands ``[L | D | U]`` of the bc-masked tangent in

@@ -47,6 +47,7 @@ import torch
 
 from . import krylov
 from .assembly import bc_arrays, create_form
+from .ops import element_chain as ec
 
 __all__ = ["solve_dense", "cg", "NewtonSolver", "NonlinearProblem"]
 
@@ -145,15 +146,16 @@ def cg(matvec, b, x0=None, M=None, tol=1e-12, atol=0.0, maxiter=None):
 
 def _ebe_operator(elems, udofs_l, scatter, mask):
     """The element-by-element operator with the rows and columns of
-    ``mask`` eliminated (identity on them): the matvec gathers ``x`` per
-    cell, contracts the element tensors and sums through ``scatter`` (the
-    form's gather table)."""
+    ``mask`` eliminated (identity on them): each cell's element tensor
+    against ``x`` at its dofs (``ops.element_chain.ebe_cell_matvec``, a
+    kernel of fixed summation order on the card), summed through
+    ``scatter`` (the form's gather table)."""
     free = ~mask
     zero = torch.zeros((), dtype=elems[0].dtype, device=mask.device)
 
     def matvec(x):
         xz = torch.where(free, x, zero)
-        out = scatter([torch.einsum("cij,cj->ci", e, xz[ud]) for e, ud in zip(elems, udofs_l)])
+        out = scatter([ec.ebe_cell_matvec(e, ud, xz, 1) for e, ud in zip(elems, udofs_l)])
         return torch.where(free, out, zero) + torch.where(mask, x, zero)
 
     return matvec

@@ -22,8 +22,8 @@ peaks are a TPU v5e's.  Here:
   signatures and entry layouts.
 
 Counts for the von Mises kernel K2 (both entries), the Mohr-Coulomb kernel
-K1, BCR and AMG-CG are the hand counts that ``chip_smoke.py`` reports
-against.  Nothing here imports JAX.
+K1, the element chain's kernels E1-E4, BCR and AMG-CG are the hand counts
+that ``chip_smoke.py`` reports against.  Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ __all__ = ["H100_HBM_BYTES_PER_S", "H100_F32_FLOPS_PER_S", "H100_F64_FLOPS_PER_S
            "MC_BYTES_PER_POINT", "MC_ITER_OPS", "MC_FIXED_F32_OPS", "MC_FIXED_F64_OPS",
            "card_line", "bound", "vm_bound", "mc_ops", "mc_bound", "bcr_counts", "mg_counts",
            "return_map_flops_per_pt", "return_map_flops_per_pt_hi", "return_map_mfu",
-           "dia_counts", "dia_roofline_from_fp"]
+           "dia_counts", "dia_roofline_from_fp", "element_chain_counts", "element_chain_bound"]
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, f32 and f64
 # outside the tensor cores
@@ -182,6 +182,54 @@ def mg_counts(plan, gamma, nc, nk):
                  + 2 * nL ** 3)
     return {"cycle_ops": ops, "cycle_bytes": 4 * (values + 2 * plan["n0"]),
             "setup_ops": setup_ops, "setup_bytes": 4 * (nc * nk * nk + values + ell)}
+
+
+def element_chain_counts(kernel, nc, nq, ni, nk, n, mode="matvec", itemsize=8, keep=False,
+                         bs=2):
+    """(operations, bytes) of one call of an element-chain kernel
+    (``ops/element_chain.py``) on ``nc`` cells of ``nq`` Gauss points, ``ni``
+    strain components and ``nk`` dofs, against a vector of ``n``: each
+    input read once and each output written once (B (nc, nq, ni, nk), w
+    (nc, nq), the dofmap (nc, nk) int64, sigma (nc, nq, ni), the tangent
+    (nc, nq, ni, ni) in f64; E4's blocks, x and y in ``itemsize`` bytes,
+    its node index (nc, nk / bs)), and the operations of the contraction
+    done once (a multiply and an add for each term):
+
+    * ``"cell_strain"`` (E1): ``2 nq ni nk`` a cell;
+    * ``"cell_residual"`` (E2): ``2 nq nk (ni + 1)``;
+    * ``"cell_tangent"`` (E3): ``mode`` ``"matvec"`` B x, C de and B^T
+      dsig, ``2 nq (2 ni nk + ni^2 + nk)``; ``"diag"`` C B and its
+      diagonal against B, ``2 nq nk (ni^2 + ni + 1)``; ``"blocks"`` C B
+      and B^T (C B), ``2 nq nk (ni^2 + ni nk + nk)``, with ``itemsize``
+      bytes an output and, with ``keep``, the mask read and applied;
+    * ``"ebe_matvec"`` (E4): ``2 nk^2``."""
+    B, w, dof, C = nc * nq * ni * nk * 8, nc * nq * 8, nc * nk * 8, nc * nq * ni * ni * 8
+    if kernel == "cell_strain":
+        return 2 * nc * nq * ni * nk, B + dof + 8 * n + nc * nq * ni * 8
+    if kernel == "cell_residual":
+        return 2 * nc * nq * nk * (ni + 1), B + nc * nq * ni * 8 + w + nc * nk * 8
+    if kernel == "cell_tangent":
+        if mode == "matvec":
+            return (2 * nc * nq * (2 * ni * nk + ni * ni + nk),
+                    B + C + w + dof + 8 * n + nc * nk * 8)
+        if mode == "diag":
+            return 2 * nc * nq * nk * (ni * ni + ni + 1), B + C + w + nc * nk * 8
+        if mode == "blocks":
+            ops = 2 * nc * nq * nk * (ni * ni + ni * nk + nk) + (2 * nc * nk * nk if keep else 0)
+            return ops, B + C + w + (nc * nk * 8 if keep else 0) + nc * nk * nk * itemsize
+        raise ValueError(f"unknown cell_tangent mode {mode!r}")
+    if kernel == "ebe_matvec":
+        return (2 * nc * nk * nk,
+                itemsize * (nc * nk * nk + n + nc * nk) + 8 * nc * (nk // bs))
+    raise ValueError(f"unknown element-chain kernel {kernel!r}")
+
+
+def element_chain_bound(kernel, nc, nq, ni, nk, n, mode="matvec", itemsize=8, keep=False, bs=2):
+    """(bound_ms, bound_by) of ``element_chain_counts``' call: its bytes
+    over HBM, or its operations over the f64 peak (the f32 peak for
+    ``itemsize`` 4), whichever is larger."""
+    ops, nbytes = element_chain_counts(kernel, nc, nq, ni, nk, n, mode, itemsize, keep, bs)
+    return bound(ops, nbytes, H100_F32_FLOPS_PER_S if itemsize == 4 else H100_F64_FLOPS_PER_S)
 
 
 def return_map_flops_per_pt(mat, deps, sigma_n, niter=None):

@@ -30,6 +30,7 @@ from dolfinx_external_operator_tpu.parallel.spmd import FusedPlasticityStep as S
 import dolfinx_external_operator_torch as pt
 from dolfinx_external_operator_torch import convert
 from dolfinx_external_operator_torch import mesh as mesh_t
+from dolfinx_external_operator_torch.ops import element_chain as ec
 from dolfinx_external_operator_torch.parallel import bcr as bcr_t
 from test_bcr import _random_block_tridiag
 from test_torch_slope_step import RECORD_25X25
@@ -276,8 +277,8 @@ def test_slope_25x25_step29_gap_is_the_polish_stop():
     Du2 = fj._step(fj.statics, Du, sig, jnp.asarray(load), jnp.asarray(2),
                    jnp.asarray(fj.cg_rtol), jnp.asarray(jnp.nan))[0]
     fp = pt.mohr_coulomb_slope_step(25, 25, route="plain", device="cpu", linear_solver="bcr")
-    u_cell = fp._gather(torch.tensor(np.asarray(Du2)))
-    deps = torch.einsum("cqik,ck->cqi", fp.statics["B"], u_cell).reshape(-1, 4).T.contiguous()
+    deps = ec.cell_strain_reference(fp.statics["B"], fp.statics["dofmap"],
+                                    torch.tensor(np.asarray(Du2))).reshape(-1, 4).T.contiguous()
     sn = torch.tensor(np.asarray(sig)).reshape(-1, 4).T.contiguous()
     gaps, sig_j = {}, {}
     for tol in (1e-8, 1e-10):

@@ -433,25 +433,28 @@ def test_cuda_one_nccl_rank_is_the_unsharded_step(cuda, mode):
 
 @pytest.mark.parametrize("mode", ["dia", "node"])
 def test_cuda_two_gloo_ranks_on_one_card(cuda, mode):
-    """Two gloo ranks with CUDA tensors on one card (NCCL refuses that):
-    the one-rank Newton list, Du within 1e-10, the ranks' norms bitwise
-    equal, one K1 launch per Newton pass on each rank.  Not bitwise at 8x8:
-    the sums are order-free, but cuBLAS picks a batched product's kernel by
-    the batch count, and for a rank's 64 cells against all 128 the strain
-    and residual einsums and the f32 element-blocked matvec pick others
-    (``chip_smoke.py`` phase 15 holds 25x25 bitwise, where the mg path's
-    products pick the same kernels).  In node mode the cycle's level-0
-    matvec all-reduces over gloo, so the cycle runs eager (no CUDA graph
-    can hold a gloo all-reduce); in dia mode it is graphed."""
+    """Two gloo ranks with CUDA tensors on one card (NCCL refuses that),
+    8x8 slope with AMG-CG: the unsharded card run's bits in Du, sigma (the
+    ranks' slices in rank order), the Newton list and the inner counts,
+    the ranks' norms bitwise equal, one K1 launch per Newton pass on each
+    rank.  The sums are order-free (``dist.cell_sum``) and every per-cell
+    product is a kernel of fixed summation order (``ops/element_chain.py``),
+    so a rank's 64 cells give the rows of all 128 bit for bit.  In node
+    mode the cycle's level-0 matvec all-reduces over gloo, so the cycle
+    runs eager (no CUDA graph can hold a gloo all-reduce); in dia mode it
+    is graphed."""
     from dolfinx_external_operator_torch.entry import slope_schedule
     from dolfinx_external_operator_torch.parallel import dist
 
     loads, mg_opts = (2.0, 6.0, 10.0), {"mv0_mode": mode}
     runs = dist.spawn(slope_schedule, 2, "gloo", None, 8, loads, "mg", mg_opts=mg_opts)
-    Du, _, its, _ = _unsharded(8, loads, cuda, linear_solver="mg", mg_opts=mg_opts)
+    Du, sig, its, inner = _unsharded(8, loads, cuda, linear_solver="mg", mg_opts=mg_opts)
+    sigma = np.concatenate([run["sigma"] for run in sorted(runs, key=lambda r: r["rank"])])
+    assert np.array_equal(sigma[:len(sig)], sig)
     for run in runs:
-        assert run["device"] == "cuda:0" and run["newton"] == its
-        assert float(np.abs(run["du"] - Du).max()) < 1e-10
+        assert run["device"] == "cuda:0"
+        assert (run["newton"], run["inner"]) == (its, inner)
+        assert np.array_equal(run["du"], Du)
         assert run["norms"] == runs[0]["norms"]
         assert run["launches"] == run["passes"]
 
@@ -616,3 +619,123 @@ def test_cuda_yield_surface_sweep(cuda):
     assert float(mat.f_yield(sig).abs().max()) < 5e-7
     assert bool((dlambda > 0.0).all())
     assert float((sig.cpu() - sig_p).abs().max() / sig_p.abs().max()) < 1e-9
+
+
+# ----------------------------------------------------------------------
+# the element chain's kernels E1-E4 (ops/element_chain.py)
+EC_PRODUCTS = ("strain", "residual", "tangent_matvec", "tangent_diag", "blocks_f64",
+               "blocks_f32", "ebe_f64", "ebe_f32", "ebe_node_f64", "ebe_node_f32")
+
+
+@pytest.fixture(scope="module")
+def ec_state():
+    """The 8x8 slope (dense, K1) on the card after two load steps: its
+    arrays, the tangent and sigma there, a seeded vector."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (see README: the port's card-only tests)")
+    dev = torch.device("cuda")
+    fp = pt.mohr_coulomb_slope_step(8, 8, device=dev, linear_solver="dense")
+    Du, sig_n = fp.zero_state()
+    for load in (2.0, 6.0):
+        Du, sig_n, *_ = fp.run_step(Du, sig_n, load)
+    C, sigma = fp._constitutive(Du, sig_n)
+    st = fp.statics
+    from dolfinx_external_operator_torch.ops import element_chain as ec
+
+    K = ec.cell_tangent("blocks", st["B"], C, st["wdet"], keep=fp._keep_cell)
+    x = torch.as_tensor(np.random.default_rng(8).standard_normal(fp.n_dofs), device=dev)
+    return {"Du": Du, "C": C, "sigma": sigma, "x": x, "B": st["B"], "w": st["wdet"],
+            "dof": st["dofmap"], "keep": fp._keep_cell, "node": st["dofmap"][:, ::2] // 2,
+            "K": K}
+
+
+def _ec_call(ch, name, kind, cells=slice(None), device=None):
+    """Product ``name`` of ops.element_chain (``kind``: "" the wrapper,
+    "_reference" the plain version, "_host" the g++ build) on ``cells``,
+    its inputs moved to ``device`` where given."""
+    from dolfinx_external_operator_torch.ops import element_chain as ec
+
+    def r(t):
+        t = t[cells].contiguous()
+        return t if device is None else t.to(device)
+
+    def v(t):
+        return t if device is None else t.to(device)
+
+    B, C, w, dof, x = r(ch["B"]), r(ch["C"]), r(ch["w"]), r(ch["dof"]), v(ch["x"])
+    if name == "strain":
+        fn, args, kw = "cell_strain", (B, dof, v(ch["Du"])), {}
+    elif name == "residual":
+        fn, args, kw = "cell_residual", (B, r(ch["sigma"]), w), {}
+    elif name == "tangent_matvec":
+        fn, args, kw = "cell_tangent", ("matvec", B, C, w, dof, x), {}
+    elif name == "tangent_diag":
+        fn, args, kw = "cell_tangent", ("diag", B, C, w), {}
+    elif name.startswith("blocks"):
+        fn, args, kw = "cell_tangent", ("blocks", B, C, w), {
+            "keep": r(ch["keep"]), "dtype": torch.float32 if "f32" in name else torch.float64}
+    else:
+        dt = torch.float32 if "f32" in name else torch.float64
+        idx, bs = (r(ch["node"]), 2) if "node" in name else (dof, 1)
+        K = r(ch["K"]).to(dt)
+        fn, args, kw = "ebe_cell_matvec", (K, idx, x.to(dt), bs), {}
+    return getattr(ec, fn + kind)(*args, **kw), fn
+
+
+@pytest.mark.parametrize("name", EC_PRODUCTS)
+def test_cuda_element_chain_kernel(ec_state, name):
+    """Each E kernel on the card: one launch, within 1e-13 (f64) or 1e-5
+    (f32) of its plain version, the g++ build's bits, the whole batch's
+    bits on the cells of 2 and of 3 slices and in reverse order, and the
+    same bits replayed from a CUDA graph."""
+    from dolfinx_external_operator_torch.ops import element_chain as ec
+
+    before = ec.launch_counts()
+    out, fn = _ec_call(ec_state, name, "")
+    torch.cuda.synchronize()
+    after = ec.launch_counts()
+    assert after[fn] == before[fn] + 1
+    assert {k: after[k] - before[k] for k in after if k != fn} == {k: 0 for k in after if k != fn}
+    plain, _ = _ec_call(ec_state, name, "_reference")
+    tol = 1e-5 if out.dtype == torch.float32 else 1e-13
+    assert float((out - plain).abs().max() / plain.abs().max()) < tol
+    host, _ = _ec_call(ec_state, name, "_host", device="cpu")
+    assert torch.equal(out.cpu(), host)
+    nc = out.shape[0]
+    for n in (2, 3):
+        k = -(-nc // n)
+        for r in range(n):
+            cells = slice(r * k, min((r + 1) * k, nc))
+            assert torch.equal(_ec_call(ec_state, name, "", cells)[0], out[cells]), (n, r)
+    rev = torch.arange(nc - 1, -1, -1, device=out.device)
+    assert torch.equal(_ec_call(ec_state, name, "", rev)[0], out[rev])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed, _ = _ec_call(ec_state, name, "")
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, out)
+
+
+@pytest.mark.parametrize("case", [(8, "dia"), (8, "node")])
+def test_cuda_slice_bits_of_the_fused_step(cuda, case):
+    """``tools/slice_bits.py`` on the card: every per-cell product of the
+    8x8 slope's AMG-CG step, the return map included, gives on the cells
+    of each of 2 and 3 ranks the whole batch's bits (the level-1 triple,
+    a torch matmul, too at this size)."""
+    from dolfinx_external_operator_torch.tools import slice_bits
+
+    out = slice_bits.probe(*case, cuda)
+    assert out == {name: {2: True, 3: True} for name in out}, out
+
+
+def test_cuda_slice_bits_of_the_general_path(cuda):
+    """``tools/slice_bits.py`` on the card, the general pipeline's 8x8
+    slope: the Jacobian's action and the element-by-element Krylov
+    operator's per-cell product (E4 both) give on the cells of each of 2
+    and 3 ranks the whole batch's bits."""
+    from dolfinx_external_operator_torch.tools import slice_bits
+
+    out = slice_bits.probe_general(8, cuda)
+    for name in ("action", "ebe_operator"):
+        assert out[name] == {2: True, 3: True}, out

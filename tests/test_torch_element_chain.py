@@ -1,0 +1,257 @@
+"""The element chain's kernels E1-E4 (``ops/element_chain.py``) on the CPU.
+
+Inputs: the port's Mohr-Coulomb slope step (dense, plain return map) at
+4x4 and 8x8 after two load steps (2.0, 6.0): Du, sigma and the tangent
+there, and a vector drawn from a numpy seed.
+
+* The plain versions (what a CPU tensor runs, and what the fused step ran
+  before the kernels) against the JAX package's element chain: its own
+  ``_local_ops`` (``parallel/spmd.py:477-524``) for the strain, the
+  residual, the tangent matvec and diagonal, called with an identity
+  dofmap so that its scatter keeps each cell's values, and its einsums of
+  the element blocks (``:612``, ``:745``) and of ``_ebe`` (``:617-620``)
+  on the same arrays: within 1e-12 relative in f64, 1e-6 in f32 (the two
+  libraries sum f32 products in other orders).
+* The kernels' own bodies, built with g++ (``*_host``), against the plain
+  versions: within 1e-13 relative in f64, 1e-5 in f32.
+* The bodies on the cells of 2 and of 3 slices, and on the cells in
+  reverse order: bitwise the whole batch's rows, the property that makes
+  a rank's cells give the whole batch's bits.
+* Padded cells (B and w zero, every dof the padding index, keep 0) give
+  zero, in the plain versions and in the bodies.
+
+The kernels themselves run on a card in ``test_torch_cuda.py``.
+"""
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+
+import torch
+
+from dolfinx_external_operator_tpu.parallel.spmd import FusedPlasticityStep as StepJ
+
+import dolfinx_external_operator_torch as pt
+from dolfinx_external_operator_torch.ops import element_chain as ec
+from test_torch_bcr import _jax_slope
+
+jax.config.update("jax_enable_x64", True)
+torch.set_num_threads(2)
+
+LOADS = (2.0, 6.0)
+F32, F64 = torch.float32, torch.float64
+# product -> its dtype
+PRODUCTS = {"strain": F64, "residual": F64, "tangent_matvec": F64, "tangent_diag": F64,
+            "blocks_f64": F64, "blocks_f32": F32, "ebe_f64": F64, "ebe_f32": F32,
+            "ebe_node_f64": F64, "ebe_node_f32": F32}
+
+
+@pytest.fixture(scope="module", params=[4, 8], ids=lambda n: f"{n}x{n}")
+def chain(request):
+    """The inputs at N x N after two load steps; the element chain's
+    arguments, by product, as functions of a cell selection."""
+    N = request.param
+    fp = pt.mohr_coulomb_slope_step(N, N, device="cpu", linear_solver="dense", route="plain")
+    Du, sig_n = fp.zero_state()
+    for load in LOADS:
+        Du, sig_n, *_ = fp.run_step(Du, sig_n, load)
+    C, sigma = fp._constitutive(Du, sig_n)
+    rng = np.random.default_rng(N)
+    x = torch.as_tensor(rng.standard_normal(fp.n_dofs))
+    st = fp.statics
+    # E4's blocks: the whole batch's, sliced like the other inputs
+    K = ec.cell_tangent_reference("blocks", st["B"], C, st["wdet"], keep=fp._keep_cell)
+    return {"N": N, "fp": fp, "Du": Du, "sig_n": sig_n, "C": C, "sigma": sigma, "x": x,
+            "B": st["B"], "w": st["wdet"], "dof": st["dofmap"], "keep": fp._keep_cell,
+            "node": st["dofmap"][:, ::2] // 2, "K": K}
+
+
+def _args(ch, name, cells=slice(None)):
+    """(function of ops.element_chain by suffix, its arguments) of product
+    ``name`` on ``cells`` (any row selection)."""
+    def r(t):
+        return t[cells].contiguous()
+
+    B, C, w, dof, x = r(ch["B"]), ch["C"][cells], r(ch["w"]), r(ch["dof"]), ch["x"]
+    if name == "strain":
+        return "cell_strain", (B, dof, ch["Du"]), {}
+    if name == "residual":
+        return "cell_residual", (B, ch["sigma"][cells], w), {}
+    if name == "tangent_matvec":
+        return "cell_tangent", ("matvec", B, C, w, dof, x), {}
+    if name == "tangent_diag":
+        return "cell_tangent", ("diag", B, C, w), {}
+    if name.startswith("blocks"):
+        return "cell_tangent", ("blocks", B, C, w), {
+            "keep": r(ch["keep"]), "dtype": F32 if name.endswith("f32") else F64}
+    dt = F32 if name.endswith("f32") else F64
+    K = ch["K"][cells].to(dt)
+    if "node" in name:
+        return "ebe_cell_matvec", (K, r(ch["node"]), x.to(dt), 2), {}
+    return "ebe_cell_matvec", (K, dof, x.to(dt), 1), {}
+
+
+def _run(ch, name, kind, cells=slice(None)):
+    fn, args, kw = _args(ch, name, cells)
+    return getattr(ec, f"{fn}{kind}")(*args, **kw)
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+    return np.abs(a - b).max() / np.abs(b).max()
+
+
+@pytest.fixture(scope="module")
+def jax_chain(chain):
+    """The JAX package's products on the same arrays, by name, per cell."""
+    N = chain["N"]
+    fp_j = StepJ(*_jax_slope(N))
+    st_t = {k: chain[k].numpy() for k in ("B", "w", "dof", "keep")}
+    st = {"B": jnp.asarray(st_t["B"]), "wdet": jnp.asarray(st_t["w"]),
+          "dofmap": jnp.asarray(st_t["dof"])}
+    for k, k_j in (("B", "B"), ("w", "wdet"), ("dof", "dofmap")):
+        assert np.array_equal(st_t[k], np.asarray(fp_j.statics[k_j])), k
+    nc, nk = st_t["dof"].shape
+    psum = lambda v: v  # noqa: E731
+    C = jnp.asarray(chain["C"].numpy())
+    x = chain["x"].numpy()
+    # the strain: the JAX constitutive step with a return map that hands
+    # the strain back as the stress
+    fp_j._vkernel = lambda d, s: (jnp.zeros((4, 4, d.shape[1])), d)
+    constitutive = fp_j._local_ops()[0]
+    _, strain = constitutive(st, jnp.asarray(chain["Du"].numpy()),
+                             jnp.zeros((nc, fp_j.nq, 4)), psum)
+    # per-cell values: an identity dofmap over nc * nk slots
+    fp_j.n_dofs = nc * nk
+    _, residual, tangent_matvec, tangent_diag, _ = fp_j._local_ops()
+    st_id = dict(st, dofmap=jnp.arange(nc * nk).reshape(nc, nk))
+    x_cell = np.concatenate([x, [0.0]])[st_t["dof"]]
+    out = {"strain": strain,
+           "residual": residual(st_id, jnp.asarray(chain["sigma"].numpy()), 0.0, psum,
+                                jnp.zeros(nc * nk)).reshape(nc, nk),
+           "tangent_matvec": tangent_matvec(st_id, C, jnp.asarray(x_cell.ravel()),
+                                            psum).reshape(nc, nk),
+           "tangent_diag": tangent_diag(st_id, C, psum).reshape(nc, nk)}
+    # the element blocks (spmd.py:612, :745) and _ebe (:617-620)
+    km = jnp.asarray(st_t["keep"])
+    K = jnp.einsum("cqik,cqij,cqjl,cq->ckl", st["B"], C, st["B"], st["wdet"])
+    out["blocks_f64"] = K = K * km[:, :, None] * km[:, None, :]
+    f32 = jnp.float32
+    km32 = km.astype(f32)
+    K32 = jnp.einsum("cqik,cqij,cqjl,cq->ckl", st["B"].astype(f32), C.astype(f32),
+                     st["B"].astype(f32), st["wdet"].astype(f32))
+    out["blocks_f32"] = K32 * km32[:, :, None] * km32[:, None, :]
+    for name, Kd in (("ebe_f64", K), ("ebe_f32", K.astype(f32))):
+        u = jnp.concatenate([jnp.asarray(x, Kd.dtype), jnp.zeros(1, Kd.dtype)])
+        out[name] = out[name.replace("ebe", "ebe_node")] = jnp.einsum(
+            "cab,cb->ca", Kd, u[st["dofmap"]])
+    return out
+
+
+@pytest.mark.parametrize("name", list(PRODUCTS))
+def test_plain_matches_jax(chain, jax_chain, name):
+    plain = _run(chain, name, "_reference")
+    tol = 1e-6 if PRODUCTS[name] == F32 else 1e-12
+    assert plain.dtype == PRODUCTS[name]
+    assert _rel(plain.numpy(), np.asarray(jax_chain[name])) < tol
+
+
+@pytest.mark.parametrize("name", list(PRODUCTS))
+def test_wrapper_runs_plain_on_cpu(chain, name):
+    """On CPU tensors a wrapper returns its plain version's bits and
+    launches nothing."""
+    before = ec.launch_counts()
+    assert torch.equal(_run(chain, name, ""), _run(chain, name, "_reference"))
+    assert ec.launch_counts() == before
+
+
+@pytest.mark.parametrize("name", list(PRODUCTS))
+def test_host_body_matches_plain(chain, name):
+    host, plain = _run(chain, name, "_host"), _run(chain, name, "_reference")
+    assert host.dtype == plain.dtype and host.shape == plain.shape
+    tol = 1e-5 if PRODUCTS[name] == F32 else 1e-13
+    assert _rel(host.numpy(), plain.numpy()) < tol
+
+
+@pytest.mark.parametrize("name", list(PRODUCTS))
+def test_host_body_is_slice_invariant(chain, name):
+    """The bodies on the cells of 2 and 3 slices and in reverse order give
+    the whole batch's rows bit for bit."""
+    whole = _run(chain, name, "_host")
+    nc = whole.shape[0]
+    for n in (2, 3):
+        k = -(-nc // n)
+        for r in range(n):
+            cells = slice(r * k, min((r + 1) * k, nc))
+            assert torch.equal(_run(chain, name, "_host", cells), whole[cells]), (n, r)
+    rev = torch.arange(nc - 1, -1, -1)
+    assert torch.equal(_run(chain, name, "_host", rev), whole[rev])
+
+
+def _padded(ch, pad):
+    """``ch`` with ``pad`` padded cells appended, as a sharded step pads its
+    last rank: B and w zero, every dof the padding index n, keep 0."""
+    n = ch["fp"].n_dofs
+    out = dict(ch)
+    for k, v in (("B", 0.0), ("w", 0.0), ("dof", n), ("keep", 0.0), ("node", n // 2),
+                 ("K", 0.0)):
+        t = ch[k]
+        out[k] = torch.cat([t, torch.full((pad,) + tuple(t.shape[1:]), v, dtype=t.dtype)])
+    C, sigma = ch["C"], ch["sigma"]
+    out["C"] = torch.cat([C, C[:pad]])  # a real tangent: B = 0 must zero it
+    out["sigma"] = torch.cat([sigma, sigma[:pad]])
+    return out
+
+
+@pytest.mark.parametrize("kind", ["_reference", "_host"])
+@pytest.mark.parametrize("name", list(PRODUCTS))
+def test_padded_cells_give_zero(chain, name, kind):
+    pad = 3
+    ch = _padded(chain, pad)
+    out = _run(ch, name, kind)
+    assert not bool(out[-pad:].any())
+    if kind == "_host":
+        assert torch.equal(out[:-pad], _run(chain, name, kind))
+    else:  # torch's CPU einsum may sum a longer batch in another order
+        assert _rel(out[:-pad].numpy(), _run(chain, name, kind).numpy()) < 1e-13
+
+
+def test_diag_is_the_blocks_diagonal(chain):
+    """The diagonal mode gives the f64 blocks' diagonal bit for bit."""
+    d = ec.cell_tangent_host("diag", chain["B"], chain["C"], chain["w"])
+    K = ec.cell_tangent_host("blocks", chain["B"], chain["C"], chain["w"])
+    assert torch.equal(d, torch.diagonal(K, dim1=1, dim2=2))
+
+
+@pytest.mark.parametrize("case", ["dtype", "shape", "contiguity", "mode", "dtype_mix"])
+def test_wrappers_refuse_what_the_kernels_do_not_take(chain, case):
+    B, C, w, dof = chain["B"], chain["C"], chain["w"], chain["dof"]
+    with pytest.raises((TypeError, ValueError)):
+        if case == "dtype":
+            ec.cell_strain(B.to(F32), dof, chain["Du"])
+        elif case == "shape":
+            ec.cell_residual(B, chain["sigma"][:, :2], w)
+        elif case == "contiguity":
+            ec.cell_strain(B.transpose(2, 3), dof, chain["Du"])
+        elif case == "mode":
+            ec.cell_tangent("diag", B, C, w, dtype=F32)
+        else:
+            ec.ebe_cell_matvec(torch.zeros(3, 12, 12), dof[:3], chain["x"], 1)
+
+
+@pytest.mark.parametrize("dtype", [F64, F32])
+def test_ebe_non_square_blocks(dtype):
+    """E4 on (nc, na, nb) blocks (a form's test and trial spaces differ):
+    the g++ body within 1e-13 (f64) or 1e-5 (f32) of the plain version,
+    and bitwise on a slice of the cells."""
+    rng = np.random.default_rng(5)
+    nc, na, nb, n = 40, 6, 10, 57
+    K = torch.as_tensor(rng.standard_normal((nc, na, nb)), dtype=dtype)
+    idx = torch.as_tensor(rng.integers(0, n + 1, (nc, nb)))  # n: padding
+    x = torch.as_tensor(rng.standard_normal(n), dtype=dtype)
+    host, plain = ec.ebe_cell_matvec_host(K, idx, x, 1), ec.ebe_cell_matvec_reference(K, idx, x, 1)
+    assert host.shape == (nc, na)
+    assert _rel(host.numpy(), plain.numpy()) < (1e-5 if dtype == F32 else 1e-13)
+    part = ec.ebe_cell_matvec_host(K[13:29].contiguous(), idx[13:29].contiguous(), x, 1)
+    assert torch.equal(part, host[13:29])
