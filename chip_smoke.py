@@ -159,17 +159,22 @@ Phases, in order; any failed check exits non-zero without the ``ok`` line:
    ``--small`` on one process and on ``--ranks 2`` (gloo; the final
    displacements within 1e-12 relative), Mohr-Coulomb ``--small`` and
    hyperelasticity ``--small``; each holds its own asserts;
-25. the element chain's kernels E1-E4 (``ops/element_chain.py``, one
-   launch a product, each output one sum of fixed order): ``tools/
+25. the element chain's kernels E1-E5 (``ops/element_chain.py``, one
+   launch a product, each output one sum of fixed order; E1 and E4
+   staged a group of cells a block at the repo's shapes): ``tools/
    slice_bits.py`` on the card, every per-cell product of the slope's
    AMG-CG step (8x8 dia and node, 25x25 dia) on the cells of each of 2
-   and 3 ranks bitwise the whole batch's, the return map included, and
-   the general pipeline's beside them (its action and Krylov operator,
-   E4, bitwise; its operand evaluation recorded); at step 50's iterate of
-   phase 6, each kernel and mode against its plain version (``EC_TOL``),
-   timed in a CUDA graph and a call beside its plain version and one
-   einsum or ``torch.bmm`` that computes its function, against its bound.  Their launches are counted over phases
-   6 (E1-E3), 11 and 12 (E4 too), and each of those checks them.
+   and 3 ranks bitwise the whole batch's, the return map and the level-1
+   triple (E5) included, and the general pipeline's beside them (its
+   operand evaluation, E5, its action and Krylov operator, E4, bitwise);
+   at step 50's iterate of phase 6, each kernel and mode against its
+   plain version (``EC_TOL``), timed in a CUDA graph and a call beside
+   its plain version and one einsum or ``torch.bmm`` that computes its
+   function, against its bound (E5: the level-1 triple on the 25x25 AMG
+   plan's weights, and the 25x25 general slope's operand products).
+   Their launches are counted over phases 6 (E1-E3; no E4 or E5), 11
+   (E4, and E5 twice an update), 12 (E4; no E5) and 18 (E5), and each of
+   those checks them.
 
 Peaks, bounds and work counts come from
 ``dolfinx_external_operator_torch/utils/roofline.py``.  The line before the
@@ -860,7 +865,8 @@ def mc_main_path(report):
     # one strain and one residual a Newton pass; an update's f32 blocks and
     # its refinement rounds' tangent matvecs; no element-blocked matvec
     want = {"cell_strain": launches, "cell_residual": launches,
-            "cell_tangent": sum(its_k) * (1 + fp_k._dense_refine), "ebe_cell_matvec": 0}
+            "cell_tangent": sum(its_k) * (1 + fp_k._dense_refine), "ebe_cell_matvec": 0,
+            "cell_product": 0}
     print(f"25x25 slope, kernel: element-chain launches {ec_launches}", flush=True)
     check(ec_launches == want, f"element-chain launches {ec_launches}, expected {want}")
     du_err = float((Du_k - Du_p).abs().max() / Du_p.abs().max())
@@ -1096,10 +1102,12 @@ def mg_25x25_phase(report, fp_dense, state):
     check(its == rec, f"25x25 mg Newton list {its} != record {rec}")
     check(launches == sum(its) + len(its), f"{launches} launches for Newton {its}")
     # the f64 blocks once an update, the element-blocked f64 matvec in
-    # each refinement round (dia mode's f32 level-0 matvec is banded)
+    # each refinement round (dia mode's f32 level-0 matvec is banded), the
+    # level-1 triple (E5 twice) in each update's AMG setup
     print(f"  element-chain launches {ec_launches}", flush=True)
     check(ec_launches["cell_strain"] == ec_launches["cell_residual"] == launches
-          and ec_launches["cell_tangent"] == sum(its) and ec_launches["ebe_cell_matvec"] > 0,
+          and ec_launches["cell_tangent"] == sum(its) and ec_launches["ebe_cell_matvec"] > 0
+          and ec_launches["cell_product"] == 2 * sum(its),
           f"element-chain launches {ec_launches} for {launches} passes, {sum(its)} updates")
     gap = sum(inner) / MG_25_INNER_JAX - 1.0
     print(f"  inner iterations {sum(inner)} against the JAX package's {MG_25_INNER_JAX} on the "
@@ -1145,6 +1153,7 @@ def mg_25x25_phase(report, fp_dense, state):
     check(torch.equal(Du_again, Du10), "25x25 mg: the first 10 steps run twice differ")
     print("25x25 mg: the first 10 steps run a second time give Du bitwise equal", flush=True)
     return launches, {"state10": states[10], "newton": its, "inner": inner, "du": Du_end,
+                      "W": fp._mg["transfers"][0]["W"],
                       "sigma": states["sigma"]}
 
 
@@ -1173,7 +1182,8 @@ def elastic_25x25_phase(report):
     check(its == rec, f"25x25 elastic Newton list {its} != record {rec}")
     check(launches == sum(its) + len(its), f"{launches} launches for Newton {its}")
     print(f"  element-chain launches {ec_launches}", flush=True)
-    check(ec_launches["ebe_cell_matvec"] > 0, f"element-chain launches {ec_launches}")
+    check(ec_launches["ebe_cell_matvec"] > 0 and ec_launches["cell_product"] == 0,
+          f"element-chain launches {ec_launches}")
     # the end-of-step refresh at step 50's first tangent: the SPD inverse
     # does n^3 operations (Cholesky, triangular inverse and the product,
     # n^3 / 3 each); it reads the f32 element blocks and writes the inverse
@@ -1426,13 +1436,15 @@ def general_slope_phase(report, u_fused, fused_s, n=25, loads=pt.SLOPE_LOADS, de
     mc.solve_slope_stability(4, 4, loads[:2], device=device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    # the path's count starts at 0 here and is read after it
+    # the path's counts start at 0 here and are read after it
     mc_ops.mc_return_map.launches = 0
+    ec.reset_launches()
     t0 = time.perf_counter()
     run = mc.solve_slope_stability(n, n, loads, device=device, route="cuda", capture=steps)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     launches = mc_ops.mc_return_map.launches
+    ec_launches = ec.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     its, backtracks = run["iterations"], sum(run["backtracks"])
     backtracked = [k + 1 for k, b in enumerate(run["backtracks"]) if b]
@@ -1449,13 +1461,17 @@ def general_slope_phase(report, u_fused, fused_s, n=25, loads=pt.SLOPE_LOADS, de
     check(launches == expected, f"{launches} K1 launches on the general path, expected {expected}")
     gap = float((u - u_fused).abs().max() / u_fused.abs().max())
     check(gap < 1e-8, f"general-path u differs from the fused step's by {gap:.3e}")
+    # the operand evaluation through E5 on every residual
+    check(device != "cuda" or ec_launches["cell_product"] > 0,
+          f"general path's element-chain launches {ec_launches}")
     steps_s = sum(run["step_s"])
     print(f"{n}x{n} slope, general pipeline (K1 callback, f32 LU + 4 rounds): newton {its} "
           f"({sum(its)}; off the fused record at steps {off_record}), backtracks {backtracks} "
           f"(at steps {backtracked}), K1 launches {launches}, u gap to the fused "
           f"step {gap:.2e}; {steps_s:.2f} s of steps ({steps_s / len(its):.4f} s/step), "
           f"{total:.2f} s with the build; the fused step in this run {fused_s:.2f} s "
-          f"({fused_s / len(its):.4f} s/step); peak memory {peak / 2**30:.3f} GiB", flush=True)
+          f"({fused_s / len(its):.4f} s/step); peak memory {peak / 2**30:.3f} GiB; "
+          f"element-chain launches {ec_launches}", flush=True)
     layers = general_layers(run, steps[0], loads)
     print(f"{n}x{n} general path, step {steps[0] + 1}'s iterate (ms): "
           + ", ".join(f"{k[:-3]} {v:.3f}" for k, v in layers.items() if k.endswith("_ms"))
@@ -1475,7 +1491,8 @@ def general_slope_phase(report, u_fused, fused_s, n=25, loads=pt.SLOPE_LOADS, de
     for name, t in top[:8]:
         print(f"  {t:9.3f} ms  {name}", flush=True)
     report["general_slope"] = {
-        "newton": its, "steps_off_record": off_record, "backtracks": run["backtracks"], "launches": launches, "u_gap_to_fused": gap,
+        "newton": its, "steps_off_record": off_record, "backtracks": run["backtracks"],
+        "launches": launches, "ec_launches": ec_launches, "u_gap_to_fused": gap,
         "step_s": run["step_s"], "steps_s": steps_s, "total_s": total, "fused_s": fused_s,
         "peak_bytes": peak, "layers_step50": layers,
         "profile_step51": {"wall_ms": wall * 1e3, "device_busy_ms": busy, "idle_share": idle,
@@ -1904,14 +1921,49 @@ def sharded_general_phase(report, ref, n, backend, loads=pt.SLOPE_LOADS):
 EC_TOL = {torch.float64: 1e-13, torch.float32: 1e-5}
 
 
-def ec_cases(fp, Du, sig_n):
+def operand_inputs(n, seed=25, device="cuda"):
+    """The general pipeline's operand evaluation on the n x n slope of
+    ``build_slope_problem`` (the strain of a seeded Du), by E5 product:
+    {mode: (einsum, x, y)} as ``assembly`` and ``compile`` call them on
+    every cell (the geometry J, the physical gradients, the values and
+    the gradients at the points)."""
+    from dolfinx_external_operator_torch.assembly import _t
+    from dolfinx_external_operator_torch.compile import CellBatch, coefficient_inputs
+    from dolfinx_external_operator_torch.expression import Expression
+    from dolfinx_external_operator_torch.models.mohr_coulomb import build_slope_problem
+
+    dev, f64 = torch.device(device), torch.float64
+    P = build_slope_problem(n, n, device=dev, route="cuda" if dev.type == "cuda" else "plain")
+    P["Du"].x.array[:] = 1e-3 * np.random.default_rng(seed).standard_normal(P["V"].num_dofs)
+    (op,) = P["F_ops"]
+    expr = Expression(op.ufl_operands[0], op.eval_points, dtype=f64, device=dev)
+    batch = CellBatch(P["mesh"], expr.points)
+    ((f, kind, (phi, dphi, _)),) = coefficient_inputs(expr.info, batch)
+    check(kind == "tab", f"the operand's coefficient is read as {kind!r}")
+    coords, dphi_g = _t(batch.coords, f64, dev), _t(batch.dphi_g, f64, dev)
+    J = torch.einsum("qvd,cvg->cqgd", dphi_g, coords)
+    Jinv = torch.linalg.inv(J)
+    phi, dphi = _t(phi, f64, dev), _t(dphi, f64, dev)
+    gp = torch.einsum("qbd,cqdg->cqbg", dphi, Jinv)
+    bs = f.function_space.bs
+    dofs = torch.as_tensor(f.function_space.unrolled_dofmap[batch.cells], device=dev)
+    d2 = f.data.to(f64)[dofs].reshape(dofs.shape[0], -1, bs)
+    return {"geometry": ("qvd,cvg->cqgd", dphi_g, coords),
+            "gphys": ("qbd,cqdg->cqbg", dphi, Jinv),
+            "values": ("qb,cbk->cqk", phi, d2), "grads": ("cqbg,cbk->cqkg", gp, d2)}
+
+
+def ec_cases(fp, Du, sig_n, W=None, operand=None):
     """The element chain's products at the iterate ``(Du, sig_n)`` of the
     step ``fp``, as the step calls them: dicts of the row, the mode, the
     kernel call, the plain call, the plain call on the inputs' absolute
     values (the error's scale), the library call and the bound's
     arguments.  The library call is one einsum or ``torch.bmm`` that
     computes the kernel's function, on inputs gathered beforehand (the
-    tangent matvec's: one five-operand einsum, where the step ran three)."""
+    tangent matvec's: one five-operand einsum, where the step ran three).
+    E5's: the level-1 triple on the restriction weights ``W`` (nc, nk,
+    na) against the f32 masked blocks, as ``mg_setup`` calls it, and the
+    products of ``operand`` (``operand_inputs``), where given."""
     st, f32, f64 = fp.statics, torch.float32, torch.float64
     B, w, dof, keep = st["B"], st["wdet"], st["dofmap"], fp._keep_cell
     C, sigma = fp._constitutive(Du, sig_n)
@@ -1934,30 +1986,30 @@ def ec_cases(fp, Du, sig_n):
         case("cell_strain", "strain", lambda: ec.cell_strain(B, dof, Du),
              lambda: ec.cell_strain_reference(B, dof, Du),
              lambda: ec.cell_strain_reference(aB, dof, Du.abs()),
-             lambda: torch.einsum("cqik,ck->cqi", B, u_cell), ("cell_strain",)),
+             lambda: torch.einsum("cqik,ck->cqi", B, u_cell), ("cell_strain", *shape)),
         case("cell_residual", "residual", lambda: ec.cell_residual(B, sigma, w),
              lambda: ec.cell_residual_reference(B, sigma, w),
              lambda: ec.cell_residual_reference(aB, sigma.abs(), aw),
-             lambda: torch.einsum("cqik,cqi,cq->ck", B, sigma, w), ("cell_residual",)),
+             lambda: torch.einsum("cqik,cqi,cq->ck", B, sigma, w), ("cell_residual", *shape)),
         case("cell_tangent", "matvec", lambda: ec.cell_tangent("matvec", B, C, w, dof, x),
              lambda: ref("matvec", B, C, w, dof, x), lambda: ref("matvec", aB, aC, aw, dof, ax),
              lambda: torch.einsum("cqik,cqij,cqjl,cq,cl->ck", B, C, B, w, x_cell),
-             ("cell_tangent", "matvec")),
+             ("cell_tangent", *shape, "matvec")),
         case("cell_tangent", "diag", lambda: ec.cell_tangent("diag", B, C, w),
              lambda: ref("diag", B, C, w), lambda: ref("diag", aB, aC, aw),
              lambda: torch.einsum("cqik,cqij,cqjk,cq->ck", B, C, B, w),
-             ("cell_tangent", "diag")),
+             ("cell_tangent", *shape, "diag")),
         case("cell_tangent", "blocks_f64_masked",
              lambda: ec.cell_tangent("blocks", B, C, w, keep=keep),
              lambda: ref("blocks", B, C, w, keep=keep),
              lambda: ref("blocks", aB, aC, aw, keep=keep),
              lambda: torch.einsum("cqik,cqij,cqjl,cq,ck,cl->ckl", B, C, B, w, keep, keep),
-             ("cell_tangent", "blocks", 8, True)),
+             ("cell_tangent", *shape, "blocks", 8, True)),
         case("cell_tangent", "blocks_f32", lambda: ec.cell_tangent("blocks", B, C, w, dtype=f32),
              lambda: ref("blocks", B, C, w, dtype=f32),
              lambda: ref("blocks", aB, aC, aw, dtype=f32),
              lambda: torch.einsum("cqik,cqij,cqjl,cq->ckl", B32, C32, B32, w32),
-             ("cell_tangent", "blocks", 4)),
+             ("cell_tangent", *shape, "blocks", 4)),
     ]
     for dt in (f64, f32):
         Kd, xd = K.to(dt), x.to(dt)
@@ -1971,16 +2023,37 @@ def ec_cases(fp, Du, sig_n):
                 lambda Kd=Kd, idx=idx, xd=xd, bs=bs: ec.ebe_cell_matvec_reference(Kd, idx, xd, bs),
                 lambda Kd=Kd, idx=idx, xd=xd, bs=bs: ec.ebe_cell_matvec_reference(
                     Kd.abs(), idx, xd.abs(), bs),
-                lambda Kd=Kd, u=u: torch.bmm(Kd, u), ("ebe_matvec", "matvec", isz, False, bs)))
-    return cases, shape
+                lambda Kd=Kd, u=u: torch.bmm(Kd, u), ("ebe_matvec", *shape, "matvec", isz, False, bs)))
+    if W is not None:
+        K32 = K.to(f32)
+        na = W.shape[2]
+        cases.append(case(
+            "cell_product", "triple_f32", lambda: ec.cell_triple(W, K32),
+            lambda: ec.cell_triple_reference(W, K32),
+            lambda: ec.cell_triple_reference(W.abs(), K32.abs()),
+            lambda: torch.einsum("cia,cij,cjb->cab", W, K32, W),
+            ("cell_product", nc, 0, na, nk, 0, "triple", 4)))
+    for mode, (eq, a, b) in (operand or {}).items():
+        sa, sb = eq.split("->")[0].split(",")
+        (k,) = set(sa) & set(sb) - set(eq.split("->")[1])
+        outputs = torch.einsum(eq, a, b).numel()
+        cases.append(case(
+            "cell_product", f"operand_{mode}", lambda eq=eq, a=a, b=b: ec.cell_product(eq, a, b),
+            lambda eq=eq, a=a, b=b: ec.cell_product_reference(eq, a, b),
+            lambda eq=eq, a=a, b=b: ec.cell_product_reference(eq, a.abs(), b.abs()),
+            lambda eq=eq, a=a, b=b: torch.einsum(eq, a, b),
+            ("cell_product", outputs, a.shape[sa.index(k)], 0, 0, a.numel() + b.numel(),
+             "product", a.element_size())))
+    return cases
 
 
-def element_chain_phase(report, fp, state):
+def element_chain_phase(report, fp, state, W):
     """Phase 25: ``tools/slice_bits.py``'s fused-step cases on 2 and 3
-    ranks, every product bitwise; the general pipeline's beside them, its
-    products through E4 bitwise, its operand evaluation recorded; E1-E4
-    against their plain versions on
-    step 50's iterate at 25x25, each timed in a CUDA graph
+    ranks and the general pipeline's beside them, every product bitwise
+    (the level-1 triple and the operand evaluation, E5, included); E1-E5
+    against their plain versions on step 50's iterate at 25x25 (E5: the
+    level-1 triple on the AMG plan's weights ``W``, the operand
+    evaluation of the 25x25 general slope), each timed in a CUDA graph
     and per call beside its plain version and one PyTorch call that
     computes its function.  Returns the rows' measurements by (row, mode)."""
     t0 = time.perf_counter()
@@ -1992,15 +2065,12 @@ def element_chain_phase(report, fp, state):
     for case, res in bits.items():
         print(f"slice_bits {case}: {res}", flush=True)
     for case, res in bits.items():
-        # the general pipeline's operand evaluation (einsums) is recorded;
-        # its products through E4 are held like the fused step's
-        bad = [p for p, by_n in res.items()
-               if p != "operand" and not all(by_n.values())]
+        bad = [p for p, by_n in res.items() if not all(by_n.values())]
         check(not bad, f"slice_bits {case}: {bad} differ on a rank's cells")
     report["slice_bits"] = bits
     print(f"slice_bits: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    cases, shape = ec_cases(fp, *state)
+    cases = ec_cases(fp, *state, W=W, operand=operand_inputs(25))
     out = {}
     for c in cases:
         row, mode, kernel, plain, library = c["row"], c["mode"], c["kernel"], c["plain"], \
@@ -2015,7 +2085,7 @@ def element_chain_phase(report, fp, state):
         lib_err = float((lib.reshape(p.shape) - p).abs().max()) / float(scale.max())
         check(lib_err < EC_TOL[k.dtype], f"{row} {mode}: the library call differs from plain "
               f"by {lib_err:.3e} of the terms' scale")
-        bound_ms, bound_by = roofline.element_chain_bound(c["bound"][0], *shape, *c["bound"][1:])
+        bound_ms, bound_by = roofline.element_chain_bound(*c["bound"])
         m = {"rel_err": rel_err, "rel_err_to_max": abs_err / float(p.abs().max()),
              "max_abs_err": abs_err, "library_rel_err": lib_err, "tol": EC_TOL[k.dtype],
              "ms": graph_time_ms(kernel, 200), "call_ms": cuda_time_ms(kernel, 200),
@@ -2288,7 +2358,7 @@ def main():
     demos_phase(report)
     # phase 25: the element chain's kernels, slice by slice and against
     # their plain versions at step 50's iterate
-    ec_meas = element_chain_phase(report, fp_k, states[49])
+    ec_meas = element_chain_phase(report, fp_k, states[49], mg_ref["W"])
 
     # K2's row: the f64 entry, which the von Mises block path launches, on
     # that path's own call (3,750 points, its layout); the f32 entry (the
@@ -2349,24 +2419,31 @@ def main():
         "rank_half": {k: k1_half[k] for k in ("n", "ms", "call_ms", "pass_a_ms", "pass_b_ms",
                                               "plain_ms", "bound_ms", "max_abs_err")},
     }]
-    # E1-E4: each row's numbers are its mode on the main path (E4: the
-    # f64 node layout of the AMG-CG refinement, phase 11), its other modes
-    # beside them; launches over phase 6's dense schedule, E4's over
-    # phase 11's
-    jax_spmd = "dolfinx_external_operator_tpu/parallel/spmd.py"
+    # E1-E5: each row's numbers are its mode on the main path (E4: the
+    # f64 node layout of the AMG-CG refinement, phase 11; E5: the level-1
+    # triple of phase 11's AMG setup), its other modes beside them;
+    # launches over phase 6's dense schedule, E4's and E5's over phase
+    # 11's (E5's on phase 18's general path beside them)
+    jax_pkg = "dolfinx_external_operator_tpu"
     by_path = {"slope_25x25_dense": report["mc_main"]["ec_launches"],
                "slope_25x25_mg": report["mg_25x25"]["ec_launches"],
-               "slope_25x25_elastic": report["elastic_25x25"]["ec_launches"]}
-    for row, wrapper, line, head, path in (
-            ("cell_strain", "cell_strain", 493, "strain", "slope_25x25_dense"),
-            ("cell_residual", "cell_residual", 508, "residual", "slope_25x25_dense"),
-            ("cell_tangent", "cell_tangent", 514, "matvec", "slope_25x25_dense"),
-            ("ebe_matvec", "ebe_cell_matvec", 617, "node_f64", "slope_25x25_mg")):
+               "slope_25x25_elastic": report["elastic_25x25"]["ec_launches"],
+               "slope_25x25_general": report["general_slope"]["ec_launches"]}
+    for row, wrapper, replaces, head, path in (
+            ("cell_strain", "cell_strain", "parallel/spmd.py:493", "strain", "slope_25x25_dense"),
+            ("cell_residual", "cell_residual", "parallel/spmd.py:508", "residual",
+             "slope_25x25_dense"),
+            ("cell_tangent", "cell_tangent", "parallel/spmd.py:514", "matvec",
+             "slope_25x25_dense"),
+            ("ebe_matvec", "ebe_cell_matvec", "parallel/spmd.py:617", "node_f64",
+             "slope_25x25_mg"),
+            ("cell_product", "cell_product", "parallel/mg.py:890", "triple_f32",
+             "slope_25x25_mg")):
         m = ec_meas[(row, head)]
         kernels.append({
             "name": row, "route": "cuda",
             "source": "dolfinx_external_operator_torch/csrc/element_chain.cu",
-            "replaces": f"{jax_spmd}:{line}", "launches": by_path[path][wrapper],
+            "replaces": f"{jax_pkg}/{replaces}", "launches": by_path[path][wrapper],
             "launches_path": path,
             "launches_by_path": {p: c[wrapper] for p, c in by_path.items()},
             "mode": head, "max_abs_err": m["max_abs_err"], "max_rel_err": m["rel_err"],

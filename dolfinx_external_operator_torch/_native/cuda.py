@@ -47,7 +47,7 @@ KERNELS = {
     "mohr_coulomb": (("mohr_coulomb.cu", "mohr_coulomb.cuh"), "mohr_coulomb_launch",
                      [_VP] * 9 + [_LL] + [_VP] * 2),
     "empty": (("empty.cu",), "empty_launch", [_VP]),
-    # the element chain, E1-E4 (one library)
+    # the element chain, E1-E5 (one library)
     "cell_strain": (("element_chain.cu", "element_chain.cuh"), "ec_strain_launch",
                     [_VP] * 3 + [_LL, _VP, _LL] + [_INT] * 3 + [_VP]),
     "cell_residual": (("element_chain.cu", "element_chain.cuh"), "ec_residual_launch",
@@ -57,6 +57,8 @@ KERNELS = {
                      + [_INT] * 3 + [_VP]),
     "ebe_matvec": (("element_chain.cu", "element_chain.cuh"), "ec_ebe_launch",
                    [_INT, _VP] + [_LL] * 3 + [_VP] * 2 + [_LL, _VP, _LL] + [_INT] * 3 + [_VP]),
+    "cell_product": (("element_chain.cu", "element_chain.cuh"), "ec_product_launch",
+                     [_INT] + [_VP] * 3 + [_LL] * 14 + [_INT, _VP]),
 }
 _HOST = {
     "vonmises": (("vonmises_host.cpp", "vonmises.cuh"), "vonmises_return_map_host",
@@ -74,6 +76,8 @@ _HOST = {
                      + [_INT] * 3),
     "ebe_matvec": (("element_chain_host.cpp", "element_chain.cuh"), "ec_ebe_host",
                    [_INT, _VP] + [_LL] * 3 + [_VP] * 2 + [_LL, _VP, _LL] + [_INT] * 3),
+    "cell_product": (("element_chain_host.cpp", "element_chain.cuh"), "ec_product_host",
+                     [_INT] + [_VP] * 3 + [_LL] * 14 + [_INT]),
 }
 # what each compiler printed for a library built by this process (nvcc's
 # -Xptxas -v: registers, stack and spills of each kernel)

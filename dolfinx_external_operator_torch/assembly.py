@@ -162,7 +162,9 @@ def _basis_arrays(space, tab, Jinv, dtype=None):
 
 def _coeff_tables(plan, Jinv, dtype):
     """Device tabulations of each coefficient of ``plan``: ``(phi, gphys)``
-    per (sub-)space, ``gphys`` (nc, nq, nb, g) where gradients are needed."""
+    per (sub-)space, ``gphys`` (nc, nq, nb, g) where gradients are needed
+    (E5, ``ops.element_chain.cell_product``: a cell's values in a fixed
+    order, whatever the batch)."""
     dev = Jinv.device
     out = []
     for f, kind, static in plan:
@@ -170,13 +172,13 @@ def _coeff_tables(plan, Jinv, dtype):
             out.append(None)
         elif kind == "tab":
             phi, dphi, needs_grad = static
-            gp = (torch.einsum("qbd,cqdg->cqbg", _t(dphi, dtype, dev), Jinv) if needs_grad
+            gp = (ec.cell_product("qbd,cqdg->cqbg", _t(dphi, dtype, dev), Jinv) if needs_grad
                   else None)
             out.append((_t(phi, dtype, dev), gp))
         else:
             tabs, subs, needs_grad = static
             out.append([(_t(phi, dtype, dev),
-                         torch.einsum("qbd,cqdg->cqbg", _t(dphi, dtype, dev), Jinv)
+                         ec.cell_product("qbd,cqdg->cqbg", _t(dphi, dtype, dev), Jinv)
                          if needs_grad else None) for phi, dphi in tabs])
     return out
 
@@ -187,7 +189,11 @@ def _batch_form(t, nq, shape):
 
 
 def _coeff_values_at_qps(plan, coeff_cell_data, tables):
-    """Evaluate coefficients at all qps of the cells.
+    """Evaluate coefficients at all qps of the cells: the basis
+    tabulations against the cells' dofs through E5
+    (``ops.element_chain.cell_product``; on the CPU the einsums it
+    names), so that on the card a cell's values do not depend on the
+    batch it is evaluated in (a rank's cells give the whole batch's bits).
 
     Returns dict f -> (vals (nc, 1, 1, nq, *shape),
     grads (nc, 1, 1, nq, *shape, g) | None)."""
@@ -202,9 +208,9 @@ def _coeff_values_at_qps(plan, coeff_cell_data, tables):
             for (phi, gp), (nb, bs) in zip(tab, subs):
                 d2 = data[:, off: off + nb * bs].reshape(nc, nb, bs)
                 off += nb * bs
-                vals_parts.append(torch.einsum("qb,cbk->cqk", phi, d2))
+                vals_parts.append(ec.cell_product("qb,cbk->cqk", phi, d2))
                 if needs_grad:
-                    grads_parts.append(torch.einsum("cqbg,cbk->cqkg", gp, d2))
+                    grads_parts.append(ec.cell_product("cqbg,cbk->cqkg", gp, d2))
             vals = torch.cat(vals_parts, dim=2)  # (nc, nq, vs_total)
             nq = vals.shape[1]
             grads = torch.cat(grads_parts, dim=2) if needs_grad else None
@@ -221,10 +227,10 @@ def _coeff_values_at_qps(plan, coeff_cell_data, tables):
             bs = f.function_space.bs
             nq, nb = phi.shape
             d2 = data.reshape(nc, nb, bs)
-            vals = torch.einsum("qb,cbk->cqk", phi, d2)
+            vals = ec.cell_product("qb,cbk->cqk", phi, d2)
             grads = None
             if needs_grad:
-                grads = torch.einsum("cqbg,cbk->cqkg", gp, d2)
+                grads = ec.cell_product("cqbg,cbk->cqkg", gp, d2)
                 g = gp.shape[-1]
                 grads = _batch_form(grads, nq, vshape + (g,))
             out[f] = (_batch_form(vals, nq, vshape), grads)

@@ -26,6 +26,7 @@ from . import sym
 from .elements import Element
 from .function import Constant, Function
 from .mesh import Mesh
+from .ops import element_chain as ec
 
 __all__ = ["eval_expr", "geometry_factors", "CellBatch", "analyze", "NB"]
 
@@ -48,8 +49,10 @@ def geometry_factors(coords, dphi_g):
 
     coords: (nc, nv, gdim) vertex coords of the cells.
     dphi_g: (nq, nv, tdim) reference gradients of the geometry basis.
-    Returns J (nc, nq, gdim, tdim), Jinv (nc, nq, tdim, gdim), detJ (nc, nq)."""
-    J = torch.einsum("qvd,cvg->cqgd", dphi_g, coords)
+    Returns J (nc, nq, gdim, tdim), Jinv (nc, nq, tdim, gdim), detJ (nc, nq).
+    J is E5 (``ops.element_chain.cell_product``): a cell's J does not
+    depend on the batch it is computed in."""
+    J = ec.cell_product("qvd,cvg->cqgd", dphi_g, coords)
     gdim, tdim = J.shape[-2], J.shape[-1]
     assert gdim == tdim, "cell integrals need gdim == tdim"
     return J, _inv_small(J), _det_small(J)

@@ -4,10 +4,12 @@
 // Replaces the per-cell products that the JAX package computes as XLA
 // einsums (dolfinx_external_operator_tpu/parallel/spmd.py:493 strain,
 // :508 residual, :514-516 tangent matvec, :521 diagonal, the element
-// blocks at :612, :651, :745, :794, :947, and the element-blocked matvec
-// at :617-620), which the port's plain versions (ops/element_chain.py)
-// run as torch einsums and torch.bmm.  Four kernels, one thread for each
-// output, each output one sum in the fixed order of element_chain.cuh:
+// blocks at :612, :651, :745, :794, :947, the element-blocked matvec at
+// :617-620, parallel/mg.py:890 the AMG setup's level-1 triple and
+// assembly.py:114-139 the operand evaluation), which the port's plain
+// versions (ops/element_chain.py) run as torch einsums, matmuls and
+// torch.bmm.  Five kernels, one thread for each output, each output one
+// sum in the fixed order of element_chain.cuh:
 //
 //   E1 cell_strain    (c, q, i)  deps of the Gauss points, fed to K1 / K2
 //   E2 cell_residual  (c, k)     the cells' residual contributions
@@ -15,6 +17,9 @@
 //                     1 its diagonal, 2 the f64 blocks, 3 the f32 blocks
 //   E4 ebe_matvec     (c, a)     the element-blocked matvec, f64 or f32 (also
 //                                the general pipeline's matrix-free action)
+//   E5 cell_product   (b0, b1, m, n)  a batched product at any strides, f64
+//                                or f32 (the level-1 triple, two calls; the
+//                                general pipeline's operand evaluation)
 //
 // Why by hand: the batched products' kernels that cuBLAS picks depend on
 // the batch count, so a rank's cells gave other bits than the whole
@@ -27,11 +32,18 @@
 // (B alone, 1,250 x 3 x 4 x 12 f64, is 1.44 MB), well under a microsecond
 // at 3.35 TB/s, below the ~1 us that a launch costs on this card; the
 // operations (at most ~0.2 MFLOP an E3 call) are further below their
-// f64 peak.  So one launch for each product, in place of a gather, a cat
-// and up to three einsums, is the design's aim; the threads of a cell
-// read its B rows from L1 and L2.  Each launcher runs on the caller's
-// stream, does not synchronise and allocates nothing (graph-capturable),
-// and returns cudaGetLastError().
+// f64 peak.  So the time is latency: the launch, then the chain of
+// dependent loads on a thread's path.  E1 and E4 at the shapes the repo
+// runs (12 outputs a cell, each a sum of 12 gathered terms) are staged:
+// a block takes kThreads / 12 cells, each thread loads its row of the
+// cell's block into registers and the block gathers each cell's 12
+// vector entries once into shared memory (an index, then its value;
+// every load in flight at once), then after one barrier each thread sums
+// its output through the same body (ec_dot) as the unstaged kernel: two
+// dependent global round trips in place of twelve, and the same bits.
+// Every other shape takes the unstaged kernel.  Each launcher runs on the
+// caller's stream, does not synchronise and allocates nothing
+// (graph-capturable), and returns cudaGetLastError().
 #include <cuda_runtime.h>
 
 #include "element_chain.cuh"
@@ -122,6 +134,73 @@ ebe_matvec_kernel(const T* __restrict__ K, const EcStrides3 ks, const long long*
   }
 }
 
+// E1 and E4 staged: NA outputs a cell, each the sum of NB terms K[c, a, b]
+// x[gathered b]; a block takes G cells.  Each thread loads its output's
+// row of K into registers (NB independent loads, all in flight), the
+// block gathers each cell's NB vector entries once into shared memory
+// (an index, then its value), and after one barrier each thread sums its
+// row against the cell's entries.  (Staging the rows of K in shared
+// memory as well, with coalesced loads, was slower on the H100: the
+// stores to shared memory wait for the loads, ahead of the barrier.)
+constexpr int kStagedNA = 12;
+constexpr int kStagedNB = 12;
+// cells a block of the staged kernel at NA outputs a cell
+template <int NA>
+constexpr int kStagedCells = kThreads / NA;
+
+template <typename T, int NA, int NB, int BS>
+__global__ void __launch_bounds__(kThreads)
+staged_matvec_kernel(const T* __restrict__ K, const EcStrides3 ks,
+                     const long long* __restrict__ idx, const T* __restrict__ x, long long n,
+                     T* __restrict__ out, long long nc) {
+  constexpr int G = kStagedCells<NA>;
+  static_assert(G >= 1 && G * NB <= kThreads && NB % BS == 0, "staged shape");
+  __shared__ T xs[G * NB];
+  const int tid = threadIdx.x;
+  for (long long c0 = static_cast<long long>(blockIdx.x) * G; c0 < nc;
+       c0 += static_cast<long long>(gridDim.x) * G) {
+    const int cells = nc - c0 < G ? static_cast<int>(nc - c0) : G;
+    const bool mine = tid < cells * NA;
+    T row[NB];
+    if (mine) {
+      const T* r = K + (c0 + tid / NA) * ks.s[0] + (tid % NA) * ks.s[1];
+#pragma unroll
+      for (int b = 0; b < NB; ++b) row[b] = r[b * ks.s[2]];
+    }
+    if (tid < cells * NB) {
+      const int g = tid / NB, b = tid % NB;
+      const long long node = idx[(c0 + g) * (NB / BS) + b / BS];
+      xs[tid] = ec_read<T>(x, n, node < 0 ? -1 : node * BS + b % BS);
+    }
+    __syncthreads();
+    if (mine) {
+      const T* xg = xs + (tid / NA) * NB;
+      out[c0 * NA + tid] = ec_dot(row, 1, [&](int b) { return xg[b]; }, NB);
+    }
+    __syncthreads();
+  }
+}
+
+template <typename T, int BS>
+void launch_staged(const T* K, const EcStrides3& ks, const long long* idx, const T* x,
+                   long long n, T* out, long long nc, cudaStream_t st) {
+  constexpr int G = kStagedCells<kStagedNA>;
+  const long long need = (nc + G - 1) / G;
+  staged_matvec_kernel<T, kStagedNA, kStagedNB, BS>
+      <<<static_cast<unsigned int>(need < kMaxBlocks ? need : kMaxBlocks), kThreads, 0, st>>>(
+          K, ks, idx, x, n, out, nc);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+cell_product_kernel(const T* __restrict__ A, const T* __restrict__ B, T* __restrict__ out,
+                    const EcProduct p) {
+  const long long total = p.n[0] * p.n[1] * p.n[2] * p.n[3];
+  for (long long t = first_output(); t < total; t += output_stride()) {
+    out[t] = ec_product<T>(A, B, p, t);
+  }
+}
+
 bool shape_ok(long long nc, int nq, int ni, int nk) {
   return nc >= 0 && nq > 0 && ni > 0 && ni <= kEcMaxComp && nk > 0;
 }
@@ -135,9 +214,13 @@ extern "C" int ec_strain_launch(const double* B, const long long* dof, const dou
                                 void* stream) {
   if (!shape_ok(nc, nq, ni, nk)) return static_cast<int>(cudaErrorInvalidValue);
   const EcShape s{nc, nq, ni, nk};
-  if (nc > 0) {
-    cell_strain_kernel<<<grid_for(nc * nq * ni), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(B, dof, u, n, out, s);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nc > 0 && nq * ni == kStagedNA && nk == kStagedNB) {
+    // B as the (nc, nq * ni, nk) blocks of E4 against u gathered by dof
+    const EcStrides3 rows{{static_cast<long long>(nq) * ni * nk, nk, 1}};
+    launch_staged<double, 1>(B, rows, dof, u, n, out, nc, st);
+  } else if (nc > 0) {
+    cell_strain_kernel<<<grid_for(nc * nq * ni), kThreads, 0, st>>>(B, dof, u, n, out, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -195,7 +278,21 @@ extern "C" int ec_ebe_launch(int f32, const void* K, long long k0, long long k1,
   }
   const EcStrides3 ks{{k0, k1, k2}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (nc > 0) {
+  if (nc > 0 && na == kStagedNA && nb == kStagedNB && (bs == 1 || bs == 2)) {
+    if (f32) {
+      const float* Kf = static_cast<const float*>(K);
+      const float* xf = static_cast<const float*>(x);
+      float* of = static_cast<float*>(out);
+      bs == 1 ? launch_staged<float, 1>(Kf, ks, idx, xf, n, of, nc, st)
+              : launch_staged<float, 2>(Kf, ks, idx, xf, n, of, nc, st);
+    } else {
+      const double* Kd = static_cast<const double*>(K);
+      const double* xd = static_cast<const double*>(x);
+      double* od = static_cast<double*>(out);
+      bs == 1 ? launch_staged<double, 1>(Kd, ks, idx, xd, n, od, nc, st)
+              : launch_staged<double, 2>(Kd, ks, idx, xd, n, od, nc, st);
+    }
+  } else if (nc > 0) {
     if (f32) {
       ebe_matvec_kernel<float><<<grid_for(nc * na), kThreads, 0, st>>>(
           static_cast<const float*>(K), ks, idx, static_cast<const float*>(x), n,
@@ -204,6 +301,34 @@ extern "C" int ec_ebe_launch(int f32, const void* K, long long k0, long long k1,
       ebe_matvec_kernel<double><<<grid_for(nc * na), kThreads, 0, st>>>(
           static_cast<const double*>(K), ks, idx, static_cast<const double*>(x), n,
           static_cast<double*>(out), nc, na, nb, bs);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// E5: out (n0, n1, n2, n3) contiguous in f64 (f32 == 0) or f32, the sum
+// over k < nk of A[i . as + k ak] B[i . bs + k bk] at the strides given
+// (elements; 0 broadcasts an operand along an output axis).
+extern "C" int ec_product_launch(int f32, const void* A, const void* B, void* out, long long n0,
+                                 long long n1, long long n2, long long n3, long long a0,
+                                 long long a1, long long a2, long long a3, long long b0,
+                                 long long b1, long long b2, long long b3, long long ak,
+                                 long long bk, int nk, void* stream) {
+  if (n0 < 0 || n1 < 0 || n2 < 0 || n3 < 0 || nk < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const EcProduct p{{n0, n1, n2, n3}, {a0, a1, a2, a3}, {b0, b1, b2, b3}, ak, bk, nk};
+  const long long total = n0 * n1 * n2 * n3;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (total > 0) {
+    if (f32) {
+      cell_product_kernel<float><<<grid_for(total), kThreads, 0, st>>>(
+          static_cast<const float*>(A), static_cast<const float*>(B), static_cast<float*>(out),
+          p);
+    } else {
+      cell_product_kernel<double><<<grid_for(total), kThreads, 0, st>>>(
+          static_cast<const double*>(A), static_cast<const double*>(B),
+          static_cast<double*>(out), p);
     }
   }
   return static_cast<int>(cudaGetLastError());

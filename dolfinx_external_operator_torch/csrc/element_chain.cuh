@@ -4,17 +4,22 @@
 // build (element_chain_host.cpp) that the tests hold against the plain
 // PyTorch version (ops/element_chain.py).  The JAX package computes these
 // contractions as XLA einsums (parallel/spmd.py:493, :508, :514-516, :521,
-// the element blocks at :612, :651, :745, :794, :947 and the
-// element-blocked matvec at :617-620); the port's plain versions are
-// torch einsums and torch.bmm, which cuBLAS runs with a kernel it picks by
-// the batch count, so that a rank's slice of the cells could give other
-// bits than the same cells of the whole batch.
+// the element blocks at :612, :651, :745, :794, :947, the
+// element-blocked matvec at :617-620, the AMG setup's level-1 triple at
+// parallel/mg.py:890 and the operand evaluation at assembly.py:114-139);
+// the port's plain versions are torch einsums, matmuls and torch.bmm,
+// which cuBLAS runs with a kernel it picks by the batch count, so that a
+// rank's slice of the cells could give other bits than the same cells of
+// the whole batch.
 //
 // The rule of this file: every output is one sum in a written, fixed
 // order that depends on nothing but the output's own indices.  No body
 // reads the cell count, the grid, the block or the position of its cell
 // in the batch; none splits a sum or picks an order by the shapes.  So a
-// cell gives the same bits in any batch, at any offset, on any rank.
+// cell gives the same bits in any batch, at any offset, on any rank.  A
+// kernel may stage its operands (shared memory, a block's group of cells
+// loaded together): staging changes where an operand is read from, never
+// the order of a sum or its operations.
 //
 // The orders (ascending in every index):
 //   E1 strain    deps[c,q,i] = sum_k B[c,q,i,k] u[dof[c,k]]
@@ -28,6 +33,10 @@
 //                masked  (K[c,k,l] * keep[c,k]) * keep[c,l]
 //   E4 ebe       y[c,a] = sum_b K[c,a,b] x[idx[c,b/bs] bs + b%bs]  (K may be
 //                non-square: a < na, b < nb)
+//   E5 product   out[b0,b1,m,n] = sum_k A[b0,b1,m,k] B[b0,b1,k,n], each
+//                operand at its strides (0 broadcasts it over an axis);
+//                the triple W^T K W is (W^T K) W: T[c,a,j] = sum_i
+//                W[c,i,a] K[c,i,j], then out[c,a,b] = sum_j T[c,a,j] W[c,j,b]
 // A gathered index outside [0, n) is padding and reads 0, as the plain
 // version's appended zero does.
 //
@@ -86,6 +95,16 @@ EC_HD T ec_read(const X* x, long long n, long long j) {
   return (j >= 0 && j < n) ? static_cast<T>(x[j]) : T(0);
 }
 
+// The sum of a row against a vector, ascending in k: E1's, E4's and E5's
+// sum, each step one FMA (row[k] at row + k * rs, v(k) the vector's k-th
+// entry)
+template <typename T, typename V>
+EC_HD T ec_dot(const T* row, long long rs, const V& v, int nk) {
+  T acc = T(0);
+  for (int k = 0; k < nk; ++k) acc = ec_fma(row[k * rs], v(k), acc);
+  return acc;
+}
+
 // The shapes of one batch: cells, Gauss points, strain components, dofs
 // of a cell.  B is (nc, nq, ni, nk), w (nc, nq) and dof (nc, nk), all
 // contiguous; sigma and C are read at the strides given.
@@ -97,11 +116,9 @@ struct EcShape {
 // E1: deps[c, q, i]
 EC_HD double ec_strain(const double* B, const long long* dof, const double* u, long long n,
                        const EcShape& s, long long c, int q, int i) {
-  const double* b = B + ((c * s.nq + q) * s.ni + i) * s.nk;
   const long long* d = dof + c * s.nk;
-  double acc = 0.0;
-  for (int k = 0; k < s.nk; ++k) acc = ec_fma(b[k], ec_read<double>(u, n, d[k]), acc);
-  return acc;
+  return ec_dot(B + ((c * s.nq + q) * s.ni + i) * s.nk, 1,
+                [&](int k) { return ec_read<double>(u, n, d[k]); }, s.nk);
 }
 
 // E2: r[c, k]; sigma[c, q, i] at sig + c*s0 + q*s1 + i*s2
@@ -183,13 +200,35 @@ EC_HD T ec_tangent_block(const double* B, const EcTangent& t, const double* w,
 template <typename T>
 EC_HD T ec_ebe(const T* K, const long long* ks, const long long* idx, const T* x, long long n,
                long long c, int a, int nb, int bs) {
-  const T* row = K + c * ks[0] + a * ks[1];
   const long long* d = idx + c * (nb / bs);
-  T acc = T(0);
-  for (int b = 0; b < nb; ++b) {
+  return ec_dot(K + c * ks[0] + a * ks[1], ks[2], [&](int b) {
     const long long node = d[b / bs];
-    const long long j = node < 0 ? -1 : node * bs + b % bs;
-    acc = ec_fma(row[b * ks[2]], ec_read<T>(x, n, j), acc);
+    return ec_read<T>(x, n, node < 0 ? -1 : node * bs + b % bs);
+  }, nb);
+}
+
+// E5: the product's shape and strides.  The output (n[0], n[1], n[2],
+// n[3]) is contiguous; its element (i0, i1, i2, i3) is the sum over k <
+// nk of A[sum_d i_d as[d] + k ak] B[sum_d i_d bs[d] + k bk] (as[d] or
+// bs[d] 0 where an operand does not vary along output axis d: the batch
+// axes b0, b1 of the other operand, m of B, n of A).
+struct EcProduct {
+  long long n[4];
+  long long as[4], bs[4];
+  long long ak, bk;
+  int nk;
+};
+
+// E5: the output at flat index t
+template <typename T>
+EC_HD T ec_product(const T* A, const T* B, const EcProduct& p, long long t) {
+  long long oa = 0, ob = 0;
+  for (int d = 3; d >= 0; --d) {
+    const long long i = t % p.n[d];
+    t /= p.n[d];
+    oa += i * p.as[d];
+    ob += i * p.bs[d];
   }
-  return acc;
+  const T* b = B + ob;
+  return ec_dot(A + oa, p.ak, [&](int k) { return b[k * p.bk]; }, p.nk);
 }

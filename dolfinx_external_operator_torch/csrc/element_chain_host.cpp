@@ -66,3 +66,21 @@ extern "C" void ec_ebe_host(int f32, const void* K, long long k0, long long k1, 
     }
   }
 }
+
+extern "C" void ec_product_host(int f32, const void* A, const void* B, void* out, long long n0,
+                                long long n1, long long n2, long long n3, long long a0,
+                                long long a1, long long a2, long long a3, long long b0,
+                                long long b1, long long b2, long long b3, long long ak,
+                                long long bk, int nk) {
+  const EcProduct p{{n0, n1, n2, n3}, {a0, a1, a2, a3}, {b0, b1, b2, b3}, ak, bk, nk};
+  const long long total = n0 * n1 * n2 * n3;
+  for (long long t = 0; t < total; ++t) {
+    if (f32) {
+      static_cast<float*>(out)[t] =
+          ec_product<float>(static_cast<const float*>(A), static_cast<const float*>(B), p, t);
+    } else {
+      static_cast<double*>(out)[t] =
+          ec_product<double>(static_cast<const double*>(A), static_cast<const double*>(B), p, t);
+    }
+  }
+}

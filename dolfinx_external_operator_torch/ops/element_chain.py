@@ -15,7 +15,14 @@ is one hand-written kernel (``csrc/element_chain.cu``, bodies in
   ``keep`` where given);
 * E4 ``ebe_cell_matvec``: ``y[c,a] = sum_b K[c,a,b] x[idx[c,b]]``, per dof
   (``bs = 1``) or per node (``bs = 2``), in f32 or f64: the AMG plan's
-  element-blocked matvec and the general pipeline's matrix-free action.
+  element-blocked matvec and the general pipeline's matrix-free action;
+* E5 ``cell_product``: a two-operand einsum with one contracted index, a
+  batched product ``out[b0,b1,m,n] = sum_k A[b0,b1,m,k] B[b0,b1,k,n]`` at
+  any strides (a table broadcast over the cells by stride 0), in f64 or
+  f32: the general pipeline's operand evaluation (``assembly.py``, the
+  JAX package's ``assembly.py:114-139``) and, as two products
+  (``cell_triple``), the AMG setup's level-1 triple ``(W^T K) W``
+  (``parallel/mg.py``, the JAX package's ``parallel/mg.py:890``).
 
 On CUDA tensors each launches its kernel, in which every output is one
 sum in a fixed order that depends on nothing but the output's indices: a
@@ -42,15 +49,20 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
-__all__ = ["cell_strain", "cell_residual", "cell_tangent", "ebe_cell_matvec",
-           "cell_strain_reference", "cell_residual_reference", "cell_tangent_reference",
-           "ebe_cell_matvec_reference", "cell_strain_host", "cell_residual_host",
-           "cell_tangent_host", "ebe_cell_matvec_host", "TANGENT_MODES", "max_components",
-           "reset_launches", "launch_counts"]
+__all__ = ["cell_strain", "cell_residual", "cell_tangent", "ebe_cell_matvec", "cell_product",
+           "cell_triple", "cell_strain_reference", "cell_residual_reference",
+           "cell_tangent_reference", "ebe_cell_matvec_reference", "cell_product_reference",
+           "cell_triple_reference", "cell_strain_host", "cell_residual_host",
+           "cell_tangent_host", "ebe_cell_matvec_host", "cell_product_host", "cell_triple_host",
+           "TANGENT_MODES", "max_components", "staged_cells", "reset_launches",
+           "launch_counts"]
 
 _F64, _F32, _I64 = torch.float64, torch.float32, torch.int64
 # E3's modes, as the launcher numbers them ("blocks" in f32 is mode 3)
 TANGENT_MODES = ("matvec", "diag", "blocks")
+
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
 
 
 @functools.cache
@@ -58,8 +70,19 @@ def max_components():
     """The strain components a Gauss point may have: ``kEcMaxComp`` of
     ``csrc/element_chain.cuh``, which sizes the kernels' per-thread
     arrays."""
-    text = (Path(__file__).resolve().parent.parent / "csrc" / "element_chain.cuh").read_text()
+    text = (_CSRC / "element_chain.cuh").read_text()
     return int(re.search(r"constexpr int kEcMaxComp = (\d+);", text).group(1))
+
+
+@functools.cache
+def staged_cells():
+    """``(na, nb, G)``: E1 (``na = nq * ni``, ``nb = nk``) and E4 at this
+    shape run staged, G cells a block (``csrc/element_chain.cu``); every
+    other shape runs one thread an output without staging."""
+    text = (_CSRC / "element_chain.cu").read_text()
+    num = {k: int(re.search(rf"constexpr int {k} = (\d+);", text).group(1))
+           for k in ("kThreads", "kStagedNA", "kStagedNB")}
+    return num["kStagedNA"], num["kStagedNB"], num["kThreads"] // num["kStagedNA"]
 
 
 def _need(name, t, dtype, ndim, device, contiguous=True):
@@ -344,7 +367,127 @@ def ebe_cell_matvec_host(K, idx, x, bs):
     return out
 
 
-_COUNTED = (cell_strain, cell_residual, cell_tangent, ebe_cell_matvec)
+# ----------------------------------------------------------------------
+# E5: batched product
+@functools.cache
+def _product_plan(eq):
+    """For a two-operand einsum ``eq`` with one contracted index: each
+    output index's axis in the first and in the second operand (None where
+    that operand lacks it), and the contracted index's axis in each."""
+    eq = eq.replace(" ", "")
+    ins, arrow, out = eq.partition("->")
+    subs = ins.split(",")
+    if not arrow or len(subs) != 2 or "." in eq:
+        raise ValueError(f"cell_product takes 'ab,cd->ef' with two operands, got {eq!r}")
+    x, y = subs
+    for s in (x, y, out):
+        if len(set(s)) != len(s):
+            raise ValueError(f"cell_product: an index repeats within {s!r} of {eq!r}")
+    summed = (set(x) | set(y)) - set(out)
+    if len(summed) != 1 or not all(i in x and i in y for i in summed):
+        raise ValueError(f"cell_product sums one index that both operands have: {eq!r}")
+    if set(out) - set(x) - set(y) or len(out) > 4:
+        raise ValueError(f"cell_product's output takes at most 4 of the operands' indices: "
+                         f"{eq!r}")
+    (k,) = summed
+    axes = tuple((x.index(i) if i in x else None, y.index(i) if i in y else None) for i in out)
+    return axes, (x.index(k), y.index(k)), len(x), len(y)
+
+
+def cell_product_reference(eq, x, y):
+    """Plain version: ``torch.einsum(eq, x, y)``."""
+    return torch.einsum(eq, x, y)
+
+
+def _product_args(eq, x, y, alloc=True):
+    axes, (kx, ky), nx, ny = _product_plan(eq)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dtype not in (_F64, _F32):
+        raise TypeError(f"cell_product takes float64 or float32, got {x.dtype}")
+    _need("x", x, x.dtype, nx, x.device, contiguous=False)
+    _need("y", y, x.dtype, ny, x.device, contiguous=False)
+    if x.shape[kx] != y.shape[ky]:
+        raise ValueError(f"{eq}: the summed axis has {x.shape[kx]} and {y.shape[ky]} entries")
+    shape, sx, sy = [], [], []
+    for ax, ay in axes:
+        if ax is not None and ay is not None and x.shape[ax] != y.shape[ay]:
+            raise ValueError(f"{eq}: shapes {tuple(x.shape)} and {tuple(y.shape)} disagree")
+        shape.append(x.shape[ax] if ax is not None else y.shape[ay])
+        sx.append(0 if ax is None else x.stride(ax))
+        sy.append(0 if ay is None else y.stride(ay))
+    if not alloc:
+        return None, None
+    out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    pad = 4 - len(shape)
+    return out, (int(x.dtype == _F32), x.data_ptr(), y.data_ptr(), out.data_ptr(),
+                 *([1] * pad + shape), *([0] * pad + sx), *([0] * pad + sy),
+                 x.stride(kx), y.stride(ky), x.shape[kx])
+
+
+def cell_product(eq, x, y):
+    """E5: ``torch.einsum(eq, x, y)`` for an ``eq`` of two operands that
+    sums one index they share, with at most 4 output indices (each in
+    either operand: an index of one operand alone broadcasts the other
+    along it), x and y f64 or f32 alike, at any strides -> the output,
+    contiguous.  Each output sums the contracted index in ascending order
+    (``csrc/element_chain.cuh``)."""
+    if x.device.type == "cpu":
+        _product_args(eq, x, y, alloc=False)
+        return cell_product_reference(eq, x, y)
+    from .._native.cuda import cuda_function
+
+    out, args = _product_args(eq, x, y)
+    _on_current(x.device)
+    _launched("cell_product", cuda_function("cell_product")(*args, _stream()))
+    cell_product.launches += 1
+    return out
+
+
+def cell_product_host(eq, x, y):
+    """E5's body built with g++, on CPU tensors (tests only)."""
+    from .._native.cuda import host_function
+
+    out, args = _product_args(eq, x, y)
+    host_function("cell_product")(*args)
+    return out
+
+
+def cell_triple_reference(W, K):
+    """Plain version: ``W^T K W`` as the torch matmuls ``W.transpose(1, 2)
+    @ K @ W``."""
+    return W.transpose(1, 2) @ K @ W
+
+
+def _check_triple(W, K):
+    if W.dim() != 3 or K.dim() != 3 or K.shape[0] != W.shape[0] or \
+            K.shape[1] != W.shape[1] or K.shape[2] != W.shape[1]:
+        raise ValueError(f"W^T K W needs W (nc, nk, na) and K (nc, nk, nk), got "
+                         f"{tuple(W.shape)} and {tuple(K.shape)}")
+    _product_args("cia,cij->caj", W, K, alloc=False)
+
+
+def _triple(product, W, K):
+    _check_triple(W, K)
+    return product("caj,cjb->cab", product("cia,cij->caj", W, K), W)
+
+
+def cell_triple(W, K):
+    """E5 twice: the per-cell ``W^T K W`` of W (nc, nk, na) and K (nc, nk,
+    nk), f32 or f64 alike, at any strides, as ``(W^T K) W`` -> (nc, na,
+    na)."""
+    if W.device.type == "cpu":
+        _check_triple(W, K)
+        return cell_triple_reference(W, K)
+    return _triple(cell_product, W, K)
+
+
+def cell_triple_host(W, K):
+    """E5's body built with g++, twice, on CPU tensors (tests only)."""
+    return _triple(cell_product_host, W, K)
+
+
+_COUNTED = (cell_strain, cell_residual, cell_tangent, ebe_cell_matvec, cell_product)
 
 
 def reset_launches():

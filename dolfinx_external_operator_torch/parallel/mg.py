@@ -984,9 +984,11 @@ def mg_setup(plan, K0_cell_f32, free=None):
     rt = {"d0": d0, "dinv0": dinv0, "mv0": mv0, "lmax0": _power_lmax(mv0, dinv0, n0)}
     rt["cheb0"] = _cheb_coeffs(rt["lmax0"], degree)
 
-    # level 1: per-cell triple product, scattered into the ELL values
+    # level 1: per-cell triple product (E5 twice, (W^T K) W in a fixed
+    # order: a rank's cells give the whole batch's bits), scattered into
+    # the ELL values
     t0 = transfers[0]
-    blocks = t0["W"].transpose(1, 2) @ K0_cell_f32 @ t0["W"]
+    blocks = ec.cell_triple(t0["W"], K0_cell_f32)
     lvl_vals = [dedup_write(whole(blocks).reshape(-1), t0["blk"]).view(levels[0]["cols"].shape)]
     # deeper levels: Galerkin contribution maps, or frozen elastic values
     for t, lvl in zip(transfers[1:], levels[1:]):

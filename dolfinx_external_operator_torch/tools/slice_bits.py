@@ -9,20 +9,22 @@ rank gives the unsharded bits wherever its per-cell products give the
 whole batch's.  For the slope step with AMG-CG (8x8 in the dia and node
 level-0 layouts, 25x25 in dia), two load steps in, each product of the
 element chain is computed as the step computes it (``ops/element_chain.py``:
-the hand kernels E1-E4 on the card, the plain versions on the CPU) on the
+the hand kernels E1-E5 on the card, the plain versions on the CPU) on the
 cells of each rank of 2 and of 3 and compared bit for bit with the same
 cells' rows of the whole batch: the strain (E1), the residual (E2), the
 tangent matvec, diagonal and element blocks in f64 and f32 (E3), the
-level-1 triple product (a torch matmul), the element-blocked matvec in
-f64 and f32 (E4, node layout), and the return map (K1 on the card).
+level-1 triple product (E5 twice, ``mg_setup``'s ``cell_triple``), the
+element-blocked matvec in f64 and f32 (E4, node layout), and the return
+map (K1 on the card).
 
 For the general pipeline's slope (``models.mohr_coulomb.build_slope_
 problem``, 8x8 and 25x25, a seeded displacement), the operand
-evaluation (``Expression.eval`` on a rank's cells: the einsums of
-``assembly._coeff_values_at_qps``), the Jacobian's action
-(``CompiledForm.action``'s per-cell product, E4) and the element-by-element
-Krylov operator's (``solvers._ebe_operator``, E4 on x zero at the BC
-dofs) are compared the same way.
+evaluation (``Expression.eval`` on a rank's cells: the geometry, the
+physical gradients and ``assembly._coeff_values_at_qps``, E5), the
+Jacobian's action (``CompiledForm.action``'s per-cell product, E4) and
+the element-by-element Krylov operator's (``solvers._ebe_operator``, E4
+on x zero at the BC dofs) are compared the same way.  On the CPU the
+plain einsums run, and a slice's operand can differ in the last bit.
 
 One JSON line per case, ``true`` where every rank's slice gives the
 whole batch's bits; all of them go to ``--out``.
@@ -73,7 +75,7 @@ def products(fp, Du, sig, C):
 
     def triple(cells):
         W = rows(plan["transfers"][0]["W"], cells)
-        return W.transpose(1, 2) @ tangent("blocks", keep=None)(cells).to(f32) @ W
+        return ec.cell_triple(W, tangent("blocks", keep=None)(cells).to(f32))
 
     def ebe(dtype):
         def f(cells):

@@ -202,7 +202,13 @@ def element_chain_counts(kernel, nc, nq, ni, nk, n, mode="matvec", itemsize=8, k
       diagonal against B, ``2 nq nk (ni^2 + ni + 1)``; ``"blocks"`` C B
       and B^T (C B), ``2 nq nk (ni^2 + ni nk + nk)``, with ``itemsize``
       bytes an output and, with ``keep``, the mask read and applied;
-    * ``"ebe_matvec"`` (E4): ``2 nk^2``."""
+    * ``"ebe_matvec"`` (E4): ``2 nk^2``;
+    * ``"cell_product"`` (E5), the arguments read as a product's: ``nc``
+      outputs, each a sum of ``nq`` terms, from ``n`` distinct operand
+      elements (a broadcast table counted once), ``itemsize`` bytes each:
+      ``2 nq`` an output (``ni``, ``nk`` unused); ``mode`` ``"triple"``:
+      ``W^T K W`` on ``nc`` cells, W (nk, ni) and K (nk, nk) read, the
+      (ni, ni) block written, ``2 (ni nk^2 + ni^2 nk)`` a cell."""
     B, w, dof, C = nc * nq * ni * nk * 8, nc * nq * 8, nc * nk * 8, nc * nq * ni * ni * 8
     if kernel == "cell_strain":
         return 2 * nc * nq * ni * nk, B + dof + 8 * n + nc * nq * ni * 8
@@ -218,6 +224,11 @@ def element_chain_counts(kernel, nc, nq, ni, nk, n, mode="matvec", itemsize=8, k
             ops = 2 * nc * nq * nk * (ni * ni + ni * nk + nk) + (2 * nc * nk * nk if keep else 0)
             return ops, B + C + w + (nc * nk * 8 if keep else 0) + nc * nk * nk * itemsize
         raise ValueError(f"unknown cell_tangent mode {mode!r}")
+    if kernel == "cell_product":
+        if mode == "triple":
+            return (2 * nc * (ni * nk * nk + ni * ni * nk),
+                    itemsize * nc * (nk * ni + nk * nk + ni * ni))
+        return 2 * nc * nq, itemsize * (n + nc)
     if kernel == "ebe_matvec":
         return (2 * nc * nk * nk,
                 itemsize * (nc * nk * nk + n + nc * nk) + 8 * nc * (nk // bs))

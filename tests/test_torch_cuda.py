@@ -622,9 +622,14 @@ def test_cuda_yield_surface_sweep(cuda):
 
 
 # ----------------------------------------------------------------------
-# the element chain's kernels E1-E4 (ops/element_chain.py)
+# the element chain's kernels E1-E5 (ops/element_chain.py)
 EC_PRODUCTS = ("strain", "residual", "tangent_matvec", "tangent_diag", "blocks_f64",
-               "blocks_f32", "ebe_f64", "ebe_f32", "ebe_node_f64", "ebe_node_f32")
+               "blocks_f32", "ebe_f64", "ebe_f32", "ebe_node_f64", "ebe_node_f32",
+               "operand_geometry", "operand_gphys", "operand_values", "operand_grads",
+               "triple_f32")
+# E5's operand einsums (assembly.py, compile.py)
+EC_OPERAND = {"operand_geometry": "qvd,cvg->cqgd", "operand_gphys": "qbd,cqdg->cqbg",
+              "operand_values": "qb,cbk->cqk", "operand_grads": "cqbg,cbk->cqkg"}
 
 
 @pytest.fixture(scope="module")
@@ -643,10 +648,21 @@ def ec_state():
     from dolfinx_external_operator_torch.ops import element_chain as ec
 
     K = ec.cell_tangent("blocks", st["B"], C, st["wdet"], keep=fp._keep_cell)
-    x = torch.as_tensor(np.random.default_rng(8).standard_normal(fp.n_dofs), device=dev)
+    rng = np.random.default_rng(8)
+    x = torch.as_tensor(rng.standard_normal(fp.n_dofs), device=dev)
+
+    def draw(*shape, dtype=torch.float64):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=dev)
+
+    # E5's operands at the slope's shapes (3 points, 6 basis functions of
+    # 2 components, 3 geometry vertices, 6 coarse dofs a cell)
+    nc = fp.nc
+    dphi, Jinv = draw(3, 6, 2), draw(nc, 3, 2, 2)
     return {"Du": Du, "C": C, "sigma": sigma, "x": x, "B": st["B"], "w": st["wdet"],
             "dof": st["dofmap"], "keep": fp._keep_cell, "node": st["dofmap"][:, ::2] // 2,
-            "K": K}
+            "K": K, "dphi_g": draw(3, 3, 2), "coords": draw(nc, 3, 2), "phi": draw(3, 6),
+            "dphi": dphi, "Jinv": Jinv, "gp": torch.einsum("qbd,cqdg->cqbg", dphi, Jinv),
+            "d2w": draw(nc, 6, 3), "W": draw(nc, 12, 6, dtype=torch.float32)}
 
 
 def _ec_call(ch, name, kind, cells=slice(None), device=None):
@@ -663,6 +679,14 @@ def _ec_call(ch, name, kind, cells=slice(None), device=None):
         return t if device is None else t.to(device)
 
     B, C, w, dof, x = r(ch["B"]), r(ch["C"]), r(ch["w"]), r(ch["dof"]), v(ch["x"])
+    if name in EC_OPERAND:
+        d2 = r(ch["d2w"])[:, :, :2]  # a strided view
+        a, b = {"operand_geometry": (v(ch["dphi_g"]), r(ch["coords"])),
+                "operand_gphys": (v(ch["dphi"]), r(ch["Jinv"])),
+                "operand_values": (v(ch["phi"]), d2), "operand_grads": (r(ch["gp"]), d2)}[name]
+        return getattr(ec, "cell_product" + kind)(EC_OPERAND[name], a, b), "cell_product"
+    if name == "triple_f32":
+        return getattr(ec, "cell_triple" + kind)(r(ch["W"]), r(ch["K"]).float()), "cell_product"
     if name == "strain":
         fn, args, kw = "cell_strain", (B, dof, v(ch["Du"])), {}
     elif name == "residual":
@@ -694,7 +718,7 @@ def test_cuda_element_chain_kernel(ec_state, name):
     out, fn = _ec_call(ec_state, name, "")
     torch.cuda.synchronize()
     after = ec.launch_counts()
-    assert after[fn] == before[fn] + 1
+    assert after[fn] == before[fn] + (2 if name == "triple_f32" else 1)
     assert {k: after[k] - before[k] for k in after if k != fn} == {k: 0 for k in after if k != fn}
     plain, _ = _ec_call(ec_state, name, "_reference")
     tol = 1e-5 if out.dtype == torch.float32 else 1e-13
@@ -731,11 +755,66 @@ def test_cuda_slice_bits_of_the_fused_step(cuda, case):
 
 def test_cuda_slice_bits_of_the_general_path(cuda):
     """``tools/slice_bits.py`` on the card, the general pipeline's 8x8
-    slope: the Jacobian's action and the element-by-element Krylov
-    operator's per-cell product (E4 both) give on the cells of each of 2
-    and 3 ranks the whole batch's bits."""
+    slope: the operand evaluation (E5), the Jacobian's action and the
+    element-by-element Krylov operator's per-cell product (E4 both) give
+    on the cells of each of 2 and 3 ranks the whole batch's bits."""
     from dolfinx_external_operator_torch.tools import slice_bits
 
     out = slice_bits.probe_general(8, cuda)
-    for name in ("action", "ebe_operator"):
+    for name in ("operand", "action", "ebe_operator"):
         assert out[name] == {2: True, 3: True}, out
+
+
+def _staging_case(kernel, nc, device, seed=13):
+    """Seeded inputs of E1 or E4 on ``nc`` cells, as (wrapper suffix ->
+    output): ``kernel`` names the layout ("strain"; "ebe_<na>x<nb>_<bs>_<f64|f32>",
+    with "_t" for K a transposed view)."""
+    from dolfinx_external_operator_torch.ops import element_chain as ec
+
+    rng = np.random.default_rng(seed)
+    n = 97
+    if kernel == "strain":
+        B = torch.as_tensor(rng.standard_normal((nc, 3, 4, 12)), device=device)
+        dof = torch.as_tensor(rng.integers(0, n + 1, (nc, 12)), device=device)  # n: padding
+        u = torch.as_tensor(rng.standard_normal(n), device=device)
+        return lambda kind: getattr(ec, "cell_strain" + kind)(*(
+            t if kind == "" else t.cpu() for t in (B, dof, u)))
+    shape, bs, dt, *t = kernel.split("_")[1:]
+    na, nb = map(int, shape.split("x"))
+    bs = int(bs)
+    dtype = torch.float32 if dt == "f32" else torch.float64
+    K = torch.as_tensor(rng.standard_normal((nc, nb, na) if t else (nc, na, nb)), dtype=dtype,
+                        device=device)
+    K = K.transpose(1, 2) if t else K
+    idx = torch.as_tensor(rng.integers(0, n // bs + 1, (nc, nb // bs)), device=device)
+    x = torch.as_tensor(rng.standard_normal(n - n % bs), dtype=dtype, device=device)
+
+    def call(kind):
+        args = (K, idx, x) if kind == "" else (K.cpu(), idx.cpu(), x.cpu())
+        return getattr(ec, "ebe_cell_matvec" + kind)(*args, bs)
+    return call
+
+
+@pytest.mark.parametrize("kernel", ["strain", "ebe_12x12_2_f64", "ebe_12x12_1_f32",
+                                    "ebe_12x12_2_f32_t", "ebe_12x12_1_f64_t",
+                                    "ebe_6x10_1_f64", "ebe_14x14_2_f32"])
+@pytest.mark.parametrize("cells", ["1", "G-1", "G+1", "1250"])
+def test_cuda_element_chain_staging_edges(cuda, kernel, cells):
+    """E1 and E4 at cell counts that reach the staging's edges (one cell,
+    a block's group G less and more one, the main path's 1,250), K as a
+    transposed view, and E4 non-square and wider than the staged shape:
+    the g++ build's bits, and the same bits replayed from a CUDA graph."""
+    from dolfinx_external_operator_torch.ops import element_chain as ec
+
+    G = ec.staged_cells()[2]
+    nc = {"1": 1, "G-1": G - 1, "G+1": G + 1, "1250": 1250}[cells]
+    call = _staging_case(kernel, nc, cuda)
+    out = call("")
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), call("_host"))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = call("")
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, out)

@@ -1,8 +1,13 @@
-"""The element chain's kernels E1-E4 (``ops/element_chain.py``) on the CPU.
+"""The element chain's kernels E1-E5 (``ops/element_chain.py``) on the CPU.
 
 Inputs: the port's Mohr-Coulomb slope step (dense, plain return map) at
 4x4 and 8x8 after two load steps (2.0, 6.0): Du, sigma and the tangent
-there, and a vector drawn from a numpy seed.
+there, and a vector drawn from a numpy seed.  E5's operands at the
+slope's shapes (P2 vector triangles, 3 points a cell) from the same
+seed: the geometry's reference gradients and vertex coordinates, the
+basis tables, inverse Jacobians and cell dofs of the operand evaluation,
+and restriction weights W (nc, 12, 6) against the element blocks in f32
+for the level-1 triple.
 
 * The plain versions (what a CPU tensor runs, and what the fused step ran
   before the kernels) against the JAX package's element chain: its own
@@ -11,14 +16,20 @@ there, and a vector drawn from a numpy seed.
   dofmap so that its scatter keeps each cell's values, and its einsums of
   the element blocks (``:612``, ``:745``) and of ``_ebe`` (``:617-620``)
   on the same arrays: within 1e-12 relative in f64, 1e-6 in f32 (the two
-  libraries sum f32 products in other orders).
+  libraries sum f32 products in other orders).  E5's against the JAX
+  package's own operand evaluation (``compile.geometry_factors``,
+  ``assembly._basis_arrays`` and ``assembly._coeff_values_at_qps``,
+  ``assembly.py:114-139``, vmapped over the cells) and the level-1
+  triple's einsum (``parallel/mg.py:890``).
 * The kernels' own bodies, built with g++ (``*_host``), against the plain
   versions: within 1e-13 relative in f64, 1e-5 in f32.
 * The bodies on the cells of 2 and of 3 slices, and on the cells in
   reverse order: bitwise the whole batch's rows, the property that makes
-  a rank's cells give the whole batch's bits.
-* Padded cells (B and w zero, every dof the padding index, keep 0) give
-  zero, in the plain versions and in the bodies.
+  a rank's cells give the whole batch's bits (E5 with tables broadcast
+  over the cells by stride 0, and the values' dofs a strided view).
+* Padded cells (B and w zero, every dof the padding index, keep 0; E5's
+  per-cell operands zero) give zero, in the plain versions and in the
+  bodies.
 
 The kernels themselves run on a card in ``test_torch_cuda.py``.
 """
@@ -30,6 +41,10 @@ import jax.numpy as jnp
 
 import torch
 
+from types import SimpleNamespace
+
+from dolfinx_external_operator_tpu import assembly as assembly_j
+from dolfinx_external_operator_tpu import compile as compile_j
 from dolfinx_external_operator_tpu.parallel.spmd import FusedPlasticityStep as StepJ
 
 import dolfinx_external_operator_torch as pt
@@ -44,7 +59,21 @@ F32, F64 = torch.float32, torch.float64
 # product -> its dtype
 PRODUCTS = {"strain": F64, "residual": F64, "tangent_matvec": F64, "tangent_diag": F64,
             "blocks_f64": F64, "blocks_f32": F32, "ebe_f64": F64, "ebe_f32": F32,
-            "ebe_node_f64": F64, "ebe_node_f32": F32}
+            "ebe_node_f64": F64, "ebe_node_f32": F32, "operand_geometry": F64,
+            "operand_gphys": F64, "operand_values": F64, "operand_grads": F64,
+            "triple_f32": F32}
+# E5's operand einsums (assembly.py, compile.py)
+OPERAND = {"operand_geometry": "qvd,cvg->cqgd", "operand_gphys": "qbd,cqdg->cqbg",
+           "operand_values": "qb,cbk->cqk", "operand_grads": "cqbg,cbk->cqkg"}
+# the operand evaluation's shapes: points, basis functions, value size,
+# geometry vertices; the triple's coarse dofs a cell
+NQ, NB, BS, NV, NA = 3, 6, 2, 3, 6
+
+
+class _Coefficient:
+    """What the JAX package's operand evaluation reads of a coefficient:
+    a vector P2 space's value shape and block size."""
+    function_space = SimpleNamespace(value_shape=(BS,), bs=BS)
 
 
 @pytest.fixture(scope="module", params=[4, 8], ids=lambda n: f"{n}x{n}")
@@ -62,9 +91,18 @@ def chain(request):
     st = fp.statics
     # E4's blocks: the whole batch's, sliced like the other inputs
     K = ec.cell_tangent_reference("blocks", st["B"], C, st["wdet"], keep=fp._keep_cell)
+    nc = fp.nc
+
+    def draw(*shape, dtype=F64):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=dtype)
+
+    dphi, Jinv = draw(NQ, NB, 2), draw(nc, NQ, 2, 2)
     return {"N": N, "fp": fp, "Du": Du, "sig_n": sig_n, "C": C, "sigma": sigma, "x": x,
             "B": st["B"], "w": st["wdet"], "dof": st["dofmap"], "keep": fp._keep_cell,
-            "node": st["dofmap"][:, ::2] // 2, "K": K}
+            "node": st["dofmap"][:, ::2] // 2, "K": K,
+            "dphi_g": draw(NQ, NV, 2), "coords": draw(nc, NV, 2), "phi": draw(NQ, NB),
+            "dphi": dphi, "Jinv": Jinv, "gp": torch.einsum("qbd,cqdg->cqbg", dphi, Jinv),
+            "d2w": draw(nc, NB, BS + 1), "W": draw(nc, 12, NA, dtype=F32)}
 
 
 def _args(ch, name, cells=slice(None)):
@@ -74,6 +112,15 @@ def _args(ch, name, cells=slice(None)):
         return t[cells].contiguous()
 
     B, C, w, dof, x = r(ch["B"]), ch["C"][cells], r(ch["w"]), r(ch["dof"]), ch["x"]
+    if name in OPERAND:
+        # the cells' dofs as a strided view (a mixed space's columns)
+        d2 = r(ch["d2w"])[:, :, :BS]
+        x, y = {"operand_geometry": (ch["dphi_g"], r(ch["coords"])),
+                "operand_gphys": (ch["dphi"], r(ch["Jinv"])),
+                "operand_values": (ch["phi"], d2), "operand_grads": (r(ch["gp"]), d2)}[name]
+        return "cell_product", (OPERAND[name], x, y), {}
+    if name == "triple_f32":
+        return "cell_triple", (r(ch["W"]), r(ch["K"]).to(F32)), {}
     if name == "strain":
         return "cell_strain", (B, dof, ch["Du"]), {}
     if name == "residual":
@@ -146,6 +193,22 @@ def jax_chain(chain):
         u = jnp.concatenate([jnp.asarray(x, Kd.dtype), jnp.zeros(1, Kd.dtype)])
         out[name] = out[name.replace("ebe", "ebe_node")] = jnp.einsum(
             "cab,cb->ca", Kd, u[st["dofmap"]])
+    # E5: the operand evaluation, one cell at a time as the JAX package
+    # evaluates it (vmapped), and the level-1 triple's einsum
+    e = {k: jnp.asarray(chain[k].numpy()) for k in ("dphi_g", "coords", "phi", "dphi", "Jinv",
+                                                      "W")}
+    d2 = jnp.asarray(chain["d2w"].numpy()[:, :, :BS])
+    out["operand_geometry"] = jax.vmap(
+        lambda c: compile_j.geometry_factors(c, e["dphi_g"])[0])(e["coords"])
+    scalar = SimpleNamespace(num_sub_spaces=0, bs=1, value_shape=())
+    out["operand_gphys"] = jax.vmap(lambda Ji: jnp.swapaxes(
+        assembly_j._basis_arrays(scalar, (e["phi"], e["dphi"]), Ji)[1], 0, 1))(e["Jinv"])
+    f = _Coefficient()
+    plan = [(f, "tab", (e["phi"], e["dphi"], True))]
+    vals, grads = jax.vmap(lambda d, Ji: assembly_j._coeff_values_at_qps(
+        plan, [d.reshape(-1)], Ji)[f])(d2, e["Jinv"])
+    out["operand_values"], out["operand_grads"] = vals, grads
+    out["triple_f32"] = jnp.einsum("cia,cij,cjb->cab", e["W"], K.astype(f32), e["W"])
     return out
 
 
@@ -195,7 +258,8 @@ def _padded(ch, pad):
     n = ch["fp"].n_dofs
     out = dict(ch)
     for k, v in (("B", 0.0), ("w", 0.0), ("dof", n), ("keep", 0.0), ("node", n // 2),
-                 ("K", 0.0)):
+                 ("K", 0.0), ("coords", 0.0), ("Jinv", 0.0), ("gp", 0.0), ("d2w", 0.0),
+                 ("W", 0.0)):
         t = ch[k]
         out[k] = torch.cat([t, torch.full((pad,) + tuple(t.shape[1:]), v, dtype=t.dtype)])
     C, sigma = ch["C"], ch["sigma"]
@@ -224,7 +288,9 @@ def test_diag_is_the_blocks_diagonal(chain):
     assert torch.equal(d, torch.diagonal(K, dim1=1, dim2=2))
 
 
-@pytest.mark.parametrize("case", ["dtype", "shape", "contiguity", "mode", "dtype_mix"])
+@pytest.mark.parametrize("case", ["dtype", "shape", "contiguity", "mode", "dtype_mix",
+                                  "product_sums", "product_dtype_mix", "product_shape",
+                                  "triple_shape"])
 def test_wrappers_refuse_what_the_kernels_do_not_take(chain, case):
     B, C, w, dof = chain["B"], chain["C"], chain["w"], chain["dof"]
     with pytest.raises((TypeError, ValueError)):
@@ -236,8 +302,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(chain, case):
             ec.cell_strain(B.transpose(2, 3), dof, chain["Du"])
         elif case == "mode":
             ec.cell_tangent("diag", B, C, w, dtype=F32)
-        else:
+        elif case == "dtype_mix":
             ec.ebe_cell_matvec(torch.zeros(3, 12, 12), dof[:3], chain["x"], 1)
+        elif case == "product_sums":  # two summed indices
+            ec.cell_product("qbd,cqbd->cq", chain["dphi"], chain["gp"])
+        elif case == "product_dtype_mix":
+            ec.cell_product("qb,cbk->cqk", chain["phi"].to(F32), chain["d2w"])
+        elif case == "product_shape":
+            ec.cell_product("qb,cbk->cqk", chain["phi"], chain["d2w"][:, :4])
+        else:
+            ec.cell_triple(chain["W"][:, :10], chain["K"].to(F32))
 
 
 @pytest.mark.parametrize("dtype", [F64, F32])
