@@ -31,14 +31,17 @@ Phases, in order; any failed check exits non-zero without the ``ok`` line:
    and new, from a profiler trace; then the
    layers of one Newton pass timed one by one, and the last load step under
    ``torch.profiler`` (trace in ``trace_f32_step.json.gz``);
-5. the CG solver at 8x8 with the f64 return map: Newton list [1, 5, 7];
+5. the CG solver at 8x8 with the f64 return map: Newton list [1, 5, 7],
+   and the element chain's launches (E3: the Jacobi diagonal once an
+   update, the matvecs);
 6. the main path: the Mohr-Coulomb slope load step on the same 25x25 block
    over the 52-step schedule, dense solver, from the zero state, (a) with
    the hand-written return-map kernel and (b) with the plain f64 return
    map.  Both Newton lists must equal the record's
    (``docs/records/scaling_25x25_full_tpu_bcr_schedule.json``, 171
    updates), the two final Du must agree to 1e-8, and the kernel must be
-   launched once per Newton pass (updates + 52);
+   launched once per Newton pass (updates + 52); the last step's Du
+   fingerprint (``tools/schedule_bits.py``);
 7. the Mohr-Coulomb kernel against its plain version on the card, on the
    real iterate of step 50's first Newton pass, on the strain mix of
    ``bench.py:77-83`` at 65,536 points and on the same mix with every lane
@@ -53,8 +56,11 @@ Phases, in order; any failed check exits non-zero without the ``ok`` line:
    ``trace_mc_step.json.gz``);
 9. the same slope with the block-cyclic-reduction (BCR) solver and the
    kernel over the 52 steps: the record's Newton list (171 updates, 223
-   kernel calls); its refinement rounds beside the record's 335, and one
-   update's BCR solve beside the dense path's at step 50's first iterate
+   kernel calls); its refinement rounds beside the record's 335 and
+   beside the last step's Du fingerprint (the same Du bits with other
+   rounds would not come from E3's bits), the element chain's launches,
+   and one update's BCR solve beside the dense path's at step 50's first
+   iterate
    (CUDA events, in turns);
 10. the 100x100 slope (80,802 dofs, 60,000 Gauss points) with
    ``linear_solver="auto"``, which picks BCR, and the kernel over the first
@@ -160,8 +166,9 @@ Phases, in order; any failed check exits non-zero without the ``ok`` line:
    displacements within 1e-12 relative), Mohr-Coulomb ``--small`` and
    hyperelasticity ``--small``; each holds its own asserts;
 25. the element chain's kernels E1-E5 (``ops/element_chain.py``, one
-   launch a product, each output one sum of fixed order; E1 and E4
-   staged a group of cells a block at the repo's shapes): ``tools/
+   launch a product, each output one sum of fixed order; E1-E4 staged at
+   the repo's shapes, the E2 and E3 rows with the staged kernel's
+   registers and spills): ``tools/
    slice_bits.py`` on the card, every per-cell product of the slope's
    AMG-CG step (8x8 dia and node, 25x25 dia) on the cells of each of 2
    and 3 ranks bitwise the whole batch's, the return map and the level-1
@@ -172,7 +179,8 @@ Phases, in order; any failed check exits non-zero without the ``ok`` line:
    its plain version and one einsum or ``torch.bmm`` that computes its
    function, against its bound (E5: the level-1 triple on the 25x25 AMG
    plan's weights, and the 25x25 general slope's operand products).
-   Their launches are counted over phases 6 (E1-E3; no E4 or E5), 11
+   Their launches are counted over phases 5 (E3), 6 (E1-E3; no E4 or
+   E5), 9 (E1-E3), 11
    (E4, and E5 twice an update), 12 (E4; no E5) and 18 (E5), and each of
    those checks them.
 
@@ -214,7 +222,7 @@ from dolfinx_external_operator_torch.entry import (
     slope_schedule,
 )
 from dolfinx_external_operator_torch.parallel import bcr, dist, mg
-from dolfinx_external_operator_torch.tools import slice_bits
+from dolfinx_external_operator_torch.tools import schedule_bits, slice_bits
 from dolfinx_external_operator_torch.utils import roofline
 
 # kernel vs plain on the card: the f64 polish stops once |r| <= 1e-8 of the
@@ -340,13 +348,22 @@ def build_kernels():
 
 
 def kernel_name(mangled):
-    """The last name of an Itanium-mangled kernel symbol (``_ZN...E``)."""
+    """The last name of an Itanium-mangled kernel symbol (``_ZN...E``),
+    with its template arguments where they are types (double, float) or
+    integers: ``staged_tangent_block_kernel<float>``."""
     rest, names = mangled[3:] if mangled.startswith("_ZN") else mangled[2:], []
     while (m := re.match(r"\d+", rest)):
         k = int(m.group())
         names.append(rest[m.end():m.end() + k])
         rest = rest[m.end() + k:]
-    return names[-1] if names else mangled
+    if not names:
+        return mangled
+    targs = re.match(r"I((?:[df]|Li-?\d+E)+)E", rest)
+    if targs is None:
+        return names[-1]
+    args = [{"d": "double", "f": "float"}.get(a, a[2:-1])
+            for a in re.findall(r"[df]|Li-?\d+E", targs.group(1))]
+    return f"{names[-1]}<{', '.join(args)}>"
 
 
 def ptxas_usage(log):
@@ -854,7 +871,8 @@ def mc_main_path(report):
     launches = mc_ops.mc_return_map.launches
     ec_launches = ec.launch_counts()
     print(f"25x25 slope, kernel: newton {its_k} ({sum(its_k)}), launches {launches}, "
-          f"{sum(wall_k):.2f} s, s/step {[round(w, 4) for w in wall_k]}", flush=True)
+          f"Du {schedule_bits.fingerprint(Du_k)}, {sum(wall_k):.2f} s, "
+          f"s/step {[round(w, 4) for w in wall_k]}", flush=True)
     Du_p, its_p, _, wall_p, _ = run_loads(fp_p, loads)
     check(mc_ops.mc_return_map.launches == launches, "the plain path launched the kernel")
     print(f"25x25 slope, plain: newton {its_p} ({sum(its_p)}), {sum(wall_p):.2f} s, "
@@ -872,6 +890,7 @@ def mc_main_path(report):
     du_err = float((Du_k - Du_p).abs().max() / Du_p.abs().max())
     check(du_err < 1e-8, f"kernel Du differs from plain by {du_err:.3e}")
     report["mc_main"] = {"newton_kernel": its_k, "newton_plain": its_p, "launches": launches,
+                         "du": schedule_bits.fingerprint(Du_k),
                          "ec_launches": ec_launches, "wall_kernel_s": wall_k,
                          "wall_plain_s": wall_p, "du_rel_err": du_err}
     return fp_k, states, launches
@@ -888,13 +907,21 @@ def bcr_25x25_phase(report, fp_dense, state):
     warm_up(fp, pt.SLOPE_LOADS[0])
     fp.bcr_stats.update(factorizations=0, inv_levels=0)
     mc_ops.mc_return_map.launches = 0
-    _, its, rounds, walls, _ = run_loads(fp, pt.SLOPE_LOADS)
+    ec.reset_launches()
+    Du, its, rounds, walls, _ = run_loads(fp, pt.SLOPE_LOADS)
     launches = mc_ops.mc_return_map.launches
+    ec_launches = ec.launch_counts()
     stats = dict(fp.bcr_stats)
+    du = schedule_bits.fingerprint(Du)
     check(its == rec["newton_per_step"], f"25x25 BCR Newton list {its} != record")
     check(launches == sum(its) + len(its), f"{launches} launches for Newton {its}")
+    # E3: an update's f32 blocks (the bands) and its refinement matvecs
+    check(ec_launches["cell_tangent"] > sum(its), f"BCR's E3 launches {ec_launches}")
+    # the rounds beside the last step's Du: other rounds with the same Du
+    # bits would not come from E3's bits
     print(f"25x25 slope, BCR + kernel: newton {sum(its)}, launches {launches}, rounds "
-          f"{sum(abs(r) for r in rounds)} (record {rec['cg_total']}; signed {rounds}), "
+          f"{sum(abs(r) for r in rounds)} with Du {du} (record {rec['cg_total']}; signed "
+          f"{rounds}), element-chain launches {ec_launches}, "
           f"levels on the LU inverse {stats['inv_levels']} of {stats['factorizations']} "
           f"factorizations, {sum(walls):.2f} s, s/step {[round(w, 4) for w in walls]}", flush=True)
     C_tang, b = newton_rhs(fp_dense, *state, pt.SLOPE_LOADS[49])
@@ -908,8 +935,8 @@ def bcr_25x25_phase(report, fp_dense, state):
           f"{times['dense_ms']} ms (2 refinement rounds), BCR {times['bcr_ms']} ms "
           f"({k} rounds)", flush=True)
     report["bcr_25x25"] = {"newton": its, "rounds": rounds, "launches": launches,
-                           "wall_s": walls, "solve_ms": times, "solve_rounds": k,
-                           "stats": stats}
+                           "du": du, "ec_launches": ec_launches, "wall_s": walls,
+                           "solve_ms": times, "solve_rounds": k, "stats": stats}
     return launches
 
 
@@ -1094,7 +1121,8 @@ def mg_25x25_phase(report, fp_dense, state):
     ec_launches = ec.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     print(f"25x25 slope, mg (dia) + kernel: newton {sum(its)}, launches {launches}, inner "
-          f"{sum(inner)} ({sum(inner) / sum(its):.1f} per update), levels {fp.mg_sizes} "
+          f"{sum(inner)} ({sum(inner) / sum(its):.1f} per update), Du "
+          f"{schedule_bits.fingerprint(Du_end)}, levels {fp.mg_sizes} "
           f"({[lvl['kind'] for lvl in fp._mg['levels']]}), {sum(walls):.2f} s, "
           f"{sum(walls) / len(walls):.4f} s/step, peak memory {peak / 2**30:.3f} GiB", flush=True)
     print(f"  inner per step {inner}", flush=True)
@@ -1115,7 +1143,8 @@ def mg_25x25_phase(report, fp_dense, state):
     check(abs(gap) <= MG_INNER_TOL, f"25x25 mg inner iterations {sum(inner)} beyond "
           f"{MG_INNER_TOL:.0%} of {MG_25_INNER_JAX}")
     out = {"newton": its, "inner": inner, "launches": launches, "ec_launches": ec_launches,
-           "wall_s": walls, "peak_bytes": peak, "levels": fp.mg_sizes,
+           "du": schedule_bits.fingerprint(Du_end), "wall_s": walls, "peak_bytes": peak,
+           "levels": fp.mg_sizes,
            "kinds": [lvl["kind"] for lvl in fp._mg["levels"]]}
     report["mg_25x25"] = out
 
@@ -2047,6 +2076,17 @@ def ec_cases(fp, Du, sig_n, W=None, operand=None):
     return cases
 
 
+# phase 25: the kernel function that each E2 / E3 row runs at the staged
+# shape, for its ptxas registers and spills
+EC_STAGED_KERNELS = {
+    ("cell_residual", "residual"): "staged_residual_kernel",
+    ("cell_tangent", "matvec"): "staged_tangent_matvec_kernel",
+    ("cell_tangent", "diag"): "staged_tangent_diag_kernel",
+    ("cell_tangent", "blocks_f64_masked"): "staged_tangent_block_kernel<double>",
+    ("cell_tangent", "blocks_f32"): "staged_tangent_block_kernel<float>",
+}
+
+
 def element_chain_phase(report, fp, state, W):
     """Phase 25: ``tools/slice_bits.py``'s fused-step cases on 2 and 3
     ranks and the general pipeline's beside them, every product bitwise
@@ -2093,6 +2133,11 @@ def element_chain_phase(report, fp, state, W):
              "library_ms": graph_time_ms(library, 100),
              "library_call_ms": cuda_time_ms(library, 100),
              "bound_ms": bound_ms, "bound_by": bound_by}
+        staged = EC_STAGED_KERNELS.get((row, mode))
+        if staged is not None:
+            usage = report["ptxas"].get("element_chain_cu", {}).get(staged)
+            check(usage is not None, f"{row} {mode}: no ptxas usage of {staged}")
+            m["ptxas"] = {"kernel": staged, **usage}
         out[(row, mode)] = m
         print(f"{row} {mode} at step 50 (25x25): err {rel_err:.2e} of the terms' scale "
               f"({m['rel_err_to_max']:.2e} of the largest entry), kernel "
@@ -2100,6 +2145,11 @@ def element_chain_phase(report, fp, state, W):
               f"{m['plain_ms'] * 1e3:.2f} us ({m['plain_call_ms'] * 1e3:.2f} a call); library "
               f"{m['library_ms'] * 1e3:.2f} us ({m['library_call_ms'] * 1e3:.2f} a call); "
               f"bound {bound_ms * 1e3:.3f} us ({bound_by})", flush=True)
+        if "ptxas" in m:
+            u = m["ptxas"]
+            print(f"  {u['kernel']}: {u.get('registers')} registers, {u.get('spill_stores')} B "
+                  f"spill stores, {u.get('spill_loads')} B spill loads, {u.get('stack')} B stack",
+                  flush=True)
     report["element_chain"] = {f"{row} {mode}": m for (row, mode), m in out.items()}
     return out
 
@@ -2254,11 +2304,16 @@ def main():
     # phase 5: CG at 8x8
     fpcg = pt.von_mises_block_step(8, 8, "f64", linear_solver="cg")
     warm_up(fpcg, MAIN_LOADS[0])
+    ec.reset_launches()
     _, itscg, cgs, wallcg, _ = run_loads(fpcg, MAIN_LOADS)
-    print(f"8x8 cg f64: newton {itscg}, cg {cgs}, s/step {[round(w, 4) for w in wallcg]}",
-          flush=True)
+    cg_launches = ec.launch_counts()
+    print(f"8x8 cg f64: newton {itscg}, cg {cgs}, s/step {[round(w, 4) for w in wallcg]}, "
+          f"element-chain launches {cg_launches}", flush=True)
     check(itscg == [1, 5, 7], f"cg Newton list {itscg} != [1, 5, 7]")
-    report["cg_8x8"] = {"newton": itscg, "cg": cgs, "wall_s": wallcg}
+    # E3: the Jacobi diagonal once an update, the rest matvecs
+    check(cg_launches["cell_tangent"] > sum(itscg), f"cg's E3 launches {cg_launches}")
+    report["cg_8x8"] = {"newton": itscg, "cg": cgs, "wall_s": wallcg, "ec_launches": cg_launches,
+                        "tangent_diag_launches": sum(itscg)}
 
     # phases 6-8: the Mohr-Coulomb main path, its kernel, its layers
     mat = pt.MohrCoulombMaterial()
@@ -2426,6 +2481,8 @@ def main():
     # 11's (E5's on phase 18's general path beside them)
     jax_pkg = "dolfinx_external_operator_tpu"
     by_path = {"slope_25x25_dense": report["mc_main"]["ec_launches"],
+               "slope_25x25_bcr": report["bcr_25x25"]["ec_launches"],
+               "vonmises_8x8_cg": report["cg_8x8"]["ec_launches"],
                "slope_25x25_mg": report["mg_25x25"]["ec_launches"],
                "slope_25x25_elastic": report["elastic_25x25"]["ec_launches"],
                "slope_25x25_general": report["general_slope"]["ec_launches"]}

@@ -38,7 +38,7 @@ _FL = ctypes.c_float
 _INT = ctypes.c_int
 
 # name -> (files it is built from, the compiled one first; C function;
-# argtypes)
+# argtypes[; restype of a host entry, default none])
 KERNELS = {
     "vonmises": (("vonmises.cu", "vonmises.cuh"), "vonmises_return_map_launch",
                  [_VP] * 6 + [_LL] + [_FL] * 4 + [_VP]),
@@ -78,6 +78,14 @@ _HOST = {
                    [_INT, _VP] + [_LL] * 3 + [_VP] * 2 + [_LL, _VP, _LL] + [_INT] * 3),
     "cell_product": (("element_chain_host.cpp", "element_chain.cuh"), "ec_product_host",
                      [_INT] + [_VP] * 3 + [_LL] * 14 + [_INT]),
+    # the staged kernels' composition; they return 1 off the staged shape
+    "cell_residual_staged": (("element_chain_host.cpp", "element_chain.cuh"),
+                             "ec_residual_staged_host",
+                             [_VP] * 2 + [_LL] * 3 + [_VP] * 2 + [_LL] + [_INT] * 3, _INT),
+    "cell_tangent_staged": (("element_chain_host.cpp", "element_chain.cuh"),
+                            "ec_tangent_staged_host",
+                            [_INT] + [_VP] * 2 + [_LL] * 4 + [_VP] * 3 + [_LL] + [_VP] * 2 + [_LL]
+                            + [_INT] * 3, _INT),
 }
 # what each compiler printed for a library built by this process (nvcc's
 # -Xptxas -v: registers, stack and spills of each kernel)
@@ -147,10 +155,10 @@ def host_function(name: str):
     """The CPU build of kernel ``name``'s per-point body, built with g++."""
     key = ("host", name)
     if key not in _loaded:
-        sources, fn, argtypes = _HOST[name]
+        sources, fn, argtypes, *restype = _HOST[name]
         cxx = shutil.which(os.environ.get("CXX", "g++"))
         if cxx is None:
             raise RuntimeError("no C++ compiler found: set CXX or put g++ on PATH")
         path = _compile([cxx], GXX_FLAGS, sources)
-        _loaded[key] = _bind(path, fn, argtypes, None)
+        _loaded[key] = _bind(path, fn, argtypes, *(restype or [None]))
     return _loaded[key]

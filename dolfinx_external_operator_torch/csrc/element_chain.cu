@@ -33,14 +33,31 @@
 // at 3.35 TB/s, below the ~1 us that a launch costs on this card; the
 // operations (at most ~0.2 MFLOP an E3 call) are further below their
 // f64 peak.  So the time is latency: the launch, then the chain of
-// dependent loads on a thread's path.  E1 and E4 at the shapes the repo
-// runs (12 outputs a cell, each a sum of 12 gathered terms) are staged:
-// a block takes kThreads / 12 cells, each thread loads its row of the
-// cell's block into registers and the block gathers each cell's 12
-// vector entries once into shared memory (an index, then its value;
-// every load in flight at once), then after one barrier each thread sums
-// its output through the same body (ec_dot) as the unstaged kernel: two
-// dependent global round trips in place of twelve, and the same bits.
+// dependent loads on a thread's path, and whatever a thread recomputes
+// that its cell's other threads compute too.  The unstaged kernels loop
+// over run-time trip counts, so they issue their loads one iteration
+// after another, and E3's recompute a cell's strain (matvec) or its C B
+// table (blocks) in every output.  At the shapes the repo runs each
+// kernel is staged; staging moves where an operand is read from, never a
+// sum's order, so the staged kernels give the unstaged ones' bits:
+//   E1, E4 (12 outputs a cell, each a sum of 12 gathered terms): a block
+//     takes kThreads / 12 cells, each thread loads its row of the cell's
+//     block into registers and the block gathers each cell's 12 vector
+//     entries once into shared memory (an index, then its value; every
+//     load in flight at once), then after one barrier each thread sums
+//     its output through the same body (ec_dot): two dependent global
+//     round trips in place of twelve.
+//   E2, E3 (3 points of 4 components, 12 dofs a cell; element_chain.cuh,
+//     ec_quad_staged): trip counts fixed at compile time, and each thread
+//     issues every load of its operands at its start (ec_*_load: one
+//     round trip).  E2 and the diagonal then sum one output a thread
+//     (the diagonal's C B terms are its own); the matvec gathers each
+//     cell's x once into shared memory and computes its de, dsig and y
+//     once a cell in three stages a barrier apart, 12 threads a cell, 10
+//     cells a block; the blocks, 144 threads a cell and one cell a block,
+//     read the cell's B once into shared memory, compute its C B table
+//     once (an entry a thread), then each output from B's and the
+//     table's columns, a barrier between the stages.
 // Every other shape takes the unstaged kernel.  Each launcher runs on the
 // caller's stream, does not synchronise and allocates nothing
 // (graph-capturable), and returns cudaGetLastError().
@@ -181,14 +198,107 @@ staged_matvec_kernel(const T* __restrict__ K, const EcStrides3 ks,
   }
 }
 
+// blocks for groups of G cells a block
+unsigned int grid_of_groups(long long nc, int G) {
+  const long long need = (nc + G - 1) / G;
+  return static_cast<unsigned int>(need < kMaxBlocks ? need : kMaxBlocks);
+}
+
 template <typename T, int BS>
 void launch_staged(const T* K, const EcStrides3& ks, const long long* idx, const T* x,
                    long long n, T* out, long long nc, cudaStream_t st) {
-  constexpr int G = kStagedCells<kStagedNA>;
-  const long long need = (nc + G - 1) / G;
   staged_matvec_kernel<T, kStagedNA, kStagedNB, BS>
-      <<<static_cast<unsigned int>(need < kMaxBlocks ? need : kMaxBlocks), kThreads, 0, st>>>(
-          K, ks, idx, x, n, out, nc);
+      <<<grid_of_groups(nc, kStagedCells<kStagedNA>), kThreads, 0, st>>>(K, ks, idx, x, n, out,
+                                                                         nc);
+}
+
+// E2 and E3 staged at the shape of element_chain.cuh (ec_quad_staged: 3
+// points, 4 components, 12 dofs), through its loads and stages.  E2 and
+// the diagonal: one thread an output, every operand loaded up front (no
+// stage is shared between a cell's outputs).
+__global__ void __launch_bounds__(kThreads)
+staged_residual_kernel(const double* __restrict__ B, const double* __restrict__ sig, long long s0,
+                       long long s1, long long s2, const double* __restrict__ w,
+                       double* __restrict__ out, long long nc) {
+  for (long long t = first_output(); t < nc * kEcNK; t += output_stride()) {
+    EcResidualOps o;
+    ec_residual_load(o, B, sig, s0, s1, s2, w, t / kEcNK, static_cast<int>(t % kEcNK));
+    out[t] = ec_residual_staged(o);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+staged_tangent_diag_kernel(const double* __restrict__ B, const EcTangent tg,
+                           const double* __restrict__ w, double* __restrict__ out, long long nc) {
+  for (long long t = first_output(); t < nc * kEcNK; t += output_stride()) {
+    EcDiagOps o;
+    ec_diag_load(o, B, tg, w, t / kEcNK, static_cast<int>(t % kEcNK));
+    out[t] = ec_diag_staged(o);
+  }
+}
+
+// The matvec: a block takes kEcVecCells cells, 12 threads each; every
+// thread loads its operands, the block gathers each cell's x once into
+// shared memory, then three stages, a barrier apart, compute each cell's
+// de, dsig and y once (ec_matvec_de, _ds, _out).
+__global__ void __launch_bounds__(kThreads)
+staged_tangent_matvec_kernel(const double* __restrict__ B, const EcTangent tg,
+                             const double* __restrict__ w, const long long* __restrict__ dof,
+                             const double* __restrict__ x, long long n, double* __restrict__ out,
+                             long long nc) {
+  constexpr int G = kEcVecCells;
+  static_assert(G * kEcNK <= kThreads, "staged matvec group");
+  __shared__ double xs[G * kEcNK], de[G * kEcNK], ds[G * kEcNK];
+  const int tid = threadIdx.x, r = tid % kEcNK, cell = tid - r;
+  for (long long c0 = static_cast<long long>(blockIdx.x) * G; c0 < nc;
+       c0 += static_cast<long long>(gridDim.x) * G) {
+    const int cells = nc - c0 < G ? static_cast<int>(nc - c0) : G;
+    const bool mine = tid < cells * kEcNK;
+    EcMatvecOps o;
+    if (mine) {
+      ec_matvec_load(o, B, tg, w, dof, c0 + tid / kEcNK, r);
+      xs[tid] = ec_read<double>(x, n, o.dof);
+    }
+    __syncthreads();
+    if (mine) de[tid] = ec_matvec_de(o, xs + cell);
+    __syncthreads();
+    if (mine) ds[tid] = ec_matvec_ds(o, de + cell, r);
+    __syncthreads();
+    if (mine) out[c0 * kEcNK + tid] = ec_matvec_out(o, ds + cell);
+    __syncthreads();
+  }
+}
+
+// The blocks in T: a block takes kEcBlockCells cells, 144 threads each;
+// every thread loads its operands and one entry of its cell's B into
+// shared memory (the cell's B is read once, coalesced, where each thread
+// would read 16 of its entries); after a barrier each computes its entry
+// of the cell's table t[q, i, l] once into shared memory, and after
+// another its output from the columns of B and the table
+// (ec_block_table, ec_block_out).  One cell a block beat two (a block of
+// 288 threads fills its warps) and four.
+constexpr int kBlockThreads = kEcBlockCells * kEcNK * kEcNK;
+
+template <typename T>
+__global__ void __launch_bounds__(kBlockThreads)
+staged_tangent_block_kernel(const double* __restrict__ B, const EcTangent tg,
+                            const double* __restrict__ w, const double* __restrict__ keep,
+                            T* __restrict__ out, long long nc) {
+  constexpr int G = kEcBlockCells, R = kEcNK * kEcNK;
+  __shared__ T bs[G * R], tab[G * R];
+  const int tid = threadIdx.x, r = tid % R, cell = tid - r;
+  for (long long c0 = static_cast<long long>(blockIdx.x) * G; c0 < nc;
+       c0 += static_cast<long long>(gridDim.x) * G) {
+    const int cells = nc - c0 < G ? static_cast<int>(nc - c0) : G;
+    const bool mine = tid < cells * R;
+    EcBlockOps<T> o;
+    if (mine) bs[tid] = ec_block_load(o, B, tg, w, keep, c0 + tid / R, r);
+    __syncthreads();
+    if (mine) tab[tid] = ec_block_table(o, bs + cell, r);
+    __syncthreads();
+    if (mine) out[c0 * R + tid] = ec_block_out(o, bs + cell, tab + cell, r, keep != nullptr);
+    __syncthreads();
+  }
 }
 
 template <typename T>
@@ -231,9 +341,11 @@ extern "C" int ec_residual_launch(const double* B, const double* sig, long long 
                                   int nq, int ni, int nk, void* stream) {
   if (!shape_ok(nc, nq, ni, nk)) return static_cast<int>(cudaErrorInvalidValue);
   const EcShape s{nc, nq, ni, nk};
-  if (nc > 0) {
-    cell_residual_kernel<<<grid_for(nc * nk), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        B, sig, s0, s1, s2, w, out, s);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nc > 0 && ec_quad_staged(nq, ni, nk)) {
+    staged_residual_kernel<<<grid_for(nc * nk), kThreads, 0, st>>>(B, sig, s0, s1, s2, w, out, nc);
+  } else if (nc > 0) {
+    cell_residual_kernel<<<grid_for(nc * nk), kThreads, 0, st>>>(B, sig, s0, s1, s2, w, out, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -253,7 +365,21 @@ extern "C" int ec_tangent_launch(int mode, const double* B, const double* C, lon
   const EcShape s{nc, nq, ni, nk};
   const EcTangent tg{C, {c0, c1, c2, c3}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (nc > 0) {
+  if (nc > 0 && ec_quad_staged(nq, ni, nk)) {
+    double* od = static_cast<double*>(out);
+    if (mode == 0) {
+      staged_tangent_matvec_kernel<<<grid_of_groups(nc, kEcVecCells), kThreads, 0, st>>>(
+          B, tg, w, dof, x, n, od, nc);
+    } else if (mode == 1) {
+      staged_tangent_diag_kernel<<<grid_for(nc * nk), kThreads, 0, st>>>(B, tg, w, od, nc);
+    } else if (mode == 2) {
+      staged_tangent_block_kernel<double>
+          <<<grid_of_groups(nc, kEcBlockCells), kBlockThreads, 0, st>>>(B, tg, w, keep, od, nc);
+    } else {
+      staged_tangent_block_kernel<float><<<grid_of_groups(nc, kEcBlockCells), kBlockThreads, 0,
+                                           st>>>(B, tg, w, keep, static_cast<float*>(out), nc);
+    }
+  } else if (nc > 0) {
     if (mode <= 1) {
       cell_tangent_vec_kernel<<<grid_for(nc * nk), kThreads, 0, st>>>(
           mode, B, tg, w, dof, x, n, static_cast<double*>(out), s);

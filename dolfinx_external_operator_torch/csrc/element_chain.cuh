@@ -194,6 +194,183 @@ EC_HD T ec_tangent_block(const double* B, const EcTangent& t, const double* w,
   return acc;
 }
 
+// ----------------------------------------------------------------------
+// E2 and E3 staged (element_chain.cu's staged kernels, and the staged CPU
+// entries of element_chain_host.cpp): the repo's shape, nq = 3 Gauss
+// points of ni = 4 strain components and nk = 12 dofs a cell, every trip
+// count fixed at compile time.  A cell takes 12 threads (E2, the matvec,
+// the diagonal) or 144 (the blocks).  Each thread first loads all of its
+// operands (ec_*_load: independent loads, all in flight at once); then
+// the stages each compute a value once a cell that the bodies above
+// recompute in every output (de_j, dsig_i, t_i), from the cell's values
+// of the stage before, in the bodies' order.  So the staged outputs are
+// the bodies' bits.  In the 12-thread kernels thread r of a cell is dof
+// r, pair (q, i) = (r / ni, r % ni) and output k = r at once.
+constexpr int kEcNQ = 3;
+constexpr int kEcNI = 4;
+constexpr int kEcNK = 12;
+constexpr int kEcNP = kEcNQ * kEcNI;  // a cell's (point, component) pairs
+static_assert(kEcNP == kEcNK && kEcNI <= kEcMaxComp, "the staged shape");
+// cells a block of the staged kernels takes: the matvec's groups (12
+// threads a cell) and the blocks' (144 threads a cell)
+constexpr int kEcVecCells = 10;
+constexpr int kEcBlockCells = 1;
+
+EC_HD bool ec_quad_staged(int nq, int ni, int nk) {
+  return nq == kEcNQ && ni == kEcNI && nk == kEcNK;
+}
+
+#ifdef __CUDA_ARCH__
+#define EC_UNROLL _Pragma("unroll")
+#else
+#define EC_UNROLL
+#endif
+
+// sum_q w[q] (sum_i b(q ni + i) v(q ni + i)): the outer sums of E2 and E3
+// (b(p) = B[c, q, i, k] of the thread's output k)
+template <typename T, typename Bp, typename V>
+EC_HD T ec_weighted(const T* w, const Bp& b, const V& v) {
+  T acc = T(0);
+  EC_UNROLL
+  for (int q = 0; q < kEcNQ; ++q) {
+    T y = T(0);
+    EC_UNROLL
+    for (int i = 0; i < kEcNI; ++i) y = ec_fma(b(q * kEcNI + i), v(q * kEcNI + i), y);
+    acc = ec_fma(w[q], y, acc);
+  }
+  return acc;
+}
+
+// b[p] = B[c, p, k] (p = q ni + i) and wq[q] = w[c, q]
+EC_HD void ec_load_column(double* b, double* wq, const double* B, const double* w, long long c,
+                          int k) {
+  EC_UNROLL
+  for (int p = 0; p < kEcNP; ++p) b[p] = B[(c * kEcNP + p) * kEcNK + k];
+  EC_UNROLL
+  for (int q = 0; q < kEcNQ; ++q) wq[q] = w[c * kEcNQ + q];
+}
+
+// E2: the operands of r[c, k]; sigma[c, q, i] at sig + c*s0 + q*s1 + i*s2
+struct EcResidualOps {
+  double b[kEcNP], sig[kEcNP], w[kEcNQ];
+};
+
+EC_HD void ec_residual_load(EcResidualOps& o, const double* B, const double* sig, long long s0,
+                            long long s1, long long s2, const double* w, long long c, int k) {
+  ec_load_column(o.b, o.w, B, w, c, k);
+  EC_UNROLL
+  for (int p = 0; p < kEcNP; ++p) o.sig[p] = sig[c * s0 + (p / kEcNI) * s1 + (p % kEcNI) * s2];
+}
+
+EC_HD double ec_residual_staged(const EcResidualOps& o) {
+  return ec_weighted(o.w, [&](int p) { return o.b[p]; }, [&](int p) { return o.sig[p]; });
+}
+
+// E3 matvec: thread r's operands: the dof of x it gathers, the B row of
+// de[q, j] (r = q ni + j), the C row of dsig[q, i] (r = q ni + i), and the
+// B column and weights of y[c, k = r]
+struct EcMatvecOps {
+  long long dof;
+  double brow[kEcNK], crow[kEcNI], b[kEcNP], w[kEcNQ];
+};
+
+EC_HD void ec_matvec_load(EcMatvecOps& o, const double* B, const EcTangent& t, const double* w,
+                          const long long* dof, long long c, int r) {
+  o.dof = dof[c * kEcNK + r];
+  EC_UNROLL
+  for (int l = 0; l < kEcNK; ++l) o.brow[l] = B[(c * kEcNP + r) * kEcNK + l];
+  const double* Cr = t.C + c * t.cs[0] + (r / kEcNI) * t.cs[1] + (r % kEcNI) * t.cs[2];
+  EC_UNROLL
+  for (int j = 0; j < kEcNI; ++j) o.crow[j] = Cr[j * t.cs[3]];
+  ec_load_column(o.b, o.w, B, w, c, r);
+}
+
+// stage 1: de[q, j] of the cell's gathered x (xs[l] = x[dof[c, l]])
+EC_HD double ec_matvec_de(const EcMatvecOps& o, const double* xs) {
+  return ec_dot(o.brow, 1, [&](int l) { return xs[l]; }, kEcNK);
+}
+
+// stage 2: dsig[q, i] of the cell's de (de[q ni + j]), r = q ni + i
+EC_HD double ec_matvec_ds(const EcMatvecOps& o, const double* de, int r) {
+  const double* dq = de + (r / kEcNI) * kEcNI;
+  return ec_dot(o.crow, 1, [&](int j) { return dq[j]; }, kEcNI);
+}
+
+// stage 3: y[c, k] of the cell's dsig (ds[q ni + i])
+EC_HD double ec_matvec_out(const EcMatvecOps& o, const double* ds) {
+  return ec_weighted(o.w, [&](int p) { return o.b[p]; }, [&](int p) { return ds[p]; });
+}
+
+// E3 diagonal, one thread an output: the B column of k (which is also
+// B[c, q, j, l = k] of t_i), the cell's C and weights
+struct EcDiagOps {
+  double b[kEcNP], C[kEcNP * kEcNI], w[kEcNQ];
+};
+
+EC_HD void ec_diag_load(EcDiagOps& o, const double* B, const EcTangent& t, const double* w,
+                        long long c, int k) {
+  ec_load_column(o.b, o.w, B, w, c, k);
+  EC_UNROLL
+  for (int p = 0; p < kEcNP; ++p) {
+    const double* Cp = t.C + c * t.cs[0] + (p / kEcNI) * t.cs[1] + (p % kEcNI) * t.cs[2];
+    EC_UNROLL
+    for (int j = 0; j < kEcNI; ++j) o.C[p * kEcNI + j] = Cp[j * t.cs[3]];
+  }
+}
+
+// K[c, k, k] = sum_q w (sum_i B[q, i, k] t_i), t_i = sum_j C[q, i, j] B[q, j, k]
+EC_HD double ec_diag_staged(const EcDiagOps& o) {
+  return ec_weighted(o.w, [&](int p) { return o.b[p]; }, [&](int p) {
+    const double* bq = o.b + (p / kEcNI) * kEcNI;
+    return ec_dot(o.C + p * kEcNI, 1, [&](int j) { return bq[j]; }, kEcNI);
+  });
+}
+
+// E3 blocks in T: thread r = k nk + l of a cell holds the cell's B entry
+// r (B[c] is 144 contiguous values; rounded to T on load, where
+// ec_tangent_block casts) for the cell's copy in shared memory, computes
+// the cell's table entry t[p, l] = sum_j C[q, i, j] B[q, j, l] (p = q ni
+// + i = k) and then K[c, k, l] from B's column k and the table's column
+// l; its own operands: the C row of p, the weights, the mask of k and l
+template <typename T>
+struct EcBlockOps {
+  T crow[kEcNI], w[kEcNQ], keep_k, keep_l;
+};
+
+// loads thread r's operands; returns its entry of the cell's B
+template <typename T>
+EC_HD T ec_block_load(EcBlockOps<T>& o, const double* B, const EcTangent& t, const double* w,
+                      const double* keep, long long c, int r) {
+  const int k = r / kEcNK, l = r % kEcNK;
+  const double* Cr = t.C + c * t.cs[0] + (k / kEcNI) * t.cs[1] + (k % kEcNI) * t.cs[2];
+  EC_UNROLL
+  for (int j = 0; j < kEcNI; ++j) o.crow[j] = static_cast<T>(Cr[j * t.cs[3]]);
+  EC_UNROLL
+  for (int q = 0; q < kEcNQ; ++q) o.w[q] = static_cast<T>(w[c * kEcNQ + q]);
+  if (keep != nullptr) {
+    o.keep_k = static_cast<T>(keep[c * kEcNK + k]);
+    o.keep_l = static_cast<T>(keep[c * kEcNK + l]);
+  }
+  return static_cast<T>(B[c * kEcNP * kEcNK + r]);
+}
+
+// stage 1: the table entry t[p, l] of the cell's B (bs[p nk + l])
+template <typename T>
+EC_HD T ec_block_table(const EcBlockOps<T>& o, const T* bs, int r) {
+  const T* bq = bs + (r / kEcNK / kEcNI) * kEcNI * kEcNK + r % kEcNK;
+  return ec_dot(o.crow, 1, [&](int j) { return bq[j * kEcNK]; }, kEcNI);
+}
+
+// stage 2: K[c, k, l] of the cell's B and table (tab[p nk + l]), masked
+// where `masked`
+template <typename T>
+EC_HD T ec_block_out(const EcBlockOps<T>& o, const T* bs, const T* tab, int r, bool masked) {
+  const int k = r / kEcNK, l = r % kEcNK;
+  const T acc = ec_weighted(o.w, [&](int p) { return bs[p * kEcNK + k]; },
+                            [&](int p) { return tab[p * kEcNK + l]; });
+  return masked ? ec_mul(ec_mul(acc, o.keep_k), o.keep_l) : acc;
+}
+
 // E4: y[c, a] of the (nc, na, nb) blocks K in T, K[c, a, b] at K + c*ks[0]
 // + a*ks[1] + b*ks[2], against x (n,) in T, gathered by node: idx (nc,
 // nb / bs)

@@ -84,3 +84,84 @@ extern "C" void ec_product_host(int f32, const void* A, const void* B, void* out
     }
   }
 }
+
+// The staged kernels' composition (element_chain.cu) on the CPU: the same
+// loads and stages of the header, stage by stage over each group of cells
+// through buffers, as a block of the kernel runs them.  Each returns 1,
+// and writes nothing, where the shape is not the staged one
+// (ec_quad_staged, the launchers' test).  The tests hold them to the
+// bodies above, bit for bit.
+extern "C" int ec_residual_staged_host(const double* B, const double* sig, long long s0,
+                                       long long s1, long long s2, const double* w, double* out,
+                                       long long nc, int nq, int ni, int nk) {
+  if (!ec_quad_staged(nq, ni, nk)) return 1;
+  for (long long t = 0; t < nc * kEcNK; ++t) {
+    EcResidualOps o;
+    ec_residual_load(o, B, sig, s0, s1, s2, w, t / kEcNK, static_cast<int>(t % kEcNK));
+    out[t] = ec_residual_staged(o);
+  }
+  return 0;
+}
+
+namespace {
+
+void staged_matvec(const double* B, const EcTangent& tg, const double* w, const long long* dof,
+                   const double* x, long long n, double* out, long long nc) {
+  constexpr int G = kEcVecCells, R = kEcNK;
+  EcMatvecOps o[G * R];
+  double xs[G * R], de[G * R], ds[G * R];
+  for (long long c0 = 0; c0 < nc; c0 += G) {
+    const int threads = static_cast<int>(nc - c0 < G ? nc - c0 : G) * R;
+    for (int t = 0; t < threads; ++t) {
+      ec_matvec_load(o[t], B, tg, w, dof, c0 + t / R, t % R);
+      xs[t] = ec_read<double>(x, n, o[t].dof);
+    }
+    for (int t = 0; t < threads; ++t) de[t] = ec_matvec_de(o[t], xs + t / R * R);
+    for (int t = 0; t < threads; ++t) ds[t] = ec_matvec_ds(o[t], de + t / R * R, t % R);
+    for (int t = 0; t < threads; ++t) out[c0 * R + t] = ec_matvec_out(o[t], ds + t / R * R);
+  }
+}
+
+template <typename T>
+void staged_blocks(const double* B, const EcTangent& tg, const double* w, const double* keep,
+                   T* out, long long nc) {
+  constexpr int G = kEcBlockCells, R = kEcNK * kEcNK;
+  EcBlockOps<T> o[G * R];
+  T bs[G * R], tab[G * R];
+  for (long long c0 = 0; c0 < nc; c0 += G) {
+    const int threads = static_cast<int>(nc - c0 < G ? nc - c0 : G) * R;
+    for (int t = 0; t < threads; ++t) {
+      bs[t] = ec_block_load(o[t], B, tg, w, keep, c0 + t / R, t % R);
+    }
+    for (int t = 0; t < threads; ++t) tab[t] = ec_block_table(o[t], bs + t / R * R, t % R);
+    for (int t = 0; t < threads; ++t) {
+      out[c0 * R + t] = ec_block_out(o[t], bs + t / R * R, tab + t / R * R, t % R,
+                                     keep != nullptr);
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int ec_tangent_staged_host(int mode, const double* B, const double* C, long long c0,
+                                      long long c1, long long c2, long long c3, const double* w,
+                                      const long long* dof, const double* x, long long n,
+                                      const double* keep, void* out, long long nc, int nq,
+                                      int ni, int nk) {
+  if (!ec_quad_staged(nq, ni, nk)) return 1;
+  const EcTangent tg{C, {c0, c1, c2, c3}};
+  if (mode == 0) {
+    staged_matvec(B, tg, w, dof, x, n, static_cast<double*>(out), nc);
+  } else if (mode == 1) {
+    for (long long t = 0; t < nc * kEcNK; ++t) {
+      EcDiagOps o;
+      ec_diag_load(o, B, tg, w, t / kEcNK, static_cast<int>(t % kEcNK));
+      static_cast<double*>(out)[t] = ec_diag_staged(o);
+    }
+  } else if (mode == 2) {
+    staged_blocks(B, tg, w, keep, static_cast<double*>(out), nc);
+  } else {
+    staged_blocks(B, tg, w, keep, static_cast<float*>(out), nc);
+  }
+  return 0;
+}

@@ -54,7 +54,7 @@ __all__ = ["cell_strain", "cell_residual", "cell_tangent", "ebe_cell_matvec", "c
            "cell_tangent_reference", "ebe_cell_matvec_reference", "cell_product_reference",
            "cell_triple_reference", "cell_strain_host", "cell_residual_host",
            "cell_tangent_host", "ebe_cell_matvec_host", "cell_product_host", "cell_triple_host",
-           "TANGENT_MODES", "max_components", "staged_cells", "reset_launches",
+           "TANGENT_MODES", "max_components", "staged_cells", "staged_quad", "reset_launches",
            "launch_counts"]
 
 _F64, _F32, _I64 = torch.float64, torch.float32, torch.int64
@@ -83,6 +83,17 @@ def staged_cells():
     num = {k: int(re.search(rf"constexpr int {k} = (\d+);", text).group(1))
            for k in ("kThreads", "kStagedNA", "kStagedNB")}
     return num["kStagedNA"], num["kStagedNB"], num["kThreads"] // num["kStagedNA"]
+
+
+@functools.cache
+def staged_quad():
+    """``(nq, ni, nk, G, Gb)``: E2 and E3 at this shape (``nq`` points of
+    ``ni`` components, ``nk`` dofs a cell) run staged, the matvec G cells
+    a block and the blocks Gb (``csrc/element_chain.cuh``); every other
+    shape runs one thread an output without staging."""
+    text = (_CSRC / "element_chain.cuh").read_text()
+    return tuple(int(re.search(rf"constexpr int {k} = (\d+);", text).group(1))
+                 for k in ("kEcNQ", "kEcNI", "kEcNK", "kEcVecCells", "kEcBlockCells"))
 
 
 def _need(name, t, dtype, ndim, device, contiguous=True):
@@ -214,12 +225,25 @@ def cell_residual(B, sigma, wdet):
     return out
 
 
-def cell_residual_host(B, sigma, wdet):
-    """E2's bodies built with g++, on CPU tensors (tests only)."""
+def _staged_host(name, args):
+    from .._native.cuda import host_function
+
+    if host_function(name)(*args) != 0:
+        raise ValueError(f"{name}: (nq, ni, nk) = {args[-3:]} is not the staged shape "
+                         f"{staged_quad()[:3]}")
+
+
+def cell_residual_host(B, sigma, wdet, staged=False):
+    """E2's bodies built with g++, on CPU tensors (tests only); with
+    ``staged`` the staged kernel's loads and stages, over its groups of
+    cells (the staged shape only)."""
     from .._native.cuda import host_function
 
     out, args = _residual_args(B, sigma, wdet)
-    host_function("cell_residual")(*args)
+    if staged:
+        _staged_host("cell_residual_staged", args)
+    else:
+        host_function("cell_residual")(*args)
     return out
 
 
@@ -299,12 +323,18 @@ def cell_tangent(mode, B, C, wdet, dofmap=None, x=None, keep=None, dtype=_F64):
     return out
 
 
-def cell_tangent_host(mode, B, C, wdet, dofmap=None, x=None, keep=None, dtype=_F64):
-    """E3's bodies built with g++, on CPU tensors (tests only)."""
+def cell_tangent_host(mode, B, C, wdet, dofmap=None, x=None, keep=None, dtype=_F64,
+                      staged=False):
+    """E3's bodies built with g++, on CPU tensors (tests only); with
+    ``staged`` the staged kernels' loads and stages, over their groups of
+    cells (the staged shape only)."""
     from .._native.cuda import host_function
 
     out, args = _tangent_args(mode, B, C, wdet, dofmap, x, keep, dtype)
-    host_function("cell_tangent")(*args)
+    if staged:
+        _staged_host("cell_tangent_staged", args)
+    else:
+        host_function("cell_tangent")(*args)
     return out
 
 

@@ -30,6 +30,11 @@ from dolfinx_external_operator_torch import problems
 SOLVERS = ("dense", "bcr", "mg", "dense", "bcr", "mg")
 
 
+def fingerprint(Du):
+    """The first 12 hex digits of the SHA-256 of Du's bytes."""
+    return hashlib.sha256(Du.cpu().numpy().tobytes()).hexdigest()[:12]
+
+
 def schedule(solver, device):
     """(Newton updates, inner iterations, Du's fingerprint) of the
     schedule from the zero state, after one warm-up step."""
@@ -43,7 +48,7 @@ def schedule(solver, device):
     for load in problems.SLOPE_LOADS:
         Du, sig, _, it, cg = fp.run_step(Du, sig, float(load))
         its, inner = its + it, inner + abs(cg)
-    return its, inner, hashlib.sha256(Du.cpu().numpy().tobytes()).hexdigest()[:12]
+    return its, inner, fingerprint(Du)
 
 
 def main():

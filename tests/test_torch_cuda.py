@@ -765,14 +765,56 @@ def test_cuda_slice_bits_of_the_general_path(cuda):
         assert out[name] == {2: True, 3: True}, out
 
 
+# E2 and E3 at the staging's edges: C and sigma as the return map hands
+# them, point-fastest views; the f64 blocks masked, the f32 ones unmasked
+# (the dense update's) and masked
+EC_STAGED = ("residual", "tangent_matvec", "tangent_diag", "blocks_f64", "blocks_f32",
+             "blocks_f32_masked")
+
+
+def _quad_case(kernel, nc, device, rng, n):
+    from dolfinx_external_operator_torch.ops import element_chain as ec
+
+    def point_fastest(*shape):
+        t = torch.as_tensor(rng.standard_normal(shape[2:] + shape[:2]), device=device)
+        return t.permute(*range(t.dim() - 2, t.dim()), *range(t.dim() - 2))
+
+    B = torch.as_tensor(rng.standard_normal((nc, 3, 4, 12)), device=device)
+    C, sig = point_fastest(nc, 3, 4, 4), point_fastest(nc, 3, 4)
+    w = torch.as_tensor(rng.standard_normal((nc, 3)), device=device)
+    dof = torch.as_tensor(rng.integers(0, n + 1, (nc, 12)), device=device)  # n: padding
+    x = torch.as_tensor(rng.standard_normal(n), device=device)
+    keep = torch.as_tensor(rng.integers(0, 2, (nc, 12)).astype(np.float64), device=device)
+    if kernel == "residual":
+        fn, args, kw = "cell_residual", (B, sig, w), {}
+    elif kernel.startswith("tangent"):
+        mode = kernel.split("_")[1]
+        fn, args, kw = "cell_tangent", (mode, B, C, w) + ((dof, x) if mode == "matvec" else ()), {}
+    else:
+        fn, args = "cell_tangent", ("blocks", B, C, w)
+        kw = {"dtype": torch.float32 if "f32" in kernel else torch.float64}
+        if kernel != "blocks_f32":
+            kw["keep"] = keep
+
+    def call(kind):
+        a = args if kind == "" else tuple(t.cpu() if torch.is_tensor(t) else t for t in args)
+        k = kw if kind == "" else {key: v.cpu() if torch.is_tensor(v) else v
+                                   for key, v in kw.items()}
+        return getattr(ec, fn + kind)(*a, **k)
+    return call
+
+
 def _staging_case(kernel, nc, device, seed=13):
-    """Seeded inputs of E1 or E4 on ``nc`` cells, as (wrapper suffix ->
-    output): ``kernel`` names the layout ("strain"; "ebe_<na>x<nb>_<bs>_<f64|f32>",
-    with "_t" for K a transposed view)."""
+    """Seeded inputs of E1, E2, E3 or E4 on ``nc`` cells, as (wrapper
+    suffix -> output): ``kernel`` names the layout ("strain"; one of
+    ``EC_STAGED``; "ebe_<na>x<nb>_<bs>_<f64|f32>", with "_t" for K a
+    transposed view)."""
     from dolfinx_external_operator_torch.ops import element_chain as ec
 
     rng = np.random.default_rng(seed)
     n = 97
+    if kernel in EC_STAGED:
+        return _quad_case(kernel, nc, device, rng, n)
     if kernel == "strain":
         B = torch.as_tensor(rng.standard_normal((nc, 3, 4, 12)), device=device)
         dof = torch.as_tensor(rng.integers(0, n + 1, (nc, 12)), device=device)  # n: padding
@@ -797,16 +839,20 @@ def _staging_case(kernel, nc, device, seed=13):
 
 @pytest.mark.parametrize("kernel", ["strain", "ebe_12x12_2_f64", "ebe_12x12_1_f32",
                                     "ebe_12x12_2_f32_t", "ebe_12x12_1_f64_t",
-                                    "ebe_6x10_1_f64", "ebe_14x14_2_f32"])
+                                    "ebe_6x10_1_f64", "ebe_14x14_2_f32", *EC_STAGED])
 @pytest.mark.parametrize("cells", ["1", "G-1", "G+1", "1250"])
 def test_cuda_element_chain_staging_edges(cuda, kernel, cells):
-    """E1 and E4 at cell counts that reach the staging's edges (one cell,
-    a block's group G less and more one, the main path's 1,250), K as a
-    transposed view, and E4 non-square and wider than the staged shape:
-    the g++ build's bits, and the same bits replayed from a CUDA graph."""
+    """E1, E2, E3 and E4 at cell counts that reach the staging's edges (one
+    cell, a block's group G less and more one, the main path's 1,250), K
+    as a transposed view, E4 non-square and wider than the staged shape,
+    E2 and E3 with C and sigma point-fastest views: the g++ build's bits,
+    and the same bits replayed from a CUDA graph."""
     from dolfinx_external_operator_torch.ops import element_chain as ec
 
-    G = ec.staged_cells()[2]
+    if kernel in EC_STAGED:
+        G = ec.staged_quad()[4 if kernel.startswith("blocks") else 3]
+    else:
+        G = ec.staged_cells()[2]
     nc = {"1": 1, "G-1": G - 1, "G+1": G + 1, "1250": 1250}[cells]
     call = _staging_case(kernel, nc, cuda)
     out = call("")

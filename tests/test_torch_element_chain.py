@@ -30,9 +30,15 @@ for the level-1 triple.
 * Padded cells (B and w zero, every dof the padding index, keep 0; E5's
   per-cell operands zero) give zero, in the plain versions and in the
   bodies.
+* E2 and E3's staged composition (the staged kernels' loads and stages,
+  run on the CPU over the kernels' groups of cells): the bodies' bits at
+  the groups' edges, with padded cells, C and sigma the strided views of
+  the return map; and the staged shape is the launchers'.
 
 The kernels themselves run on a card in ``test_torch_cuda.py``.
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -286,6 +292,79 @@ def test_diag_is_the_blocks_diagonal(chain):
     d = ec.cell_tangent_host("diag", chain["B"], chain["C"], chain["w"])
     K = ec.cell_tangent_host("blocks", chain["B"], chain["C"], chain["w"])
     assert torch.equal(d, torch.diagonal(K, dim1=1, dim2=2))
+
+
+# E2 and E3's staged variants (the f32 blocks masked, as the elastic and
+# AMG paths call them, and unmasked, as the dense update does)
+STAGED = ("residual", "tangent_matvec", "tangent_diag", "blocks_f64", "blocks_f32",
+          "blocks_f32_unmasked")
+
+
+def _point_fastest(t):
+    """``t`` (cells, points, ...) as a view whose (cell, point) axes are
+    the fastest, the layout in which the step's return map hands C and
+    sigma (``FusedPlasticityStep._constitutive``)."""
+    lead = list(range(2, t.dim())) + [0, 1]
+    back = [lead.index(d) for d in range(t.dim())]
+    return t.permute(lead).contiguous().permute(back)
+
+
+@pytest.mark.parametrize("cells", ["1", "G-1", "G", "G+1", "37", "padded"])
+@pytest.mark.parametrize("name", STAGED)
+def test_staged_host_matches_body(chain, name, cells):
+    """E2 and E3's staged kernels' composition, run on the CPU stage by
+    stage over the kernels' groups of G cells (10; the blocks' 2), gives
+    the bodies' bits: at 1, G-1, G, G+1 and 37 cells (past a 4x4 batch's
+    32 cells, padded cells), and on the batch with 3 padded cells
+    appended, as a sharded step pads its last rank; C and sigma the
+    strided views that the return map hands (points fastest)."""
+    G = ec.staged_quad()[4 if name.startswith("blocks") else 3]
+    nc = chain["fp"].nc
+    want = {"1": 1, "G-1": G - 1, "G": G, "G+1": G + 1, "37": 37, "padded": nc + 3}[cells]
+    ch = chain
+    if want > nc:
+        ch = _padded(chain, want - nc)
+        ch["C"], ch["sigma"] = _point_fastest(ch["C"]), _point_fastest(ch["sigma"])
+    assert ch["C"].stride()[:2] == (3, 1) and ch["sigma"].stride()[:2] == (3, 1)
+    fn, args, kw = _args(ch, name.replace("_unmasked", ""), slice(0, want))
+    if name.endswith("_unmasked"):
+        del kw["keep"]
+    host = getattr(ec, f"{fn}_host")
+    staged, body = host(*args, staged=True, **kw), host(*args, **kw)
+    assert staged.shape[0] == want and staged.dtype == body.dtype
+    assert torch.equal(staged, body)
+
+
+@pytest.mark.parametrize("shape", [(3, 4, 12), (2, 6, 12), (4, 3, 12), (6, 2, 12), (3, 4, 10),
+                                   (3, 3, 12), (1, 4, 12)])
+def test_staged_shape_is_the_launchers(shape):
+    """The staged shape that ``staged_quad()`` reads from the header is the
+    only one that the staged entries take (they refuse the others, which
+    nq * ni == nk alone would not tell apart), and both launchers of E2
+    and E3 test that predicate, ``ec_quad_staged``, before they launch a
+    staged kernel."""
+    nq, ni, nk = shape
+    nc, n = 3, 20
+    rng = np.random.default_rng(7)
+    B = torch.as_tensor(rng.standard_normal((nc, nq, ni, nk)))
+    C = _point_fastest(torch.as_tensor(rng.standard_normal((nc, nq, ni, ni))))
+    sig, w = torch.zeros(nc, nq, ni, dtype=F64), torch.ones(nc, nq, dtype=F64)
+    dof = torch.as_tensor(rng.integers(0, n + 1, (nc, nk)))
+    calls = [lambda: ec.cell_residual_host(B, sig, w, staged=True),
+             lambda: ec.cell_tangent_host("matvec", B, C, w, dof, torch.ones(n, dtype=F64),
+                                          staged=True),
+             lambda: ec.cell_tangent_host("diag", B, C, w, staged=True),
+             lambda: ec.cell_tangent_host("blocks", B, C, w, dtype=F32, staged=True)]
+    for call in calls:
+        if shape == ec.staged_quad()[:3]:
+            call()
+        else:
+            with pytest.raises(ValueError, match="not the staged shape"):
+                call()
+    src = (Path(ec.__file__).parent.parent / "csrc" / "element_chain.cu").read_text()
+    for launcher in ("ec_residual_launch", "ec_tangent_launch"):
+        body = src[src.index(f"int {launcher}("):]
+        assert "ec_quad_staged(nq, ni, nk)" in body[:body.index("\n}\n")], launcher
 
 
 @pytest.mark.parametrize("case", ["dtype", "shape", "contiguity", "mode", "dtype_mix",

@@ -114,8 +114,8 @@ def test_port_imports_no_jax():
             "from dolfinx_external_operator_torch import convert, entry, problems; "
             "from dolfinx_external_operator_torch.models import mohr_coulomb; "
             "from dolfinx_external_operator_torch.ops import abbo_sloan, mohr_coulomb as mc_ops; "
-            "from dolfinx_external_operator_torch.tools import k1_compare, schedule_bits, "
-            "slice_bits; "
+            "from dolfinx_external_operator_torch.tools import ec_compare, k1_compare, "
+            "schedule_bits, slice_bits; "
             "from dolfinx_external_operator_torch import (sym, dtypes, function, compile, "
             "expression, assembly, external_operator, solvers, petsc, krylov); "
             "from dolfinx_external_operator_torch.models import hyperelasticity, icnn, von_mises; "
@@ -170,5 +170,5 @@ def test_kernel_tables_list_every_included_file():
 
     tables = {**{("cuda", k): v for k, v in native.KERNELS.items()},
               **{("host", k): v for k, v in native._HOST.items()}}
-    for key, (sources, _, _) in tables.items():
+    for key, (sources, *_) in tables.items():
         assert included(sources[0], set()) == set(sources), key
