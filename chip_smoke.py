@@ -166,9 +166,9 @@ Phases, in order; any failed check exits non-zero without the ``ok`` line:
    displacements within 1e-12 relative), Mohr-Coulomb ``--small`` and
    hyperelasticity ``--small``; each holds its own asserts;
 25. the element chain's kernels E1-E5 (``ops/element_chain.py``, one
-   launch a product, each output one sum of fixed order; E1-E4 staged at
-   the repo's shapes, the E2 and E3 rows with the staged kernel's
-   registers and spills): ``tools/
+   launch a product, each output one sum of fixed order; all staged at
+   the repo's shapes, the E2, E3 and E5 rows with the staged kernel's
+   registers and spills, E5's each bitwise its g++ build): ``tools/
    slice_bits.py`` on the card, every per-cell product of the slope's
    AMG-CG step (8x8 dia and node, 25x25 dia) on the cells of each of 2
    and 3 ranks bitwise the whole batch's, the return map and the level-1
@@ -178,11 +178,13 @@ Phases, in order; any failed check exits non-zero without the ``ok`` line:
    plain version (``EC_TOL``), timed in a CUDA graph and a call beside
    its plain version and one einsum or ``torch.bmm`` that computes its
    function, against its bound (E5: the level-1 triple on the 25x25 AMG
-   plan's weights, and the 25x25 general slope's operand products).
+   plan's weights, and the 25x25 general slope's operand products with
+   their values-and-gradients pair).
    Their launches are counted over phases 5 (E3), 6 (E1-E3; no E4 or
    E5), 9 (E1-E3), 11
-   (E4, and E5 twice an update), 12 (E4; no E5) and 18 (E5), and each of
-   those checks them.
+   (E4, and E5's triple once an update), 12 (E4; no E5) and 18 (E5: the
+   pair once a residual, four single products), and each of those checks
+   them.
 
 Peaks, bounds and work counts come from
 ``dolfinx_external_operator_torch/utils/roofline.py``.  The line before the
@@ -223,6 +225,7 @@ from dolfinx_external_operator_torch.entry import (
 )
 from dolfinx_external_operator_torch.parallel import bcr, dist, mg
 from dolfinx_external_operator_torch.tools import schedule_bits, slice_bits
+from dolfinx_external_operator_torch.tools.ec_compare import operand_inputs
 from dolfinx_external_operator_torch.utils import roofline
 
 # kernel vs plain on the card: the f64 polish stops once |r| <= 1e-8 of the
@@ -884,7 +887,7 @@ def mc_main_path(report):
     # its refinement rounds' tangent matvecs; no element-blocked matvec
     want = {"cell_strain": launches, "cell_residual": launches,
             "cell_tangent": sum(its_k) * (1 + fp_k._dense_refine), "ebe_cell_matvec": 0,
-            "cell_product": 0}
+            "cell_product": 0, "cell_values_grads": 0, "cell_triple": 0}
     print(f"25x25 slope, kernel: element-chain launches {ec_launches}", flush=True)
     check(ec_launches == want, f"element-chain launches {ec_launches}, expected {want}")
     du_err = float((Du_k - Du_p).abs().max() / Du_p.abs().max())
@@ -1131,11 +1134,12 @@ def mg_25x25_phase(report, fp_dense, state):
     check(launches == sum(its) + len(its), f"{launches} launches for Newton {its}")
     # the f64 blocks once an update, the element-blocked f64 matvec in
     # each refinement round (dia mode's f32 level-0 matvec is banded), the
-    # level-1 triple (E5 twice) in each update's AMG setup
+    # level-1 triple (E5, one staged launch) in each update's AMG setup
     print(f"  element-chain launches {ec_launches}", flush=True)
     check(ec_launches["cell_strain"] == ec_launches["cell_residual"] == launches
           and ec_launches["cell_tangent"] == sum(its) and ec_launches["ebe_cell_matvec"] > 0
-          and ec_launches["cell_product"] == 2 * sum(its),
+          and ec_launches["cell_triple"] == sum(its) and ec_launches["cell_product"] == 0
+          and ec_launches["cell_values_grads"] == 0,
           f"element-chain launches {ec_launches} for {launches} passes, {sum(its)} updates")
     gap = sum(inner) / MG_25_INNER_JAX - 1.0
     print(f"  inner iterations {sum(inner)} against the JAX package's {MG_25_INNER_JAX} on the "
@@ -1211,7 +1215,8 @@ def elastic_25x25_phase(report):
     check(its == rec, f"25x25 elastic Newton list {its} != record {rec}")
     check(launches == sum(its) + len(its), f"{launches} launches for Newton {its}")
     print(f"  element-chain launches {ec_launches}", flush=True)
-    check(ec_launches["ebe_cell_matvec"] > 0 and ec_launches["cell_product"] == 0,
+    check(ec_launches["ebe_cell_matvec"] > 0 and ec_launches["cell_product"]
+          == ec_launches["cell_values_grads"] == ec_launches["cell_triple"] == 0,
           f"element-chain launches {ec_launches}")
     # the end-of-step refresh at step 50's first tangent: the SPD inverse
     # does n^3 operations (Cholesky, triangular inverse and the product,
@@ -1490,9 +1495,13 @@ def general_slope_phase(report, u_fused, fused_s, n=25, loads=pt.SLOPE_LOADS, de
     check(launches == expected, f"{launches} K1 launches on the general path, expected {expected}")
     gap = float((u - u_fused).abs().max() / u_fused.abs().max())
     check(gap < 1e-8, f"general-path u differs from the fused step's by {gap:.3e}")
-    # the operand evaluation through E5 on every residual
-    check(device != "cuda" or ec_launches["cell_product"] > 0,
-          f"general path's element-chain launches {ec_launches}")
+    # the operand evaluation through E5: the strain's values and gradients
+    # of Du, one staged launch on every residual; the geometry of the
+    # operand's expression and of the two forms, the expression's basis
+    # gradients, once each
+    want_e5 = {"cell_values_grads": expected, "cell_product": 4, "cell_triple": 0}
+    check(device != "cuda" or {k: ec_launches[k] for k in want_e5} == want_e5,
+          f"general path's element-chain launches {ec_launches}, expected {want_e5}")
     steps_s = sum(run["step_s"])
     print(f"{n}x{n} slope, general pipeline (K1 callback, f32 LU + 4 rounds): newton {its} "
           f"({sum(its)}; off the fused record at steps {off_record}), backtracks {backtracks} "
@@ -1950,38 +1959,6 @@ def sharded_general_phase(report, ref, n, backend, loads=pt.SLOPE_LOADS):
 EC_TOL = {torch.float64: 1e-13, torch.float32: 1e-5}
 
 
-def operand_inputs(n, seed=25, device="cuda"):
-    """The general pipeline's operand evaluation on the n x n slope of
-    ``build_slope_problem`` (the strain of a seeded Du), by E5 product:
-    {mode: (einsum, x, y)} as ``assembly`` and ``compile`` call them on
-    every cell (the geometry J, the physical gradients, the values and
-    the gradients at the points)."""
-    from dolfinx_external_operator_torch.assembly import _t
-    from dolfinx_external_operator_torch.compile import CellBatch, coefficient_inputs
-    from dolfinx_external_operator_torch.expression import Expression
-    from dolfinx_external_operator_torch.models.mohr_coulomb import build_slope_problem
-
-    dev, f64 = torch.device(device), torch.float64
-    P = build_slope_problem(n, n, device=dev, route="cuda" if dev.type == "cuda" else "plain")
-    P["Du"].x.array[:] = 1e-3 * np.random.default_rng(seed).standard_normal(P["V"].num_dofs)
-    (op,) = P["F_ops"]
-    expr = Expression(op.ufl_operands[0], op.eval_points, dtype=f64, device=dev)
-    batch = CellBatch(P["mesh"], expr.points)
-    ((f, kind, (phi, dphi, _)),) = coefficient_inputs(expr.info, batch)
-    check(kind == "tab", f"the operand's coefficient is read as {kind!r}")
-    coords, dphi_g = _t(batch.coords, f64, dev), _t(batch.dphi_g, f64, dev)
-    J = torch.einsum("qvd,cvg->cqgd", dphi_g, coords)
-    Jinv = torch.linalg.inv(J)
-    phi, dphi = _t(phi, f64, dev), _t(dphi, f64, dev)
-    gp = torch.einsum("qbd,cqdg->cqbg", dphi, Jinv)
-    bs = f.function_space.bs
-    dofs = torch.as_tensor(f.function_space.unrolled_dofmap[batch.cells], device=dev)
-    d2 = f.data.to(f64)[dofs].reshape(dofs.shape[0], -1, bs)
-    return {"geometry": ("qvd,cvg->cqgd", dphi_g, coords),
-            "gphys": ("qbd,cqdg->cqbg", dphi, Jinv),
-            "values": ("qb,cbk->cqk", phi, d2), "grads": ("cqbg,cbk->cqkg", gp, d2)}
-
-
 def ec_cases(fp, Du, sig_n, W=None, operand=None):
     """The element chain's products at the iterate ``(Du, sig_n)`` of the
     step ``fp``, as the step calls them: dicts of the row, the mode, the
@@ -1992,7 +1969,10 @@ def ec_cases(fp, Du, sig_n, W=None, operand=None):
     tangent matvec's: one five-operand einsum, where the step ran three).
     E5's: the level-1 triple on the restriction weights ``W`` (nc, nk,
     na) against the f32 masked blocks, as ``mg_setup`` calls it, and the
-    products of ``operand`` (``operand_inputs``), where given."""
+    products of ``operand`` (``operand_inputs``) with the
+    values-and-gradients pair, where given; each with ``host``, its g++
+    build's staged composition on the inputs' CPU copies (no single
+    PyTorch call computes the pair: its library call is None)."""
     st, f32, f64 = fp.statics, torch.float32, torch.float64
     B, w, dof, keep = st["B"], st["wdet"], st["dofmap"], fp._keep_cell
     C, sigma = fp._constitutive(Du, sig_n)
@@ -2006,9 +1986,9 @@ def ec_cases(fp, Du, sig_n, W=None, operand=None):
     B32, C32, w32 = B.to(f32), C.to(f32), w.to(f32)
     aB, aC, aw, ax = B.abs(), C.abs(), w.abs(), x.abs()
 
-    def case(row, mode, kernel, plain, scale, library, bound):
+    def case(row, mode, kernel, plain, scale, library, bound, host=None):
         return {"row": row, "mode": mode, "kernel": kernel, "plain": plain, "scale": scale,
-                "library": library, "bound": bound}
+                "library": library, "bound": bound, "host": host}
 
     ref = ec.cell_tangent_reference
     cases = [
@@ -2054,14 +2034,15 @@ def ec_cases(fp, Du, sig_n, W=None, operand=None):
                     Kd.abs(), idx, xd.abs(), bs),
                 lambda Kd=Kd, u=u: torch.bmm(Kd, u), ("ebe_matvec", *shape, "matvec", isz, False, bs)))
     if W is not None:
-        K32 = K.to(f32)
+        K32 = K.to(f32).contiguous()  # as mg_setup gets the blocks (E3's output)
         na = W.shape[2]
         cases.append(case(
             "cell_product", "triple_f32", lambda: ec.cell_triple(W, K32),
             lambda: ec.cell_triple_reference(W, K32),
             lambda: ec.cell_triple_reference(W.abs(), K32.abs()),
             lambda: torch.einsum("cia,cij,cjb->cab", W, K32, W),
-            ("cell_product", nc, 0, na, nk, 0, "triple", 4)))
+            ("cell_product", nc, 0, na, nk, 0, "triple", 4),
+            lambda: ec.cell_triple_host(W.cpu(), K32.cpu(), staged=True)))
     for mode, (eq, a, b) in (operand or {}).items():
         sa, sb = eq.split("->")[0].split(",")
         (k,) = set(sa) & set(sb) - set(eq.split("->")[1])
@@ -2072,18 +2053,40 @@ def ec_cases(fp, Du, sig_n, W=None, operand=None):
             lambda eq=eq, a=a, b=b: ec.cell_product_reference(eq, a.abs(), b.abs()),
             lambda eq=eq, a=a, b=b: torch.einsum(eq, a, b),
             ("cell_product", outputs, a.shape[sa.index(k)], 0, 0, a.numel() + b.numel(),
-             "product", a.element_size())))
+             "product", a.element_size()),
+            lambda eq=eq, a=a, b=b: ec.cell_product_host(eq, a.cpu(), b.cpu(), staged=True)))
+    if operand:
+        (_, phi, d2), (_, gp, _) = operand["values"], operand["grads"]
+        outputs = sum(t.numel() for t in ec.cell_values_grads_reference(phi, gp, d2))
+        cases.append(case(
+            "cell_product", "operand_values_grads", lambda: ec.cell_values_grads(phi, gp, d2),
+            lambda: ec.cell_values_grads_reference(phi, gp, d2),
+            lambda: ec.cell_values_grads_reference(phi.abs(), gp.abs(), d2.abs()), None,
+            ("cell_product", outputs, phi.shape[1], 0, 0, phi.numel() + gp.numel() + d2.numel(),
+             "product", phi.element_size()),
+            lambda: ec.cell_values_grads_host(phi.cpu(), gp.cpu(), d2.cpu(), staged=True)))
     return cases
 
 
-# phase 25: the kernel function that each E2 / E3 row runs at the staged
-# shape, for its ptxas registers and spills
+def flat(out):
+    """A kernel's output, the pair's two as one vector."""
+    return torch.cat([t.reshape(-1) for t in out]) if isinstance(out, tuple) else out
+
+
+# phase 25: the kernel function that each E2 / E3 / E5 row runs at the
+# staged shape, for its ptxas registers and spills
 EC_STAGED_KERNELS = {
     ("cell_residual", "residual"): "staged_residual_kernel",
     ("cell_tangent", "matvec"): "staged_tangent_matvec_kernel",
     ("cell_tangent", "diag"): "staged_tangent_diag_kernel",
     ("cell_tangent", "blocks_f64_masked"): "staged_tangent_block_kernel<double>",
     ("cell_tangent", "blocks_f32"): "staged_tangent_block_kernel<float>",
+    ("cell_product", "triple_f32"): "staged_triple_kernel",
+    ("cell_product", "operand_geometry"): "staged_product_kernel<double, 3>",
+    ("cell_product", "operand_gphys"): "staged_product_kernel<double, 2>",
+    ("cell_product", "operand_values"): "staged_product_kernel<double, 6>",
+    ("cell_product", "operand_grads"): "staged_product_kernel<double, 6>",
+    ("cell_product", "operand_values_grads"): "staged_values_grads_kernel<double, 6>",
 }
 
 
@@ -2115,24 +2118,30 @@ def element_chain_phase(report, fp, state, W):
     for c in cases:
         row, mode, kernel, plain, library = c["row"], c["mode"], c["kernel"], c["plain"], \
             c["library"]
-        k, p, lib, scale = kernel(), plain(), library(), c["scale"]()
+        k, p, scale = flat(kernel()), flat(plain()), flat(c["scale"]())
         torch.cuda.synchronize()
         check(bool(torch.isfinite(k).all()), f"{row} {mode}: not finite")
         abs_err = float((k - p).abs().max())
         rel_err = abs_err / float(scale.max())
         check(rel_err < EC_TOL[k.dtype], f"{row} {mode} differs from plain by {rel_err:.3e} "
               "of the terms' scale")
-        lib_err = float((lib.reshape(p.shape) - p).abs().max()) / float(scale.max())
-        check(lib_err < EC_TOL[k.dtype], f"{row} {mode}: the library call differs from plain "
-              f"by {lib_err:.3e} of the terms' scale")
+        lib_err = None
+        if library is not None:
+            lib = library()
+            lib_err = float((lib.reshape(p.shape) - p).abs().max()) / float(scale.max())
+            check(lib_err < EC_TOL[k.dtype], f"{row} {mode}: the library call differs from "
+                  f"plain by {lib_err:.3e} of the terms' scale")
         bound_ms, bound_by = roofline.element_chain_bound(*c["bound"])
         m = {"rel_err": rel_err, "rel_err_to_max": abs_err / float(p.abs().max()),
              "max_abs_err": abs_err, "library_rel_err": lib_err, "tol": EC_TOL[k.dtype],
              "ms": graph_time_ms(kernel, 200), "call_ms": cuda_time_ms(kernel, 200),
              "plain_ms": graph_time_ms(plain, 100), "plain_call_ms": cuda_time_ms(plain, 100),
-             "library_ms": graph_time_ms(library, 100),
-             "library_call_ms": cuda_time_ms(library, 100),
+             "library_ms": None if library is None else graph_time_ms(library, 100),
+             "library_call_ms": None if library is None else cuda_time_ms(library, 100),
              "bound_ms": bound_ms, "bound_by": bound_by}
+        if c["host"] is not None:  # the g++ build's staged composition
+            m["bitwise_host"] = torch.equal(k.cpu(), flat(c["host"]()))
+            check(m["bitwise_host"], f"{row} {mode}: the kernel's bits are not its g++ build's")
         staged = EC_STAGED_KERNELS.get((row, mode))
         if staged is not None:
             usage = report["ptxas"].get("element_chain_cu", {}).get(staged)
@@ -2143,8 +2152,10 @@ def element_chain_phase(report, fp, state, W):
               f"({m['rel_err_to_max']:.2e} of the largest entry), kernel "
               f"{m['ms'] * 1e3:.2f} us in a graph, {m['call_ms'] * 1e3:.2f} us a call; plain "
               f"{m['plain_ms'] * 1e3:.2f} us ({m['plain_call_ms'] * 1e3:.2f} a call); library "
-              f"{m['library_ms'] * 1e3:.2f} us ({m['library_call_ms'] * 1e3:.2f} a call); "
-              f"bound {bound_ms * 1e3:.3f} us ({bound_by})", flush=True)
+              + ("none" if library is None else f"{m['library_ms'] * 1e3:.2f} us "
+                 f"({m['library_call_ms'] * 1e3:.2f} a call)")
+              + f"; bound {bound_ms * 1e3:.3f} us ({bound_by})"
+              + ("; bitwise its g++ build" if m.get("bitwise_host") else ""), flush=True)
         if "ptxas" in m:
             u = m["ptxas"]
             print(f"  {u['kernel']}: {u.get('registers')} registers, {u.get('spill_stores')} B "
@@ -2478,7 +2489,8 @@ def main():
     # f64 node layout of the AMG-CG refinement, phase 11; E5: the level-1
     # triple of phase 11's AMG setup), its other modes beside them;
     # launches over phase 6's dense schedule, E4's and E5's over phase
-    # 11's (E5's on phase 18's general path beside them)
+    # 11's (E5's the triple's; by path each of its three wrappers: the
+    # triple, the values-and-gradients pair and the single products)
     jax_pkg = "dolfinx_external_operator_tpu"
     by_path = {"slope_25x25_dense": report["mc_main"]["ec_launches"],
                "slope_25x25_bcr": report["bcr_25x25"]["ec_launches"],
@@ -2494,15 +2506,17 @@ def main():
              "slope_25x25_dense"),
             ("ebe_matvec", "ebe_cell_matvec", "parallel/spmd.py:617", "node_f64",
              "slope_25x25_mg"),
-            ("cell_product", "cell_product", "parallel/mg.py:890", "triple_f32",
+            ("cell_product", "cell_triple", "parallel/mg.py:890", "triple_f32",
              "slope_25x25_mg")):
         m = ec_meas[(row, head)]
+        e5 = ("cell_triple", "cell_values_grads", "cell_product")
         kernels.append({
             "name": row, "route": "cuda",
             "source": "dolfinx_external_operator_torch/csrc/element_chain.cu",
             "replaces": f"{jax_pkg}/{replaces}", "launches": by_path[path][wrapper],
             "launches_path": path,
-            "launches_by_path": {p: c[wrapper] for p, c in by_path.items()},
+            "launches_by_path": {p: ({w: c[w] for w in e5} if row == "cell_product"
+                                     else c[wrapper]) for p, c in by_path.items()},
             "mode": head, "max_abs_err": m["max_abs_err"], "max_rel_err": m["rel_err"],
             "ms": m["ms"], "call_ms": m["call_ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],

@@ -59,6 +59,11 @@ KERNELS = {
                    [_INT, _VP] + [_LL] * 3 + [_VP] * 2 + [_LL, _VP, _LL] + [_INT] * 3 + [_VP]),
     "cell_product": (("element_chain.cu", "element_chain.cuh"), "ec_product_launch",
                      [_INT] + [_VP] * 3 + [_LL] * 14 + [_INT, _VP]),
+    "cell_values_grads": (("element_chain.cu", "element_chain.cuh"), "ec_values_grads_launch",
+                          [_INT, _VP, _LL, _LL, _VP] + [_LL] * 4 + [_VP] + [_LL] * 3
+                          + [_VP] * 2 + [_LL] * 5 + [_VP]),
+    "cell_triple": (("element_chain.cu", "element_chain.cuh"), "ec_triple_launch",
+                    ([_VP] + [_LL] * 3) * 2 + [_VP] + [_LL] * 3 + [_VP]),
 }
 _HOST = {
     "vonmises": (("vonmises_host.cpp", "vonmises.cuh"), "vonmises_return_map_host",
@@ -86,6 +91,16 @@ _HOST = {
                             "ec_tangent_staged_host",
                             [_INT] + [_VP] * 2 + [_LL] * 4 + [_VP] * 3 + [_LL] + [_VP] * 2 + [_LL]
                             + [_INT] * 3, _INT),
+    "cell_product_staged": (("element_chain_host.cpp", "element_chain.cuh"),
+                            "ec_product_staged_host", [_INT] + [_VP] * 3 + [_LL] * 14 + [_INT],
+                            _INT),
+    "cell_values_grads_staged": (("element_chain_host.cpp", "element_chain.cuh"),
+                                 "ec_values_grads_staged_host",
+                                 [_INT, _VP, _LL, _LL, _VP] + [_LL] * 4 + [_VP] + [_LL] * 3
+                                 + [_VP] * 2 + [_LL] * 5, _INT),
+    "cell_triple_staged": (("element_chain_host.cpp", "element_chain.cuh"),
+                           "ec_triple_staged_host", ([_VP] + [_LL] * 3) * 2 + [_VP] + [_LL] * 3,
+                           _INT),
 }
 # what each compiler printed for a library built by this process (nvcc's
 # -Xptxas -v: registers, stack and spills of each kernel)

@@ -191,9 +191,11 @@ def _batch_form(t, nq, shape):
 def _coeff_values_at_qps(plan, coeff_cell_data, tables):
     """Evaluate coefficients at all qps of the cells: the basis
     tabulations against the cells' dofs through E5
-    (``ops.element_chain.cell_product``; on the CPU the einsums it
-    names), so that on the card a cell's values do not depend on the
-    batch it is evaluated in (a rank's cells give the whole batch's bits).
+    (``ops.element_chain.cell_product``, and ``cell_values_grads`` where
+    gradients are needed: both products in one launch; on the CPU the
+    einsums they name), so that on the card a cell's values do not depend
+    on the batch it is evaluated in (a rank's cells give the whole batch's
+    bits).
 
     Returns dict f -> (vals (nc, 1, 1, nq, *shape),
     grads (nc, 1, 1, nq, *shape, g) | None)."""
@@ -208,9 +210,12 @@ def _coeff_values_at_qps(plan, coeff_cell_data, tables):
             for (phi, gp), (nb, bs) in zip(tab, subs):
                 d2 = data[:, off: off + nb * bs].reshape(nc, nb, bs)
                 off += nb * bs
-                vals_parts.append(ec.cell_product("qb,cbk->cqk", phi, d2))
                 if needs_grad:
-                    grads_parts.append(ec.cell_product("cqbg,cbk->cqkg", gp, d2))
+                    v, g = ec.cell_values_grads(phi, gp, d2)
+                    grads_parts.append(g)
+                else:
+                    v = ec.cell_product(ec.VALUES_EQ, phi, d2)
+                vals_parts.append(v)
             vals = torch.cat(vals_parts, dim=2)  # (nc, nq, vs_total)
             nq = vals.shape[1]
             grads = torch.cat(grads_parts, dim=2) if needs_grad else None
@@ -227,12 +232,12 @@ def _coeff_values_at_qps(plan, coeff_cell_data, tables):
             bs = f.function_space.bs
             nq, nb = phi.shape
             d2 = data.reshape(nc, nb, bs)
-            vals = ec.cell_product("qb,cbk->cqk", phi, d2)
             grads = None
             if needs_grad:
-                grads = ec.cell_product("cqbg,cbk->cqkg", gp, d2)
-                g = gp.shape[-1]
-                grads = _batch_form(grads, nq, vshape + (g,))
+                vals, grads = ec.cell_values_grads(phi, gp, d2)
+                grads = _batch_form(grads, nq, vshape + (gp.shape[-1],))
+            else:
+                vals = ec.cell_product(ec.VALUES_EQ, phi, d2)
             out[f] = (_batch_form(vals, nq, vshape), grads)
     return out
 

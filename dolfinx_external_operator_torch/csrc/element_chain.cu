@@ -18,8 +18,10 @@
 //   E4 ebe_matvec     (c, a)     the element-blocked matvec, f64 or f32 (also
 //                                the general pipeline's matrix-free action)
 //   E5 cell_product   (b0, b1, m, n)  a batched product at any strides, f64
-//                                or f32 (the level-1 triple, two calls; the
-//                                general pipeline's operand evaluation)
+//                                or f32 (the general pipeline's operand
+//                                evaluation); its values-and-gradients
+//                                pair and the level-1 triple each one
+//                                launch at the repo's shapes
 //
 // Why by hand: the batched products' kernels that cuBLAS picks depend on
 // the batch count, so a rank's cells gave other bits than the whole
@@ -58,7 +60,21 @@
 //     read the cell's B once into shared memory, compute its C B table
 //     once (an entry a thread), then each output from B's and the
 //     table's columns, a barrier between the stages.
-// Every other shape takes the unstaged kernel.  Each launcher runs on the
+//   E5 (element_chain.cuh, ec_product_staged_form, ec_pair_staged_form,
+//     ec_triple_staged): the product at summed lengths 2, 3, 6 takes the
+//     length as a template parameter, 32-bit indices split by divisors
+//     fixed on the host (the unstaged body splits with four 64-bit
+//     divisions, emulated in tens of instructions each), and reads A
+//     where it is small enough to be a table (a basis or geometry
+//     tabulation) once a block into shared memory, its copy in flight
+//     with the thread's other loads before one barrier.  The pair of a
+//     coefficient's values and gradients reads a group of cells' dofs
+//     once into shared memory and writes both outputs in one launch; the
+//     level-1 triple keeps T = W^T K in shared memory (in f32, as the two
+//     launches store it) and computes T W in the same launch.
+// Every other shape takes the unstaged kernel (the pair and the triple
+// there are two ec_product_launch calls; their own launchers refuse those
+// shapes).  Each launcher runs on the
 // caller's stream, does not synchronise and allocates nothing
 // (graph-capturable), and returns cudaGetLastError().
 #include <cuda_runtime.h>
@@ -311,6 +327,130 @@ cell_product_kernel(const T* __restrict__ A, const T* __restrict__ B, T* __restr
   }
 }
 
+// E5 staged (element_chain.cuh, ec_product_staged_form): the summed
+// length NK fixed, 32-bit indices split by the host's divisors, one
+// output a thread.  Each thread first issues the loads of its operands
+// that are not the table (ec_product_load) and its share of the table (A,
+// where p.tab_n > 0) into shared memory, all in flight together; after
+// one barrier it reads the table's values there and sums
+// (ec_product_sum).
+template <typename T>
+__device__ __forceinline__ void copy_table(const T* src, int n, T* tab) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) tab[i] = src[i];
+}
+
+template <typename T, int NK>
+__global__ void __launch_bounds__(kThreads)
+staged_product_kernel(const T* __restrict__ A, const T* __restrict__ B, T* __restrict__ out,
+                      const EcProduct32 p) {
+  __shared__ T tab[kEcTableMax];
+  const long long t0 = first_output();
+  EcProductOps<T, NK> o;
+  if (t0 < p.total) ec_product_load(o, A, B, p, static_cast<int>(t0));
+  if (p.tab_n > 0) {
+    copy_table(A, p.tab_n, tab);
+    __syncthreads();
+  }
+  for (long long t = t0; t < p.total; t += output_stride()) {
+    if (t != t0) ec_product_load(o, A, B, p, static_cast<int>(t));
+    out[t] = ec_product_sum(o, tab, p);
+  }
+}
+
+// The values-and-gradients pair of one coefficient in one launch: a
+// block takes G cells (ec_pair_staged_form); each thread issues its loads
+// (a gradient's row of gp), its entries of the group's d2 and of phi (the
+// table, once a block), all in flight, d2 and phi into shared memory;
+// after a barrier each computes its output (ec_pair_out), the group's
+// values and then its gradients written coalesced.
+template <typename T, int NB>
+__global__ void __launch_bounds__(kEcPairThreads)
+staged_values_grads_kernel(const T* __restrict__ phi, const T* __restrict__ gp,
+                           const T* __restrict__ d2, T* __restrict__ val, T* __restrict__ grad,
+                           const EcPair p) {
+  // a group's d2: G nb bs <= nb kEcPairThreads / (1 + ng) entries
+  __shared__ T tab[kEcTableMax], ds[NB * (kEcPairThreads / (1 + kEcPairNG))];
+  copy_table(phi, p.tab_n, tab);  // before the first group's barrier
+  const int tid = threadIdx.x, nd = p.nbbs.d;
+  for (long long c0 = static_cast<long long>(blockIdx.x) * p.G; c0 < p.nc;
+       c0 += static_cast<long long>(gridDim.x) * p.G) {
+    const int cells = p.nc - c0 < p.G ? static_cast<int>(p.nc - c0) : p.G;
+    EcPairOut<T, NB> o;
+    const bool mine = ec_pair_load(o, gp, val, grad, p, c0, cells, tid);
+    for (int i = tid; i < cells * nd; i += kEcPairThreads) ds[i] = ec_pair_d2(d2, p, c0, i);
+    __syncthreads();
+    if (mine) *o.dst = ec_pair_out(o, tab, ds + o.cell * nd, p);
+    __syncthreads();
+  }
+}
+
+// The level-1 triple in one launch: a block takes G cells, 72 threads
+// each.  Every thread loads one entry of its group's W and two of its K
+// (coalesced, all in flight) into shared memory; after a barrier each
+// computes one entry of its cell's T = W^T K (ec_triple_t), kept in
+// shared memory in f32 as the first of the two products stores it; after
+// another the first 36 of a cell's threads compute out = T W
+// (ec_triple_out), written coalesced.
+constexpr int kTripleCell = kEcTripleNK * kEcTripleNA;  // W's and T's entries, threads a cell
+constexpr int kTripleThreads = kEcTripleCells * kTripleCell;
+static_assert(kEcTripleNK * kEcTripleNK == 2 * kTripleCell, "two of K's entries a thread");
+
+__global__ void __launch_bounds__(kTripleThreads)
+staged_triple_kernel(const float* __restrict__ W, const float* __restrict__ K,
+                     float* __restrict__ out, long long nc) {
+  constexpr int G = kEcTripleCells, NW = kTripleCell, NKK = 2 * kTripleCell,
+                NO = kEcTripleNA * kEcTripleNA;
+  __shared__ float ws[G * NW], ks[G * NKK], ts[G * NW];
+  const int tid = threadIdx.x, r = tid % NW, cell = tid / NW;
+  for (long long c0 = static_cast<long long>(blockIdx.x) * G; c0 < nc;
+       c0 += static_cast<long long>(gridDim.x) * G) {
+    const int cells = nc - c0 < G ? static_cast<int>(nc - c0) : G;
+    const int n = cells * NW;
+    const float* Wg = W + c0 * NW;
+    const float* Kg = K + c0 * NKK;
+    if (tid < n) {
+      const float w = Wg[tid], k0 = Kg[tid], k1 = Kg[n + tid];
+      ws[tid] = w;
+      ks[tid] = k0;
+      ks[n + tid] = k1;
+    }
+    __syncthreads();
+    if (tid < n) ts[tid] = ec_triple_t(ws + cell * NW, ks + cell * NKK, r);
+    __syncthreads();
+    if (tid < cells * NO) {
+      const int g = tid / NO;
+      out[c0 * NO + tid] = ec_triple_out(ts + g * NW, ws + g * NW, tid % NO);
+    }
+    __syncthreads();
+  }
+}
+
+template <typename T>
+void launch_staged_product(const T* A, const T* B, T* out, const EcProduct32& q, int nk,
+                           cudaStream_t st) {
+  const unsigned int grid = grid_for(q.total);
+  if (nk == 2) {
+    staged_product_kernel<T, 2><<<grid, kThreads, 0, st>>>(A, B, out, q);
+  } else if (nk == 3) {
+    staged_product_kernel<T, 3><<<grid, kThreads, 0, st>>>(A, B, out, q);
+  } else {
+    staged_product_kernel<T, 6><<<grid, kThreads, 0, st>>>(A, B, out, q);
+  }
+}
+
+template <typename T>
+void launch_staged_pair(const T* phi, const T* gp, const T* d2, T* val, T* grad,
+                        const EcPair& q, int nb, cudaStream_t st) {
+  const unsigned int grid = grid_of_groups(q.nc, q.G);
+  if (nb == 2) {
+    staged_values_grads_kernel<T, 2><<<grid, kEcPairThreads, 0, st>>>(phi, gp, d2, val, grad, q);
+  } else if (nb == 3) {
+    staged_values_grads_kernel<T, 3><<<grid, kEcPairThreads, 0, st>>>(phi, gp, d2, val, grad, q);
+  } else {
+    staged_values_grads_kernel<T, 6><<<grid, kEcPairThreads, 0, st>>>(phi, gp, d2, val, grad, q);
+  }
+}
+
 bool shape_ok(long long nc, int nq, int ni, int nk) {
   return nc >= 0 && nq > 0 && ni > 0 && ni <= kEcMaxComp && nk > 0;
 }
@@ -446,7 +586,16 @@ extern "C" int ec_product_launch(int f32, const void* A, const void* B, void* ou
   const EcProduct p{{n0, n1, n2, n3}, {a0, a1, a2, a3}, {b0, b1, b2, b3}, ak, bk, nk};
   const long long total = n0 * n1 * n2 * n3;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (total > 0) {
+  EcProduct32 q;
+  if (total > 0 && ec_product_staged_form(p, q)) {
+    if (f32) {
+      launch_staged_product(static_cast<const float*>(A), static_cast<const float*>(B),
+                            static_cast<float*>(out), q, nk, st);
+    } else {
+      launch_staged_product(static_cast<const double*>(A), static_cast<const double*>(B),
+                            static_cast<double*>(out), q, nk, st);
+    }
+  } else if (total > 0) {
     if (f32) {
       cell_product_kernel<float><<<grid_for(total), kThreads, 0, st>>>(
           static_cast<const float*>(A), static_cast<const float*>(B), static_cast<float*>(out),
@@ -456,6 +605,56 @@ extern "C" int ec_product_launch(int f32, const void* A, const void* B, void* ou
           static_cast<const double*>(A), static_cast<const double*>(B),
           static_cast<double*>(out), p);
     }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// E5, the values-and-gradients pair of one coefficient in one launch: phi
+// (nq, nb) at strides (p0, p1), gp (nc, nq, nb, ng) at (g0..g3), d2 (nc,
+// nb, bs) at (d0..d2s); val (nc, nq, bs) and grad (nc, nq, bs, ng)
+// contiguous, f64 (f32 == 0) or f32.  Only at the staged shapes
+// (ec_pair_staged_form); anything else is refused: there the two products
+// are two ec_product_launch calls.
+extern "C" int ec_values_grads_launch(int f32, const void* phi, long long p0, long long p1,
+                                      const void* gp, long long g0, long long g1, long long g2,
+                                      long long g3, const void* d2, long long d0, long long d1,
+                                      long long d2s, void* val, void* grad, long long nc,
+                                      long long nq, long long nb, long long bs, long long ng,
+                                      void* stream) {
+  const long long ps[2] = {p0, p1}, gs[4] = {g0, g1, g2, g3}, ds[3] = {d0, d1, d2s};
+  EcPair q;
+  if (!ec_pair_staged_form(nc, nq, nb, bs, ng, ps, gs, ds, q)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nc > 0) {
+    if (f32) {
+      launch_staged_pair(static_cast<const float*>(phi), static_cast<const float*>(gp),
+                         static_cast<const float*>(d2), static_cast<float*>(val),
+                         static_cast<float*>(grad), q, static_cast<int>(nb), st);
+    } else {
+      launch_staged_pair(static_cast<const double*>(phi), static_cast<const double*>(gp),
+                         static_cast<const double*>(d2), static_cast<double*>(val),
+                         static_cast<double*>(grad), q, static_cast<int>(nb), st);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// E5, the level-1 triple W^T K W in one launch: W (nc, nk, na) at strides
+// (w0, w1, w2) and K (nc, nk, nk) at (k0, k1, k2), f32, out (nc, na, na)
+// contiguous.  Only at the staged shape (ec_triple_staged); anything else
+// is refused: there the triple is two ec_product_launch calls.
+extern "C" int ec_triple_launch(const float* W, long long w0, long long w1, long long w2,
+                                const float* K, long long k0, long long k1, long long k2,
+                                float* out, long long nc, long long nk, long long na,
+                                void* stream) {
+  const long long ws[3] = {w0, w1, w2}, ks[3] = {k0, k1, k2};
+  if (!ec_triple_staged(nc, nk, na, ws, ks)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nc > 0) {
+    staged_triple_kernel<<<grid_of_groups(nc, kEcTripleCells), kTripleThreads, 0, st>>>(
+        W, K, out, nc);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -409,3 +409,298 @@ EC_HD T ec_product(const T* A, const T* B, const EcProduct& p, long long t) {
   const T* b = B + ob;
   return ec_dot(A + oa, p.ak, [&](int k) { return b[k * p.bk]; }, p.nk);
 }
+
+// ----------------------------------------------------------------------
+// E5 staged (element_chain.cu's staged product, pair and triple kernels,
+// and the staged CPU entries of element_chain_host.cpp).  The same sums
+// as ec_product, in the same ascending order, one ec_fma a step; what
+// changes is where the operands come from: every index 32-bit, the flat
+// index split by divisors fixed on the host (EcDiv), the summed length a
+// template parameter with all of a thread's loads issued before its first
+// FMA, and a table broadcast over the cells read once a block into
+// shared memory.
+
+// summed lengths the staged product and pair take (the operand
+// evaluation's at the repo's spaces: 2 and 3 reference axes or geometry
+// vertices of a triangle, 6 basis functions of P2); others run ec_product
+constexpr int kEcProductNK[] = {2, 3, 6};
+// the largest table (an operand broadcast over the cells) that a block
+// stages in shared memory
+constexpr int kEcTableMax = 512;
+// the pair's gradient width (2D)
+constexpr int kEcPairNG = 2;
+// the level-1 triple's staged shape: W (nc, 12, 6) and K (nc, 12, 12)
+// contiguous f32, G cells a block of 72 G threads
+constexpr int kEcTripleNK = 12;
+constexpr int kEcTripleNA = 6;
+constexpr int kEcTripleCells = 3;
+
+inline bool ec_product_nk(long long nk) {
+  for (int v : kEcProductNK) {
+    if (v == nk) return true;
+  }
+  return false;
+}
+
+// Division of n in [0, 2^31) by d in [1, 2^31) as a multiply-high and a
+// shift (Granlund and Montgomery's round-up method: m = ceil(2^p / d), p
+// = 31 + ceil(log2 d)), the multiplier fixed on the host: in place of a
+// 64-bit division, tens of instructions on the card.
+struct EcDiv {
+  unsigned int mul;
+  int shift, d;
+};
+
+inline EcDiv ec_divisor(int d) {
+  if (d <= 1) return EcDiv{0u, 0, 1};
+  int l = 0;
+  while ((1LL << l) < d) ++l;
+  const int p = 31 + l;
+  return EcDiv{static_cast<unsigned int>(((1ULL << p) + d - 1) / d), p - 32, d};
+}
+
+// n / v.d, and its remainder in r
+EC_HD int ec_divmod(const EcDiv& v, int n, int& r) {
+  int q = n;
+  if (v.d != 1) {
+    const unsigned int un = static_cast<unsigned int>(n);
+#ifdef __CUDA_ARCH__
+    q = static_cast<int>(__umulhi(un, v.mul) >> v.shift);
+#else
+    q = static_cast<int>((static_cast<unsigned long long>(un) * v.mul >> 32) >> v.shift);
+#endif
+  }
+  r = n - q * v.d;
+  return q;
+}
+
+constexpr long long kEcIntMax = 0x7fffffffLL;
+
+// the largest element offset that shape n (each below 2^31) and strides s
+// reach, or -1 where a stride is negative or the offset passes 2^31; over
+// axes of size 0 the operand is not read
+inline long long ec_reach(const long long* n, const long long* s, int nd) {
+  long long off = 0;
+  for (int d = 0; d < nd; ++d) {
+    if (n[d] == 0) return 0;
+  }
+  for (int d = 0; d < nd; ++d) {
+    if (n[d] < 0 || n[d] > kEcIntMax || s[d] < 0 || (n[d] > 1 && s[d] > kEcIntMax)) return -1;
+    off += (n[d] - 1) * s[d];
+    if (off > kEcIntMax) return -1;
+  }
+  return off;
+}
+
+// the product of the sizes n, or -1 past 2^31 - 1 (or for a negative size)
+inline long long ec_count(const long long* n, int nd) {
+  long long c = 1;
+  for (int d = 0; d < nd; ++d) {
+    if (n[d] < 0 || n[d] > kEcIntMax) return -1;
+    c *= n[d];
+    if (c > kEcIntMax) return -1;
+  }
+  return c;
+}
+
+// E5 staged: the output's axes 1-3 as divisors (axis 0 is what is left),
+// the strides in 32 bits, and A's first tab_n elements staged as a table
+// (0: A is read where it lies)
+struct EcProduct32 {
+  EcDiv n1, n2, n3;
+  int as[4], bs[4], ak, bk;
+  int total, tab_n;
+};
+
+// Whether ec_product's p runs staged, and then its staged form in q: the
+// summed length one of kEcProductNK, the outputs and both operands'
+// offsets below 2^31.  Where A's elements fit kEcTableMax (a table
+// broadcast over the cells: the basis or geometry tabulation, which every
+// caller passes first), A is staged as the table.
+inline bool ec_product_staged_form(const EcProduct& p, EcProduct32& q) {
+  const long long total = ec_count(p.n, 4);
+  const long long na[5] = {p.n[0], p.n[1], p.n[2], p.n[3], p.nk};
+  const long long sa[5] = {p.as[0], p.as[1], p.as[2], p.as[3], p.ak};
+  const long long sb[5] = {p.bs[0], p.bs[1], p.bs[2], p.bs[3], p.bk};
+  const long long ra = ec_reach(na, sa, 5), rb = ec_reach(na, sb, 5);
+  if (!ec_product_nk(p.nk) || total < 0 || ra < 0 || rb < 0) return false;
+  q.n1 = ec_divisor(static_cast<int>(p.n[1]));
+  q.n2 = ec_divisor(static_cast<int>(p.n[2]));
+  q.n3 = ec_divisor(static_cast<int>(p.n[3]));
+  for (int d = 0; d < 4; ++d) {
+    q.as[d] = static_cast<int>(p.as[d]);
+    q.bs[d] = static_cast<int>(p.bs[d]);
+  }
+  q.ak = static_cast<int>(p.ak);
+  q.bk = static_cast<int>(p.bk);
+  q.total = static_cast<int>(total);
+  q.tab_n = total > 0 && ra < kEcTableMax ? static_cast<int>(ra + 1) : 0;
+  return true;
+}
+
+// E5 staged, one output a thread: its operands' offsets and values
+template <typename T, int NK>
+struct EcProductOps {
+  int oa, ob;
+  T x[NK], y[NK];
+};
+
+// stage 1: output t's offsets, and the loads of its operands that are not
+// the table (all in flight at once)
+template <typename T, int NK>
+EC_HD void ec_product_load(EcProductOps<T, NK>& o, const T* A, const T* B, const EcProduct32& p,
+                           int t) {
+  int i1, i2, i3;
+  t = ec_divmod(p.n3, t, i3);
+  t = ec_divmod(p.n2, t, i2);
+  const int i0 = ec_divmod(p.n1, t, i1);
+  o.oa = i0 * p.as[0] + i1 * p.as[1] + i2 * p.as[2] + i3 * p.as[3];
+  o.ob = i0 * p.bs[0] + i1 * p.bs[1] + i2 * p.bs[2] + i3 * p.bs[3];
+  if (p.tab_n == 0) {
+    EC_UNROLL
+    for (int k = 0; k < NK; ++k) o.x[k] = A[o.oa + k * p.ak];
+  }
+  EC_UNROLL
+  for (int k = 0; k < NK; ++k) o.y[k] = B[o.ob + k * p.bk];
+}
+
+// stage 2: A's values from the table's copy tab where it is staged, then
+// ec_product's sum
+template <typename T, int NK>
+EC_HD T ec_product_sum(EcProductOps<T, NK>& o, const T* tab, const EcProduct32& p) {
+  if (p.tab_n > 0) {
+    EC_UNROLL
+    for (int k = 0; k < NK; ++k) o.x[k] = tab[o.oa + k * p.ak];
+  }
+  return ec_dot(o.x, 1, [&](int k) { return o.y[k]; }, NK);
+}
+
+// The values-and-gradients pair of one coefficient: with phi (nq, nb), gp
+// (nc, nq, nb, ng) and d2 (nc, nb, bs) at their strides, the two products
+// val[c, q, k] = sum_b phi[q, b] d2[c, b, k] ("qb,cbk->cqk") and
+// grad[c, q, k, g] = sum_b gp[c, q, b, g] d2[c, b, k] ("cqbg,cbk->cqkg"),
+// each output its own sum in ec_product's order.  A block of
+// kEcPairThreads takes a group of G cells: the group's d2 is read once
+// into shared memory, then a thread an output, its flat index in the
+// group's values (threads [0, G nq bs)) or gradients (from G nq bs on).
+constexpr int kEcPairThreads = 128;
+
+struct EcPair {
+  EcDiv bs, v, vg, nbbs;  // bs, a cell's values nq bs and gradients nq bs ng, nb bs
+  int ps[2], gs[4], ds[3];
+  long long nc;
+  int G, tab_n;
+};
+
+// whether the pair runs staged (nb one of kEcProductNK, ng == kEcPairNG,
+// a cell's outputs within a block, every offset below 2^31, phi within
+// kEcTableMax), and then its staged form in q
+inline bool ec_pair_staged_form(long long nc, long long nq, long long nb, long long bs,
+                                long long ng, const long long* ps, const long long* gs,
+                                const long long* ds, EcPair& q) {
+  const long long np[2] = {nq, nb}, ng4[4] = {nc, nq, nb, ng}, nd[3] = {nc, nb, bs};
+  const long long out[4] = {nc, nq, bs, ng};
+  const long long rp = ec_reach(np, ps, 2), rg = ec_reach(ng4, gs, 4), rd = ec_reach(nd, ds, 3);
+  if (!ec_product_nk(nb) || ng != kEcPairNG || ec_count(out, 4) < 0 || nq < 1 || bs < 1 ||
+      nq * bs * (1 + ng) > kEcPairThreads || rp < 0 || rp >= kEcTableMax || rg < 0 || rd < 0) {
+    return false;
+  }
+  const int v = static_cast<int>(nq * bs);
+  q.bs = ec_divisor(static_cast<int>(bs));
+  q.v = ec_divisor(v);
+  q.vg = ec_divisor(v * kEcPairNG);
+  q.nbbs = ec_divisor(static_cast<int>(nb * bs));
+  for (int d = 0; d < 2; ++d) q.ps[d] = static_cast<int>(ps[d]);
+  for (int d = 0; d < 4; ++d) q.gs[d] = static_cast<int>(gs[d]);
+  for (int d = 0; d < 3; ++d) q.ds[d] = static_cast<int>(ds[d]);
+  q.nc = nc;
+  q.G = kEcPairThreads / (v * (1 + kEcPairNG));
+  q.tab_n = static_cast<int>(rp + 1);
+  return true;
+}
+
+// stage 1: entry i of the group's d2 (g nb bs + b bs + k for its cell g)
+template <typename T>
+EC_HD T ec_pair_d2(const T* d2, const EcPair& p, long long c0, int i) {
+  int r, k;
+  const int g = ec_divmod(p.nbbs, i, r);
+  const int b = ec_divmod(p.bs, r, k);
+  return d2[(c0 + g) * p.ds[0] + (b * p.ds[1] + k * p.ds[2])];
+}
+
+// A thread's output in the group of cells from c0: where it lies (val
+// or grad) and its point, component and gradient entry; the gradients'
+// row of gp loaded up front
+template <typename T, int NB>
+struct EcPairOut {
+  T* dst;
+  int cell, q, k, j;  // j = -1: a value
+  T g[NB];
+};
+
+// loads thread tid's operands (gp's row for a gradient); false where the
+// thread has no output in the group of `cells` cells
+template <typename T, int NB>
+EC_HD bool ec_pair_load(EcPairOut<T, NB>& o, const T* gp, T* val, T* grad, const EcPair& p,
+                        long long c0, int cells, int tid) {
+  const int V = p.v.d, gv = p.G * V;
+  int r;
+  if (tid < gv) {
+    if (tid >= cells * V) return false;
+    o.cell = ec_divmod(p.v, tid, r);
+    o.j = -1;
+    o.dst = val + (c0 * V + tid);
+  } else {
+    const int u = tid - gv;
+    if (u >= cells * V * kEcPairNG) return false;
+    o.cell = ec_divmod(p.vg, u, r);
+    o.j = r % kEcPairNG;
+    r /= kEcPairNG;
+    o.dst = grad + (c0 * V * kEcPairNG + u);
+  }
+  o.q = ec_divmod(p.bs, r, o.k);
+  if (o.j >= 0) {
+    const T* row = gp + ((c0 + o.cell) * p.gs[0] + (o.q * p.gs[1] + o.j * p.gs[3]));
+    EC_UNROLL
+    for (int b = 0; b < NB; ++b) o.g[b] = row[b * p.gs[2]];
+  }
+  return true;
+}
+
+// stage 2: the output from the group's d2 (dg: its cell's nb bs entries)
+// and phi (the table's copy)
+template <typename T, int NB>
+EC_HD T ec_pair_out(const EcPairOut<T, NB>& o, const T* phi, const T* dg, const EcPair& p) {
+  const int bs = p.bs.d;
+  const T* dk = dg + o.k;
+  if (o.j >= 0) return ec_dot(o.g, 1, [&](int b) { return dk[b * bs]; }, NB);
+  return ec_dot(phi + o.q * p.ps[0], p.ps[1], [&](int b) { return dk[b * bs]; }, NB);
+}
+
+// the level-1 triple staged: whether W (nc, nk, na) and K (nc, nk, nk)
+// at strides ws, ks are the staged shape (contiguous, nk = kEcTripleNK,
+// na = kEcTripleNA, every offset below 2^31)
+inline bool ec_triple_staged(long long nc, long long nk, long long na, const long long* ws,
+                             const long long* ks) {
+  constexpr long long NK = kEcTripleNK, NA = kEcTripleNA;
+  return nk == NK && na == NA && nc >= 0 && nc < kEcIntMax / (NK * NK) &&
+         (nc <= 1 || (ws[0] == NK * NA && ks[0] == NK * NK)) && ws[1] == NA && ws[2] == 1 &&
+         ks[1] == NK && ks[2] == 1;
+}
+
+// stage 1: T[a, j] = sum_i W[i, a] K[i, j] of a cell's W (nk, na) and K
+// (nk, nk) in shared memory, r = a nk + j: the first product's sum
+template <typename T>
+EC_HD T ec_triple_t(const T* w, const T* k, int r) {
+  const int a = r / kEcTripleNK, j = r % kEcTripleNK;
+  return ec_dot(w + a, kEcTripleNA, [&](int i) { return k[i * kEcTripleNK + j]; }, kEcTripleNK);
+}
+
+// stage 2: out[a, b] = sum_j T[a, j] W[j, b] of the cell's T (na, nk)
+// rounded to T, as the first product stores it, r = a na + b
+template <typename T>
+EC_HD T ec_triple_out(const T* t, const T* w, int r) {
+  const int a = r / kEcTripleNA, b = r % kEcTripleNA;
+  return ec_dot(t + a * kEcTripleNK, 1, [&](int j) { return w[j * kEcTripleNA + b]; },
+                kEcTripleNK);
+}

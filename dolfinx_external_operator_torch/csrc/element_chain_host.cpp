@@ -165,3 +165,127 @@ extern "C" int ec_tangent_staged_host(int mode, const double* B, const double* C
   }
   return 0;
 }
+
+// E5 staged: ec_product_launch's staged kernel at the staged shapes
+// (ec_product_staged_form), the table copied once as a block stages it,
+// then every output's loads and sum (ec_product_load, ec_product_sum).
+namespace {
+
+template <typename T, int NK>
+void staged_product(const T* A, const T* B, T* out, const EcProduct32& q) {
+  T tab[kEcTableMax];
+  for (int i = 0; i < q.tab_n; ++i) tab[i] = A[i];
+  for (int t = 0; t < q.total; ++t) {
+    EcProductOps<T, NK> o;
+    ec_product_load(o, A, B, q, t);
+    out[t] = ec_product_sum(o, tab, q);
+  }
+}
+
+template <typename T>
+void staged_product_nk(const T* A, const T* B, T* out, const EcProduct32& q, int nk) {
+  if (nk == 2) {
+    staged_product<T, 2>(A, B, out, q);
+  } else if (nk == 3) {
+    staged_product<T, 3>(A, B, out, q);
+  } else {
+    staged_product<T, 6>(A, B, out, q);
+  }
+}
+
+template <typename T, int NB>
+void staged_pair(const T* phi, const T* gp, const T* d2, T* val, T* grad, const EcPair& q) {
+  T tab[kEcTableMax], ds[NB * (kEcPairThreads / (1 + kEcPairNG))];
+  for (int i = 0; i < q.tab_n; ++i) tab[i] = phi[i];
+  EcPairOut<T, NB> o[kEcPairThreads];
+  bool mine[kEcPairThreads];
+  const int nd = q.nbbs.d;
+  for (long long c0 = 0; c0 < q.nc; c0 += q.G) {
+    const int cells = static_cast<int>(q.nc - c0 < q.G ? q.nc - c0 : q.G);
+    for (int t = 0; t < kEcPairThreads; ++t) {
+      mine[t] = ec_pair_load(o[t], gp, val, grad, q, c0, cells, t);
+    }
+    for (int i = 0; i < cells * nd; ++i) ds[i] = ec_pair_d2(d2, q, c0, i);
+    for (int t = 0; t < kEcPairThreads; ++t) {
+      if (mine[t]) *o[t].dst = ec_pair_out(o[t], tab, ds + o[t].cell * nd, q);
+    }
+  }
+}
+
+template <typename T>
+void staged_pair_nb(const T* phi, const T* gp, const T* d2, T* val, T* grad, const EcPair& q,
+                    int nb) {
+  if (nb == 2) {
+    staged_pair<T, 2>(phi, gp, d2, val, grad, q);
+  } else if (nb == 3) {
+    staged_pair<T, 3>(phi, gp, d2, val, grad, q);
+  } else {
+    staged_pair<T, 6>(phi, gp, d2, val, grad, q);
+  }
+}
+
+}  // namespace
+
+extern "C" int ec_product_staged_host(int f32, const void* A, const void* B, void* out,
+                                      long long n0, long long n1, long long n2, long long n3,
+                                      long long a0, long long a1, long long a2, long long a3,
+                                      long long b0, long long b1, long long b2, long long b3,
+                                      long long ak, long long bk, int nk) {
+  const EcProduct p{{n0, n1, n2, n3}, {a0, a1, a2, a3}, {b0, b1, b2, b3}, ak, bk, nk};
+  EcProduct32 q;
+  if (!ec_product_staged_form(p, q)) return 1;
+  if (f32) {
+    staged_product_nk(static_cast<const float*>(A), static_cast<const float*>(B),
+                      static_cast<float*>(out), q, nk);
+  } else {
+    staged_product_nk(static_cast<const double*>(A), static_cast<const double*>(B),
+                      static_cast<double*>(out), q, nk);
+  }
+  return 0;
+}
+
+extern "C" int ec_values_grads_staged_host(int f32, const void* phi, long long p0, long long p1,
+                                           const void* gp, long long g0, long long g1,
+                                           long long g2, long long g3, const void* d2,
+                                           long long d0, long long d1, long long d2s, void* val,
+                                           void* grad, long long nc, long long nq, long long nb,
+                                           long long bs, long long ng) {
+  const long long ps[2] = {p0, p1}, gs[4] = {g0, g1, g2, g3}, ds[3] = {d0, d1, d2s};
+  EcPair q;
+  if (!ec_pair_staged_form(nc, nq, nb, bs, ng, ps, gs, ds, q)) return 1;
+  if (f32) {
+    staged_pair_nb(static_cast<const float*>(phi), static_cast<const float*>(gp),
+                   static_cast<const float*>(d2), static_cast<float*>(val),
+                   static_cast<float*>(grad), q, static_cast<int>(nb));
+  } else {
+    staged_pair_nb(static_cast<const double*>(phi), static_cast<const double*>(gp),
+                   static_cast<const double*>(d2), static_cast<double*>(val),
+                   static_cast<double*>(grad), q, static_cast<int>(nb));
+  }
+  return 0;
+}
+
+// the level-1 triple staged: over groups of kEcTripleCells cells, the
+// group's W and K copied as the block loads them, then T and out stage by
+// stage
+extern "C" int ec_triple_staged_host(const float* W, long long w0, long long w1, long long w2,
+                                     const float* K, long long k0, long long k1, long long k2,
+                                     float* out, long long nc, long long nk, long long na) {
+  const long long ws_[3] = {w0, w1, w2}, ks_[3] = {k0, k1, k2};
+  if (!ec_triple_staged(nc, nk, na, ws_, ks_)) return 1;
+  constexpr int G = kEcTripleCells, NW = kEcTripleNK * kEcTripleNA,
+                NKK = kEcTripleNK * kEcTripleNK, NO = kEcTripleNA * kEcTripleNA;
+  float ws[G * NW], ks[G * NKK], ts[G * NW];
+  for (long long c0 = 0; c0 < nc; c0 += G) {
+    const int cells = static_cast<int>(nc - c0 < G ? nc - c0 : G);
+    for (int i = 0; i < cells * NW; ++i) ws[i] = W[c0 * NW + i];
+    for (int i = 0; i < cells * NKK; ++i) ks[i] = K[c0 * NKK + i];
+    for (int t = 0; t < cells * NW; ++t) {
+      ts[t] = ec_triple_t(ws + t / NW * NW, ks + t / NW * NKK, t % NW);
+    }
+    for (int t = 0; t < cells * NO; ++t) {
+      out[c0 * NO + t] = ec_triple_out(ts + t / NO * NW, ws + t / NO * NW, t % NO);
+    }
+  }
+  return 0;
+}

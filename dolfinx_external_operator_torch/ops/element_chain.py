@@ -20,9 +20,12 @@ is one hand-written kernel (``csrc/element_chain.cu``, bodies in
   batched product ``out[b0,b1,m,n] = sum_k A[b0,b1,m,k] B[b0,b1,k,n]`` at
   any strides (a table broadcast over the cells by stride 0), in f64 or
   f32: the general pipeline's operand evaluation (``assembly.py``, the
-  JAX package's ``assembly.py:114-139``) and, as two products
-  (``cell_triple``), the AMG setup's level-1 triple ``(W^T K) W``
-  (``parallel/mg.py``, the JAX package's ``parallel/mg.py:890``).
+  JAX package's ``assembly.py:114-139``); ``cell_values_grads``, one
+  coefficient's values and gradients at the points, two such products
+  in one launch; and ``cell_triple``, the AMG setup's level-1 triple
+  ``(W^T K) W`` (``parallel/mg.py``, the JAX package's
+  ``parallel/mg.py:890``), one launch at the repo's shape, else two
+  products.
 
 On CUDA tensors each launches its kernel, in which every output is one
 sum in a fixed order that depends on nothing but the output's indices: a
@@ -50,12 +53,13 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["cell_strain", "cell_residual", "cell_tangent", "ebe_cell_matvec", "cell_product",
-           "cell_triple", "cell_strain_reference", "cell_residual_reference",
+           "cell_values_grads", "cell_triple", "cell_strain_reference", "cell_residual_reference",
            "cell_tangent_reference", "ebe_cell_matvec_reference", "cell_product_reference",
-           "cell_triple_reference", "cell_strain_host", "cell_residual_host",
-           "cell_tangent_host", "ebe_cell_matvec_host", "cell_product_host", "cell_triple_host",
-           "TANGENT_MODES", "max_components", "staged_cells", "staged_quad", "reset_launches",
-           "launch_counts"]
+           "cell_values_grads_reference", "cell_triple_reference", "cell_strain_host",
+           "cell_residual_host", "cell_tangent_host", "ebe_cell_matvec_host",
+           "cell_product_host", "cell_values_grads_host", "cell_triple_host", "TANGENT_MODES",
+           "VALUES_EQ", "GRADS_EQ", "max_components", "staged_cells", "staged_quad",
+           "staged_e5", "reset_launches", "launch_counts"]
 
 _F64, _F32, _I64 = torch.float64, torch.float32, torch.int64
 # E3's modes, as the launcher numbers them ("blocks" in f32 is mode 3)
@@ -94,6 +98,25 @@ def staged_quad():
     text = (_CSRC / "element_chain.cuh").read_text()
     return tuple(int(re.search(rf"constexpr int {k} = (\d+);", text).group(1))
                  for k in ("kEcNQ", "kEcNI", "kEcNK", "kEcVecCells", "kEcBlockCells"))
+
+
+@functools.cache
+def staged_e5():
+    """E5's staged shapes (``csrc/element_chain.cuh``): ``product_nk`` the
+    summed lengths of the staged product and pair, ``pair_ng`` the pair's
+    gradient width, ``pair_threads`` its block (a cell's nq bs (1 + ng)
+    outputs must fit it), ``table`` the most elements of a table staged
+    in shared memory, ``triple`` ``(nk, na, G)`` the level-1 triple's W
+    (nc, nk, na), G cells a block."""
+    text = (_CSRC / "element_chain.cuh").read_text()
+
+    def num(k):
+        return int(re.search(rf"constexpr int {k} = (\d+);", text).group(1))
+
+    nk = re.search(r"constexpr int kEcProductNK\[\] = \{([\d, ]+)\};", text).group(1)
+    return {"product_nk": tuple(int(v) for v in nk.split(",")), "pair_ng": num("kEcPairNG"),
+            "pair_threads": num("kEcPairThreads"), "table": num("kEcTableMax"),
+            "triple": tuple(num(k) for k in ("kEcTripleNK", "kEcTripleNA", "kEcTripleCells"))}
 
 
 def _need(name, t, dtype, ndim, device, contiguous=True):
@@ -225,12 +248,17 @@ def cell_residual(B, sigma, wdet):
     return out
 
 
-def _staged_host(name, args):
+def _staged_host(name, args, what):
+    """Runs the staged CPU entry ``name``, which returns 1, writing
+    nothing, off its staged shapes."""
     from .._native.cuda import host_function
 
     if host_function(name)(*args) != 0:
-        raise ValueError(f"{name}: (nq, ni, nk) = {args[-3:]} is not the staged shape "
-                         f"{staged_quad()[:3]}")
+        raise ValueError(f"{name}: {what} is not the staged shape")
+
+
+def _quad(args):
+    return f"(nq, ni, nk) = {args[-3:]}, staged {staged_quad()[:3]},"
 
 
 def cell_residual_host(B, sigma, wdet, staged=False):
@@ -241,7 +269,7 @@ def cell_residual_host(B, sigma, wdet, staged=False):
 
     out, args = _residual_args(B, sigma, wdet)
     if staged:
-        _staged_host("cell_residual_staged", args)
+        _staged_host("cell_residual_staged", args, _quad(args))
     else:
         host_function("cell_residual")(*args)
     return out
@@ -332,7 +360,7 @@ def cell_tangent_host(mode, B, C, wdet, dofmap=None, x=None, keep=None, dtype=_F
 
     out, args = _tangent_args(mode, B, C, wdet, dofmap, x, keep, dtype)
     if staged:
-        _staged_host("cell_tangent_staged", args)
+        _staged_host("cell_tangent_staged", args, _quad(args))
     else:
         host_function("cell_tangent")(*args)
     return out
@@ -474,12 +502,96 @@ def cell_product(eq, x, y):
     return out
 
 
-def cell_product_host(eq, x, y):
-    """E5's body built with g++, on CPU tensors (tests only)."""
+def cell_product_host(eq, x, y, staged=False):
+    """E5's body built with g++, on CPU tensors (tests only); with
+    ``staged`` the staged kernel's table and stages (the staged shapes
+    only)."""
     from .._native.cuda import host_function
 
     out, args = _product_args(eq, x, y)
-    host_function("cell_product")(*args)
+    if staged:
+        _staged_host("cell_product_staged", args, f"{eq} on {tuple(x.shape)}, {tuple(y.shape)}")
+    else:
+        host_function("cell_product")(*args)
+    return out
+
+
+# the operand evaluation's pair (assembly._coeff_values_at_qps): a
+# coefficient's values and gradients at the points from its cells' dofs
+VALUES_EQ, GRADS_EQ = "qb,cbk->cqk", "cqbg,cbk->cqkg"
+
+
+def _reach(t):
+    """The largest element offset that ``t``'s view reads."""
+    return 0 if t.numel() == 0 else sum((n - 1) * s for n, s in zip(t.shape, t.stride()))
+
+
+def _pair_staged(phi, gp, d2):
+    """Whether the pair runs as one staged launch: ``ec_pair_staged_form``
+    of ``csrc/element_chain.cuh``, whose launcher refuses the other
+    shapes."""
+    e5 = staged_e5()
+    nc, nq, nb, ng = gp.shape
+    bs = d2.shape[2]
+    return (nb in e5["product_nk"] and ng == e5["pair_ng"] and nq >= 1 and bs >= 1
+            and nq * bs * (1 + ng) <= e5["pair_threads"] and nc * nq * bs * ng < 2**31
+            and _reach(phi) < e5["table"] and _reach(gp) < 2**31 and _reach(d2) < 2**31)
+
+
+def cell_values_grads_reference(phi, gp, d2):
+    """Plain version: the two einsums."""
+    return (cell_product_reference(VALUES_EQ, phi, d2),
+            cell_product_reference(GRADS_EQ, gp, d2))
+
+
+def _check_pair(phi, gp, d2):
+    _product_args(VALUES_EQ, phi, d2, alloc=False)
+    _product_args(GRADS_EQ, gp, d2, alloc=False)
+
+
+def _pair_args(phi, gp, d2):
+    """The pair's outputs and launcher arguments, for inputs already checked."""
+    nc, nq, nb, ng = gp.shape
+    bs = d2.shape[2]
+    val = torch.empty((nc, nq, bs), dtype=d2.dtype, device=d2.device)
+    grad = torch.empty((nc, nq, bs, ng), dtype=d2.dtype, device=d2.device)
+    return (val, grad), (int(d2.dtype == _F32), phi.data_ptr(), *phi.stride(), gp.data_ptr(),
+                         *gp.stride(), d2.data_ptr(), *d2.stride(), val.data_ptr(),
+                         grad.data_ptr(), nc, nq, nb, bs, ng)
+
+
+def cell_values_grads(phi, gp, d2):
+    """E5, one coefficient's values and gradients at the points: phi (nq,
+    nb), gp (nc, nq, nb, ng) and d2 (nc, nb, bs), f64 or f32 alike, at any
+    strides -> (``cell_product(VALUES_EQ, phi, d2)``,
+    ``cell_product(GRADS_EQ, gp, d2)``), the same bits.  At the staged
+    shapes (``staged_e5()``: nb one of ``product_nk``, ng ``pair_ng``, a
+    cell's outputs within ``pair_threads``) one launch writes both,
+    reading d2 once into shared memory; elsewhere the two products."""
+    _check_pair(phi, gp, d2)
+    if d2.device.type == "cpu":
+        return cell_values_grads_reference(phi, gp, d2)
+    if not _pair_staged(phi, gp, d2):
+        return cell_product(VALUES_EQ, phi, d2), cell_product(GRADS_EQ, gp, d2)
+    from .._native.cuda import cuda_function
+
+    out, args = _pair_args(phi, gp, d2)
+    _on_current(d2.device)
+    _launched("cell_values_grads", cuda_function("cell_values_grads")(*args, _stream()))
+    cell_values_grads.launches += 1
+    return out
+
+
+def cell_values_grads_host(phi, gp, d2, staged=False):
+    """The pair's bodies built with g++, on CPU tensors (tests only): the
+    two products' bodies, or with ``staged`` the staged kernel's table
+    and stages (the staged shapes only)."""
+    if not staged:
+        return cell_product_host(VALUES_EQ, phi, d2), cell_product_host(GRADS_EQ, gp, d2)
+    _check_pair(phi, gp, d2)
+    out, args = _pair_args(phi, gp, d2)
+    _staged_host("cell_values_grads_staged", args,
+                 f"{tuple(phi.shape)}, {tuple(gp.shape)}, {tuple(d2.shape)}")
     return out
 
 
@@ -498,26 +610,58 @@ def _check_triple(W, K):
 
 
 def _triple(product, W, K):
-    _check_triple(W, K)
     return product("caj,cjb->cab", product("cia,cij->caj", W, K), W)
 
 
+def _triple_staged(W, K):
+    """Whether the triple runs as one staged launch: ``ec_triple_staged``
+    of ``csrc/element_chain.cuh``, whose launcher refuses the other
+    shapes."""
+    nk, na, _ = staged_e5()["triple"]
+    return (W.dtype == _F32 and tuple(W.shape[1:]) == (nk, na) and W.is_contiguous()
+            and K.is_contiguous() and W.shape[0] < (2**31 - 1) // (nk * nk))
+
+
+def _triple_args(W, K):
+    nc, nk, na = W.shape
+    out = torch.empty((nc, na, na), dtype=W.dtype, device=W.device)
+    return out, (W.data_ptr(), *W.stride(), K.data_ptr(), *K.stride(), out.data_ptr(), nc, nk,
+                 na)
+
+
 def cell_triple(W, K):
-    """E5 twice: the per-cell ``W^T K W`` of W (nc, nk, na) and K (nc, nk,
-    nk), f32 or f64 alike, at any strides, as ``(W^T K) W`` -> (nc, na,
-    na)."""
+    """E5, the per-cell ``W^T K W`` of W (nc, nk, na) and K (nc, nk, nk),
+    f32 or f64 alike, at any strides, as ``(W^T K) W`` -> (nc, na, na):
+    at the staged shape (``staged_e5()["triple"]``, f32, contiguous) one
+    launch; elsewhere two ``cell_product``s, the same bits."""
+    _check_triple(W, K)
     if W.device.type == "cpu":
-        _check_triple(W, K)
         return cell_triple_reference(W, K)
-    return _triple(cell_product, W, K)
+    if not _triple_staged(W, K):
+        return _triple(cell_product, W, K)
+    from .._native.cuda import cuda_function
+
+    out, args = _triple_args(W, K)
+    _on_current(W.device)
+    _launched("cell_triple", cuda_function("cell_triple")(*args, _stream()))
+    cell_triple.launches += 1
+    return out
 
 
-def cell_triple_host(W, K):
-    """E5's body built with g++, twice, on CPU tensors (tests only)."""
-    return _triple(cell_product_host, W, K)
+def cell_triple_host(W, K, staged=False):
+    """The triple's bodies built with g++, on CPU tensors (tests only):
+    E5's body twice, or with ``staged`` the staged kernel's loads and
+    stages (the staged shape only)."""
+    _check_triple(W, K)
+    if not staged:
+        return _triple(cell_product_host, W, K)
+    out, args = _triple_args(W, K)
+    _staged_host("cell_triple_staged", args, f"{tuple(W.shape)}, {tuple(K.shape)}")
+    return out
 
 
-_COUNTED = (cell_strain, cell_residual, cell_tangent, ebe_cell_matvec, cell_product)
+_COUNTED = (cell_strain, cell_residual, cell_tangent, ebe_cell_matvec, cell_product,
+            cell_values_grads, cell_triple)
 
 
 def reset_launches():

@@ -7,6 +7,8 @@ with CUDA but no JAX (``tests/conftest.py`` imports JAX, hence
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -626,7 +628,7 @@ def test_cuda_yield_surface_sweep(cuda):
 EC_PRODUCTS = ("strain", "residual", "tangent_matvec", "tangent_diag", "blocks_f64",
                "blocks_f32", "ebe_f64", "ebe_f32", "ebe_node_f64", "ebe_node_f32",
                "operand_geometry", "operand_gphys", "operand_values", "operand_grads",
-               "triple_f32")
+               "operand_values_grads", "triple_f32")
 # E5's operand einsums (assembly.py, compile.py)
 EC_OPERAND = {"operand_geometry": "qvd,cvg->cqgd", "operand_gphys": "qbd,cqdg->cqbg",
               "operand_values": "qb,cbk->cqk", "operand_grads": "cqbg,cbk->cqkg"}
@@ -679,6 +681,10 @@ def _ec_call(ch, name, kind, cells=slice(None), device=None):
         return t if device is None else t.to(device)
 
     B, C, w, dof, x = r(ch["B"]), r(ch["C"]), r(ch["w"]), r(ch["dof"]), v(ch["x"])
+    if name == "operand_values_grads":  # the pair, each cell's values and gradients a row
+        val, grad = getattr(ec, "cell_values_grads" + kind)(v(ch["phi"]), r(ch["gp"]),
+                                                             r(ch["d2w"])[:, :, :2])
+        return torch.cat([val.flatten(1), grad.flatten(1)], dim=1), "cell_values_grads"
     if name in EC_OPERAND:
         d2 = r(ch["d2w"])[:, :, :2]  # a strided view
         a, b = {"operand_geometry": (v(ch["dphi_g"]), r(ch["coords"])),
@@ -686,7 +692,7 @@ def _ec_call(ch, name, kind, cells=slice(None), device=None):
                 "operand_values": (v(ch["phi"]), d2), "operand_grads": (r(ch["gp"]), d2)}[name]
         return getattr(ec, "cell_product" + kind)(EC_OPERAND[name], a, b), "cell_product"
     if name == "triple_f32":
-        return getattr(ec, "cell_triple" + kind)(r(ch["W"]), r(ch["K"]).float()), "cell_product"
+        return getattr(ec, "cell_triple" + kind)(r(ch["W"]), r(ch["K"]).float()), "cell_triple"
     if name == "strain":
         fn, args, kw = "cell_strain", (B, dof, v(ch["Du"])), {}
     elif name == "residual":
@@ -708,17 +714,18 @@ def _ec_call(ch, name, kind, cells=slice(None), device=None):
 
 @pytest.mark.parametrize("name", EC_PRODUCTS)
 def test_cuda_element_chain_kernel(ec_state, name):
-    """Each E kernel on the card: one launch, within 1e-13 (f64) or 1e-5
-    (f32) of its plain version, the g++ build's bits, the whole batch's
-    bits on the cells of 2 and of 3 slices and in reverse order, and the
-    same bits replayed from a CUDA graph."""
+    """Each E kernel on the card: one launch (the level-1 triple's and the
+    values-and-gradients pair's counted under their own wrappers), within
+    1e-13 (f64) or 1e-5 (f32) of its plain version, the g++ build's bits,
+    the whole batch's bits on the cells of 2 and of 3 slices and in
+    reverse order, and the same bits replayed from a CUDA graph."""
     from dolfinx_external_operator_torch.ops import element_chain as ec
 
     before = ec.launch_counts()
     out, fn = _ec_call(ec_state, name, "")
     torch.cuda.synchronize()
     after = ec.launch_counts()
-    assert after[fn] == before[fn] + (2 if name == "triple_f32" else 1)
+    assert after[fn] == before[fn] + 1
     assert {k: after[k] - before[k] for k in after if k != fn} == {k: 0 for k in after if k != fn}
     plain, _ = _ec_call(ec_state, name, "_reference")
     tol = 1e-5 if out.dtype == torch.float32 else 1e-13
@@ -857,6 +864,106 @@ def test_cuda_element_chain_staging_edges(cuda, kernel, cells):
     call = _staging_case(kernel, nc, cuda)
     out = call("")
     torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), call("_host"))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = call("")
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, out)
+
+
+# E5 at the staging's edges: each new kernel (the staged product at each
+# summed length, the values-and-gradients pair, the level-1 triple) and an
+# unstaged shape of each, f64 and f32, the dofs a strided view
+E5_KERNELS = ("geometry_f64", "gphys_f64", "values_f64", "grads_f32", "product_nk5_f64",
+              "pair_f64", "pair_f32", "pair_nb10_f64", "triple", "triple_na4")
+
+
+def _e5_group(kernel):
+    """The cells of one group of E5 ``kernel``'s staged kernel: the
+    triple's cells a block, the pair's (3 points x 2 components x (1 + 2)
+    outputs a cell), the product's cells whose outputs fill a block."""
+    from dolfinx_external_operator_torch.ops import element_chain as ec
+
+    e5 = ec.staged_e5()
+    if kernel.startswith("triple"):
+        return e5["triple"][2]
+    if kernel.startswith("pair"):
+        return e5["pair_threads"] // 18
+    src = (Path(ec.__file__).parent.parent / "csrc" / "element_chain.cu").read_text()
+    threads = int(src.split("constexpr int kThreads = ")[1].split(";")[0])
+    per_cell = {"geometry": 12, "gphys": 36, "values": 6, "grads": 12, "product": 6}
+    return threads // per_cell[kernel.split("_")[0]]
+
+
+def _e5_case(kernel, nc, device, seed=17):
+    """(call(kind) -> output as rows of cells, the wrapper whose count
+    moves, its launches) of E5 ``kernel`` on ``nc`` cells: ``kind`` "" the
+    wrapper on the card, "_host" the g++ build (the staged composition
+    where the card runs staged, else the bodies)."""
+    from dolfinx_external_operator_torch.ops import element_chain as ec
+
+    rng = np.random.default_rng(seed)
+    dt = torch.float32 if kernel.endswith("f32") or kernel.startswith("triple") else torch.float64
+
+    def draw(*shape):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=dt, device=device)
+
+    def rows(out):
+        return (torch.cat([t.flatten(1) for t in out], dim=1) if isinstance(out, tuple)
+                else out.flatten(1))
+
+    def run(fn, staged, *args):
+        def call(kind):
+            if kind == "":
+                return rows(getattr(ec, fn)(*args))
+            return rows(getattr(ec, fn + kind)(*(a if isinstance(a, str) else a.cpu()
+                                                 for a in args), staged=staged))
+        return call
+
+    if kernel.startswith("triple"):
+        staged = not kernel.endswith("na4")
+        args = (draw(nc, 12, 6 if staged else 4), draw(nc, 12, 12))
+        return (run("cell_triple", staged, *args), "cell_triple" if staged else "cell_product",
+                1 if staged else 2)
+    if kernel.startswith("pair"):
+        staged = "nb10" not in kernel
+        nb = 6 if staged else 10
+        args = (draw(3, nb), draw(nc, 3, nb, 2), draw(nc, nb, 3)[:, :, :2])
+        return (run("cell_values_grads", staged, *args),
+                "cell_values_grads" if staged else "cell_product", 1 if staged else 2)
+    nk = 5 if "nk5" in kernel else None
+    eq, args = {
+        "geometry": ("qvd,cvg->cqgd", (draw(3, 3, 2), draw(nc, 3, 2))),
+        "gphys": ("qbd,cqdg->cqbg", (draw(3, 6, 2), draw(nc, 3, 2, 2))),
+        "values": ("qb,cbk->cqk", (draw(3, 6), draw(nc, 6, 3)[:, :, :2])),
+        "grads": ("cqbg,cbk->cqkg", (draw(nc, 3, 6, 2), draw(nc, 6, 3)[:, :, :2])),
+        "product": ("qb,cbk->cqk", (draw(3, nk or 6), draw(nc, nk or 6, 3)[:, :, :2])),
+    }[kernel.split("_")[0]]
+    return run("cell_product", nk is None, eq, *args), "cell_product", 1
+
+
+@pytest.mark.parametrize("kernel", E5_KERNELS)
+@pytest.mark.parametrize("cells", ["1", "G-1", "G+1", "1250"])
+def test_cuda_e5_staging_edges(cuda, kernel, cells):
+    """E5's new kernels at cell counts that reach their groups' edges (one
+    cell, a group G less and more one, the main path's 1,250) and one
+    unstaged shape of each: the g++ build's bits (the staged composition
+    where the card runs staged), the launches of the wrapper that runs
+    them (one staged launch, or the two products), and the same bits
+    replayed from a CUDA graph."""
+    from dolfinx_external_operator_torch.ops import element_chain as ec
+
+    G = _e5_group(kernel)
+    nc = {"1": 1, "G-1": max(G - 1, 1), "G+1": G + 1, "1250": 1250}[cells]
+    call, fn, launches = _e5_case(kernel, nc, cuda)
+    before = ec.launch_counts()
+    out = call("")
+    torch.cuda.synchronize()
+    after = ec.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        k: launches if k == fn else 0 for k in after}
     assert torch.equal(out.cpu(), call("_host"))
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):

@@ -34,6 +34,13 @@ for the level-1 triple.
   run on the CPU over the kernels' groups of cells): the bodies' bits at
   the groups' edges, with padded cells, C and sigma the strided views of
   the return map; and the staged shape is the launchers'.
+* E5's staged composition likewise: the operand products, the
+  values-and-gradients pair (two products in one launch) and the level-1
+  triple (one launch, T kept in shared memory) give the unstaged bodies'
+  bits at the groups' edges and with padded cells, on the strided view of
+  the dofs and with a table broadcast over the cells at stride 0; the
+  staged shapes are the launchers', and the wrappers' predicates agree
+  with them.
 
 The kernels themselves run on a card in ``test_torch_cuda.py``.
 """
@@ -118,6 +125,11 @@ def _args(ch, name, cells=slice(None)):
         return t[cells].contiguous()
 
     B, C, w, dof, x = r(ch["B"]), ch["C"][cells], r(ch["w"]), r(ch["dof"]), ch["x"]
+    if name == "operand_values_grads":
+        return "cell_values_grads", (ch["phi"], r(ch["gp"]), r(ch["d2w"])[:, :, :BS]), {}
+    if name == "operand_values_expanded":  # the table broadcast by stride 0
+        d2 = r(ch["d2w"])[:, :, :BS]
+        return "cell_product", ("cqb,cbk->cqk", ch["phi"].expand(d2.shape[0], NQ, NB), d2), {}
     if name in OPERAND:
         # the cells' dofs as a strided view (a mixed space's columns)
         d2 = r(ch["d2w"])[:, :, :BS]
@@ -309,16 +321,44 @@ def _point_fastest(t):
     return t.permute(lead).contiguous().permute(back)
 
 
+# E5's staged variants: the operand products (one of them with its table
+# an expanded view, stride 0 over the cells), the pair, the level-1 triple
+STAGED_E5 = ("operand_geometry", "operand_gphys", "operand_values", "operand_grads",
+             "operand_values_expanded", "operand_values_grads", "triple_f32")
+# E5's outputs a cell (the staged product and pair: one a thread)
+E5_PER_CELL = {"operand_geometry": NQ * 4, "operand_gphys": NQ * NB * 2, "operand_values": NQ * BS,
+               "operand_grads": NQ * BS * 2, "operand_values_expanded": NQ * BS,
+               "operand_values_grads": NQ * BS * 3}
+
+
+def _block_threads():
+    src = (Path(ec.__file__).parent.parent / "csrc" / "element_chain.cu").read_text()
+    return int(src.split("constexpr int kThreads = ")[1].split(";")[0])
+
+
+def _group(name):
+    """The cells of one group of the staged kernel of ``name``."""
+    if name == "triple_f32":
+        return ec.staged_e5()["triple"][2]
+    if name == "operand_values_grads":
+        return ec.staged_e5()["pair_threads"] // E5_PER_CELL[name]
+    if name in E5_PER_CELL:  # the cells whose outputs fill a block
+        return _block_threads() // E5_PER_CELL[name]
+    return ec.staged_quad()[4 if name.startswith("blocks") else 3]
+
+
 @pytest.mark.parametrize("cells", ["1", "G-1", "G", "G+1", "37", "padded"])
-@pytest.mark.parametrize("name", STAGED)
+@pytest.mark.parametrize("name", STAGED + STAGED_E5)
 def test_staged_host_matches_body(chain, name, cells):
-    """E2 and E3's staged kernels' composition, run on the CPU stage by
-    stage over the kernels' groups of G cells (10; the blocks' 2), gives
-    the bodies' bits: at 1, G-1, G, G+1 and 37 cells (past a 4x4 batch's
-    32 cells, padded cells), and on the batch with 3 padded cells
-    appended, as a sharded step pads its last rank; C and sigma the
-    strided views that the return map hands (points fastest)."""
-    G = ec.staged_quad()[4 if name.startswith("blocks") else 3]
+    """The staged kernels' composition, run on the CPU stage by stage
+    over the kernels' groups of G cells (E2 and the matvec 10, the E3
+    blocks 1; E5's triple 3, the pair 7, its products the cells that fill
+    a block of outputs), gives the bodies' bits: at 1, G-1, G, G+1 and 37
+    cells (past a 4x4 batch's 32 cells, padded cells), and on the batch
+    with 3 padded cells appended, as a sharded step pads its last rank; C
+    and sigma the strided views that the return map hands (points
+    fastest), E5's dofs a strided view."""
+    G = _group(name)
     nc = chain["fp"].nc
     want = {"1": 1, "G-1": G - 1, "G": G, "G+1": G + 1, "37": 37, "padded": nc + 3}[cells]
     ch = chain
@@ -331,8 +371,14 @@ def test_staged_host_matches_body(chain, name, cells):
         del kw["keep"]
     host = getattr(ec, f"{fn}_host")
     staged, body = host(*args, staged=True, **kw), host(*args, **kw)
-    assert staged.shape[0] == want and staged.dtype == body.dtype
-    assert torch.equal(staged, body)
+    if name == "operand_values_grads":  # the pair: values and gradients
+        assert torch.equal(body[0], ec.cell_product_host(ec.VALUES_EQ, args[0], args[2]))
+        assert torch.equal(body[1], ec.cell_product_host(ec.GRADS_EQ, args[1], args[2]))
+    else:
+        staged, body = (staged,), (body,)
+    for st, bd in zip(staged, body):
+        assert st.shape[0] == want and st.dtype == bd.dtype
+        assert torch.equal(st, bd)
 
 
 @pytest.mark.parametrize("shape", [(3, 4, 12), (2, 6, 12), (4, 3, 12), (6, 2, 12), (3, 4, 10),
@@ -367,9 +413,92 @@ def test_staged_shape_is_the_launchers(shape):
         assert "ec_quad_staged(nq, ni, nk)" in body[:body.index("\n}\n")], launcher
 
 
+# E5 shapes: (kernel, what varies, staged?)
+E5_SHAPES = [("product", 2, True), ("product", 3, True), ("product", 6, True),
+             ("product", 1, False), ("product", 4, False), ("product", 7, False),
+             ("pair", (6, 2, 2), True), ("pair", (3, 2, 1), True), ("pair", (2, 2, 14), True),
+             ("pair", (6, 3, 2), False), ("pair", (10, 2, 2), False), ("pair", (6, 1, 2), False),
+             ("pair", (6, 2, 15), False),
+             ("triple", (12, 6, "c"), True), ("triple", (12, 4, "c"), False),
+             ("triple", (10, 6, "c"), False), ("triple", (12, 6, "K^T"), False),
+             ("triple", (12, 6, "W^T"), False)]
+
+
+@pytest.mark.parametrize("case", E5_SHAPES, ids=lambda c: f"{c[0]}-{c[1]}")
+def test_e5_staged_shape_is_the_launchers(case):
+    """E5's staged shapes (``staged_e5()``, read from the header): the
+    staged entries take them and refuse the others; the wrappers'
+    predicates (the pair's and the triple's, which pick one launch or
+    two) agree with the entries; each launcher tests its predicate
+    (``ec_product_staged_form``, ``ec_pair_staged_form``,
+    ``ec_triple_staged``) before it launches a staged kernel."""
+    kernel, var, staged = case
+    rng = np.random.default_rng(11)
+    nc = 5
+
+    def draw(*shape, dtype=F64):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=dtype)
+
+    if kernel == "product":
+        assert (var in ec.staged_e5()["product_nk"]) == staged
+        x, y = draw(NQ, var), draw(nc, var, BS)
+        call = lambda: ec.cell_product_host("qb,cbk->cqk", x, y, staged=True)  # noqa: E731
+        agree = None
+    elif kernel == "pair":
+        nb, ng, bs = var  # a cell's NQ bs (1 + ng) outputs within a block of 128 or not
+        phi, gp, d2 = draw(NQ, nb), draw(nc, NQ, nb, ng), draw(nc, nb, bs + 1)[:, :, :bs]
+        call = lambda: ec.cell_values_grads_host(phi, gp, d2, staged=True)  # noqa: E731
+        agree = ec._pair_staged(phi, gp, d2)
+    else:
+        nk, na, layout = var
+        W, K = draw(nc, nk, na, dtype=F32), draw(nc, nk, nk, dtype=F32)
+        if layout == "K^T":
+            K = K.transpose(1, 2)
+        elif layout == "W^T":
+            W = draw(nc, na, nk, dtype=F32).transpose(1, 2)
+        call = lambda: ec.cell_triple_host(W, K, staged=True)  # noqa: E731
+        agree = ec._triple_staged(W, K)
+    if staged:
+        call()
+    else:
+        with pytest.raises(ValueError, match="not the staged shape"):
+            call()
+    assert agree is None or agree == staged
+    src = (Path(ec.__file__).parent.parent / "csrc" / "element_chain.cu").read_text()
+    for launcher, test, launch in (
+            ("ec_product_launch", "ec_product_staged_form(p, q)", "launch_staged_product("),
+            ("ec_values_grads_launch", "ec_pair_staged_form(", "launch_staged_pair("),
+            ("ec_triple_launch", "ec_triple_staged(nc, nk, na, ws, ks)", "<<<")):
+        body = src[src.index(f"int {launcher}("):]
+        body = body[:body.index("\n}\n")]
+        assert test in body and launch in body, launcher
+        assert body.index(test) < body.index(launch), launcher
+
+
+def test_values_grads_pair_is_the_two_products(chain):
+    """The pair (``cell_values_grads``): on CPU tensors the two products'
+    plain bits and no launch; its g++ body the two products' bodies,
+    within 1e-13 of the plain version, and a slice's rows bitwise the
+    whole batch's."""
+    fn, args, _ = _args(chain, "operand_values_grads")
+    phi, gp, d2 = args
+    before = ec.launch_counts()
+    v, g = ec.cell_values_grads(*args)
+    assert ec.launch_counts() == before
+    assert torch.equal(v, ec.cell_product_reference(ec.VALUES_EQ, phi, d2))
+    assert torch.equal(g, ec.cell_product_reference(ec.GRADS_EQ, gp, d2))
+    hv, hg = ec.cell_values_grads_host(*args, staged=True)
+    assert _rel(hv.numpy(), v.numpy()) < 1e-13 and _rel(hg.numpy(), g.numpy()) < 1e-13
+    nc = hv.shape[0]
+    part = slice(nc // 3, nc - 2)
+    pv, pg = ec.cell_values_grads_host(*_args(chain, "operand_values_grads", part)[1], staged=True)
+    assert torch.equal(pv, hv[part]) and torch.equal(pg, hg[part])
+
+
 @pytest.mark.parametrize("case", ["dtype", "shape", "contiguity", "mode", "dtype_mix",
                                   "product_sums", "product_dtype_mix", "product_shape",
-                                  "triple_shape"])
+                                  "triple_shape", "values_grads_shape",
+                                  "values_grads_dtype_mix", "values_grads_rank"])
 def test_wrappers_refuse_what_the_kernels_do_not_take(chain, case):
     B, C, w, dof = chain["B"], chain["C"], chain["w"], chain["dof"]
     with pytest.raises((TypeError, ValueError)):
@@ -389,8 +518,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(chain, case):
             ec.cell_product("qb,cbk->cqk", chain["phi"].to(F32), chain["d2w"])
         elif case == "product_shape":
             ec.cell_product("qb,cbk->cqk", chain["phi"], chain["d2w"][:, :4])
-        else:
+        elif case == "triple_shape":
             ec.cell_triple(chain["W"][:, :10], chain["K"].to(F32))
+        elif case == "values_grads_shape":  # gp's basis functions are not phi's
+            ec.cell_values_grads(chain["phi"], chain["gp"][:, :, :4], chain["d2w"])
+        elif case == "values_grads_dtype_mix":
+            ec.cell_values_grads(chain["phi"], chain["gp"].to(F32), chain["d2w"])
+        else:  # gp without its cell axis
+            ec.cell_values_grads(chain["phi"], chain["gp"][0], chain["d2w"])
 
 
 @pytest.mark.parametrize("dtype", [F64, F32])
