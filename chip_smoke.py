@@ -58,7 +58,8 @@ Phases, in order; any failed check exits non-zero without the ``ok`` line:
    kernel over the 52 steps: the record's Newton list (171 updates, 223
    kernel calls); its refinement rounds beside the record's 335 and
    beside the last step's Du fingerprint (the same Du bits with other
-   rounds would not come from E3's bits), the element chain's launches,
+   rounds would not come from E3's bits; phase 26 checks them step by
+   step), the element chain's launches,
    and one update's BCR solve beside the dense path's at step 50's first
    iterate
    (CUDA events, in turns);
@@ -184,7 +185,17 @@ Phases, in order; any failed check exits non-zero without the ``ok`` line:
    E5), 9 (E1-E3), 11
    (E4, and E5's triple once an update), 12 (E4; no E5) and 18 (E5: the
    pair once a residual, four single products), and each of those checks
-   them.
+   them;
+26. every schedule in fresh processes: ``tools/schedule_bits.py`` on the
+   card in two child processes started together, one plain and one under
+   ``--poison`` (deterministic mode, every uninitialized allocation filled
+   with NaN), each over the 25x25 slope's 52 steps with dense, BCR, AMG-CG,
+   elastic and the general pipeline; for every solver the per-step Newton
+   lists, inner lists (BCR's signed rounds) and Du fingerprints (the
+   general path's: u) must be equal between the two children and equal to
+   phases 6, 9, 11, 12 and 18 of this process (BCR's LU-fallback levels and
+   the general path's backtracks too); the ops that deterministic mode
+   warned about are printed.
 
 Peaks, bounds and work counts come from
 ``dolfinx_external_operator_torch/utils/roofline.py``.  The line before the
@@ -617,9 +628,10 @@ def run_loads(fp, loads, capture=()):
     """The schedule from the zero state, Du carried from step to step;
     wall time per step after a sync.  ``capture``: indices of the steps
     whose starting state (Du, sigma_n) is returned in a dict, which also
-    holds the total displacement (the sum of the steps' Du) under "u"."""
+    holds the total displacement (the sum of the steps' Du) under "u" and
+    each step's Du fingerprint (``tools/schedule_bits.py``) under "du"."""
     Du, sig = fp.zero_state()
-    its, cgs, walls, states = [], [], [], {}
+    its, cgs, walls, states, du = [], [], [], {}, []
     u = torch.zeros_like(Du)
     for k, load in enumerate(loads):
         if k in capture:
@@ -628,14 +640,22 @@ def run_loads(fp, loads, capture=()):
         Du, sig, norm, it, cg = fp.run_step(Du, sig, load)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+        du.append(schedule_bits.fingerprint(Du))
         u = u + Du
         check(np.isfinite(norm), f"non-finite residual at load {load}")
         its.append(it)
         cgs.append(cg)
     check(tuple(Du.shape) == (fp.n_dofs,) and bool(torch.isfinite(Du).all()), "bad Du")
     check(bool(torch.isfinite(sig).all()), "bad sigma")
-    states["u"], states["sigma"] = u, sig
+    states["u"], states["sigma"], states["du"] = u, sig, du
     return Du, its, cgs, walls, states
+
+
+def reading(its, inner, du, **extra):
+    """A schedule's reading as ``tools/schedule_bits.py`` prints it: the
+    per-step Newton updates, inner iterations and Du fingerprints."""
+    return {"newton": [int(i) for i in its], "inner": [int(k) for k in inner], "du": list(du),
+            **extra}
 
 
 def state_before(fp, loads):
@@ -870,7 +890,7 @@ def mc_main_path(report):
     # the main path: the kernels' counts start at 0 here and are read after it
     mc_ops.mc_return_map.launches = 0
     ec.reset_launches()
-    Du_k, its_k, _, wall_k, states = run_loads(fp_k, loads, capture=(49, 50))
+    Du_k, its_k, inner_k, wall_k, states = run_loads(fp_k, loads, capture=(49, 50))
     launches = mc_ops.mc_return_map.launches
     ec_launches = ec.launch_counts()
     print(f"25x25 slope, kernel: newton {its_k} ({sum(its_k)}), launches {launches}, "
@@ -894,6 +914,7 @@ def mc_main_path(report):
     check(du_err < 1e-8, f"kernel Du differs from plain by {du_err:.3e}")
     report["mc_main"] = {"newton_kernel": its_k, "newton_plain": its_p, "launches": launches,
                          "du": schedule_bits.fingerprint(Du_k),
+                         "reading": reading(its_k, inner_k, states["du"]),
                          "ec_launches": ec_launches, "wall_kernel_s": wall_k,
                          "wall_plain_s": wall_p, "du_rel_err": du_err}
     return fp_k, states, launches
@@ -911,7 +932,7 @@ def bcr_25x25_phase(report, fp_dense, state):
     fp.bcr_stats.update(factorizations=0, inv_levels=0)
     mc_ops.mc_return_map.launches = 0
     ec.reset_launches()
-    Du, its, rounds, walls, _ = run_loads(fp, pt.SLOPE_LOADS)
+    Du, its, rounds, walls, states = run_loads(fp, pt.SLOPE_LOADS)
     launches = mc_ops.mc_return_map.launches
     ec_launches = ec.launch_counts()
     stats = dict(fp.bcr_stats)
@@ -938,7 +959,8 @@ def bcr_25x25_phase(report, fp_dense, state):
           f"{times['dense_ms']} ms (2 refinement rounds), BCR {times['bcr_ms']} ms "
           f"({k} rounds)", flush=True)
     report["bcr_25x25"] = {"newton": its, "rounds": rounds, "launches": launches,
-                           "du": du, "ec_launches": ec_launches, "wall_s": walls,
+                           "du": du, "reading": reading(its, rounds, states["du"], **stats),
+                           "ec_launches": ec_launches, "wall_s": walls,
                            "solve_ms": times, "solve_rounds": k, "stats": stats}
     return launches
 
@@ -1147,7 +1169,8 @@ def mg_25x25_phase(report, fp_dense, state):
     check(abs(gap) <= MG_INNER_TOL, f"25x25 mg inner iterations {sum(inner)} beyond "
           f"{MG_INNER_TOL:.0%} of {MG_25_INNER_JAX}")
     out = {"newton": its, "inner": inner, "launches": launches, "ec_launches": ec_launches,
-           "du": schedule_bits.fingerprint(Du_end), "wall_s": walls, "peak_bytes": peak,
+           "du": schedule_bits.fingerprint(Du_end), "reading": reading(its, inner, states["du"]),
+           "wall_s": walls, "peak_bytes": peak,
            "levels": fp.mg_sizes,
            "kinds": [lvl["kind"] for lvl in fp._mg["levels"]]}
     report["mg_25x25"] = out
@@ -1209,7 +1232,8 @@ def elastic_25x25_phase(report):
     launches = mc_ops.mc_return_map.launches
     ec_launches = ec.launch_counts()
     print(f"25x25 slope, elastic + kernel: newton {sum(its)}, launches {launches}, inner "
-          f"{sum(inner)} ({sum(inner) / sum(its):.1f} per update), setup {setup_s:.2f} s, "
+          f"{sum(inner)} ({sum(inner) / sum(its):.1f} per update), Du {states['du'][-1]}, "
+          f"setup {setup_s:.2f} s, "
           f"{sum(walls):.2f} s, {sum(walls) / len(walls):.4f} s/step", flush=True)
     print(f"  inner per step {inner}", flush=True)
     check(its == rec, f"25x25 elastic Newton list {its} != record {rec}")
@@ -1228,6 +1252,7 @@ def elastic_25x25_phase(report):
     print(f"  end-of-step refresh at step 50: {refresh_ms:.3f} ms against {refresh_bound:.4g} ms "
           f"({refresh_by})", flush=True)
     report["elastic_25x25"] = {"newton": its, "inner": inner, "launches": launches,
+                               "reading": reading(its, inner, states["du"]),
                                "ec_launches": ec_launches, "wall_s": walls, "setup_s": setup_s,
                                "refresh_ms": refresh_ms,
                                "refresh_bound_ms": refresh_bound, "refresh_bound_by": refresh_by}
@@ -1474,9 +1499,11 @@ def general_slope_phase(report, u_fused, fused_s, n=25, loads=pt.SLOPE_LOADS, de
     mc_ops.mc_return_map.launches = 0
     ec.reset_launches()
     t0 = time.perf_counter()
-    run = mc.solve_slope_stability(n, n, loads, device=device, route="cuda", capture=steps)
+    run = mc.solve_slope_stability(n, n, loads, device=device, route="cuda",
+                                   capture=range(len(loads)))
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
+    u_steps = schedule_bits.u_fingerprints(run)
     launches = mc_ops.mc_return_map.launches
     ec_launches = ec.launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -1505,7 +1532,7 @@ def general_slope_phase(report, u_fused, fused_s, n=25, loads=pt.SLOPE_LOADS, de
     steps_s = sum(run["step_s"])
     print(f"{n}x{n} slope, general pipeline (K1 callback, f32 LU + 4 rounds): newton {its} "
           f"({sum(its)}; off the fused record at steps {off_record}), backtracks {backtracks} "
-          f"(at steps {backtracked}), K1 launches {launches}, u gap to the fused "
+          f"(at steps {backtracked}), K1 launches {launches}, u {u_steps[-1]}, gap to the fused "
           f"step {gap:.2e}; {steps_s:.2f} s of steps ({steps_s / len(its):.4f} s/step), "
           f"{total:.2f} s with the build; the fused step in this run {fused_s:.2f} s "
           f"({fused_s / len(its):.4f} s/step); peak memory {peak / 2**30:.3f} GiB; "
@@ -1530,6 +1557,7 @@ def general_slope_phase(report, u_fused, fused_s, n=25, loads=pt.SLOPE_LOADS, de
         print(f"  {t:9.3f} ms  {name}", flush=True)
     report["general_slope"] = {
         "newton": its, "steps_off_record": off_record, "backtracks": run["backtracks"],
+        "reading": reading(its, [0] * len(its), u_steps, backtracks=run["backtracks"]),
         "launches": launches, "ec_launches": ec_launches, "u_gap_to_fused": gap,
         "step_s": run["step_s"], "steps_s": steps_s, "total_s": total, "fused_s": fused_s,
         "peak_bytes": peak, "layers_step50": layers,
@@ -2215,6 +2243,84 @@ def demos_phase(report):
                        "wall_total_s": total}
 
 
+# phase 26: the two fresh processes of tools/schedule_bits.py, and the
+# phases whose readings each must equal
+FRESH_RUNS = (("plain", []), ("poison", ["--poison"]))
+FRESH_REFS = {"dense": ("mc_main", 6), "bcr": ("bcr_25x25", 9), "mg": ("mg_25x25", 11),
+              "elastic": ("elastic_25x25", 12), "general": ("general_slope", 18)}
+
+
+def first_step_apart(a, b):
+    """The first step (1-based) whose reading differs between two readings
+    of one schedule, or None."""
+    for k, row in enumerate(zip(a["newton"], a["inner"], a["du"])):
+        if row != (b["newton"][k], b["inner"][k], b["du"][k]):
+            return k + 1
+    return None
+
+
+def fresh_process_phase(report, args=(), timeout=300):
+    """Phase 26: ``tools/schedule_bits.py`` over every schedule at 25x25 and
+    52 steps in two fresh processes on the card, started together, one plain
+    and one under ``--poison``.  For every solver the per-step Newton lists,
+    inner lists and Du fingerprints (BCR's LU-fallback levels and the general
+    path's backtracks beside them) must equal between the two, and equal
+    those of the phases in ``FRESH_REFS`` that ``report`` holds (phase 9's
+    rounds are checked here).  Alone on the card: ``fresh_process_phase({})``
+    compares the two processes only; ``args`` go to both (``--device cpu
+    --n 4 --loads 0,25,45`` rehearses the phase on the CPU)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    cmd = [sys.executable, "-m", "dolfinx_external_operator_torch.tools.schedule_bits"]
+    t0 = time.perf_counter()
+    kids = {name: subprocess.Popen(cmd + list(args) + flags, cwd=root, stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE, text=True)
+            for name, flags in FRESH_RUNS}
+    outs = {name: kid.communicate(timeout=timeout) for name, kid in kids.items()}
+    heads, runs = {}, {}
+    for name, (out, err) in outs.items():
+        kid = kids[name]
+        with open(os.path.join(OUT_DIR, f"schedule_bits_{name}.txt"), "w") as f:
+            f.write(out + err)
+        check(kid.returncode == 0, f"schedule_bits ({name}) exited {kid.returncode}: "
+              f"{err[-2000:]}")
+        head, *lines = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+        heads[name] = head
+        runs[name] = {line.pop("solver"): line for line in lines}
+    seconds = time.perf_counter() - t0
+    refs = {s: report[key]["reading"] for s, (key, _) in FRESH_REFS.items() if key in report}
+    with open(os.path.join(OUT_DIR, "fresh_processes.json"), "w") as f:
+        json.dump({"heads": heads, "runs": runs, "refs": refs}, f, indent=1)
+    # the poisoned process ran in deterministic mode: its fresh allocations
+    # read NaN, and it caught a probe op's warning
+    check(heads["poison"].get("empty_is_nan") is True and heads["poison"].get("probe_warned"),
+          f"schedule_bits --poison: {heads['poison']}")
+    plain, poison = runs["plain"], runs["poison"]
+    warned = {s: line.pop("warned") for s, line in poison.items()}
+    check(sorted(plain) == sorted(poison) == sorted(schedule_bits.SOLVERS),
+          f"schedule_bits solvers {sorted(plain)}, {sorted(poison)}")
+    summary = {}
+    for solver, line in plain.items():
+        check(poison[solver] == line, f"{solver}: the poisoned process's reading differs from "
+              f"the plain one's from step {first_step_apart(line, poison[solver])}")
+        phase = FRESH_REFS[solver][1]
+        if solver in refs:
+            check(refs[solver] == line, f"{solver}: phase {phase}'s reading differs from the "
+                  f"fresh processes' from step {first_step_apart(refs[solver], line)}")
+        summary[solver] = {"newton": sum(line["newton"]),
+                           "inner": sum(abs(k) for k in line["inner"]), "du": line["du"][-1],
+                           "inv_levels": line.get("inv_levels"),
+                           "held_to_phase": phase if solver in refs else None}
+    print(json.dumps({"fresh_processes": summary, "seconds": round(seconds, 1),
+                      "poison_warned": {s: [w[:120] for w in ws] for s, ws in warned.items()}}),
+          flush=True)
+    print(f"phase 26: two fresh processes (plain, --poison) in {seconds:.1f} s: every schedule's "
+          f"per-step Newton, inner and Du lists equal to each other and to phases "
+          f"{[FRESH_REFS[s][1] for s in refs]} of this process", flush=True)
+    report["fresh_processes"] = {"heads": heads, "runs": runs, "seconds": seconds,
+                                 "warned": warned}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2425,6 +2531,9 @@ def main():
     # phase 25: the element chain's kernels, slice by slice and against
     # their plain versions at step 50's iterate
     ec_meas = element_chain_phase(report, fp_k, states[49], mg_ref["W"])
+    # phase 26: every schedule in two fresh processes, held to phases 6, 9,
+    # 11, 12 and 18
+    fresh_process_phase(report)
 
     # K2's row: the f64 entry, which the von Mises block path launches, on
     # that path's own call (3,750 points, its layout); the f32 entry (the

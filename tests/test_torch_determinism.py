@@ -12,19 +12,32 @@ the JAX package's on the same inputs (dof values made with numpy from a
 seed): the heat forms within 1e-12 of the largest entry, the fused step
 within 1e-12 (both dense paths with two f64 refinement rounds, as in
 ``tests/test_torch_slope_step.py``).
+
+The slope's schedules with the fused solvers are also held bitwise across
+fresh processes (``tools/schedule_bits.py``), and ``chip_smoke.py`` phase
+26, which does so on the card, is held to fail on a difference.
 """
+import json
+import os
+import subprocess
+import sys
+
 import numpy as np
+import pytest
 import torch
 
 import dolfinx_external_operator_tpu as fj
 
 import dolfinx_external_operator_torch as pt
-from dolfinx_external_operator_torch import convert
+from dolfinx_external_operator_torch import convert, problems
+from dolfinx_external_operator_torch.tools import schedule_bits
 from test_torch_slope_step import _jax_step
 
 torch.set_num_threads(2)
 
 N = 6
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CPU = torch.device("cpu")
 
 
 def _dofs(n=N):
@@ -109,3 +122,69 @@ def test_fused_step_bitwise_repeatable():
     assert outs[0][3] == int(its_j)
     assert _close(outs[0][0], np.asarray(Du_j))
     assert _close(outs[0][1], np.asarray(sig_j).reshape(outs[0][1].shape))
+
+
+def _schedule_bits(*args):
+    """A fresh process of ``tools/schedule_bits.py`` on the CPU, on one
+    thread."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "dolfinx_external_operator_torch.tools.schedule_bits",
+         "--device", "cpu", *args],
+        cwd=REPO, env=dict(os.environ, OMP_NUM_THREADS="1"), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def _one_thread(fn):
+    """``fn()`` on one thread, as the fresh processes run: a CPU
+    reduction's bits depend on the thread count."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return fn()
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_schedules_bitwise_across_fresh_processes():
+    """The 4x4 slope over ``SLOPE_LOADS[[0, 25, 45]]`` with dense, BCR,
+    AMG-CG and elastic: this process's per-step Newton updates, inner
+    iterations and Du fingerprints equal those of a fresh process run under
+    ``--poison`` (deterministic mode, every uninitialized allocation NaN),
+    which warns about no op."""
+    solvers, idx = ("dense", "bcr", "mg", "elastic"), [0, 25, 45]
+    child = _schedule_bits("--n", "4", "--loads", ",".join(map(str, idx)),
+                           "--solvers", ",".join(solvers), "--poison")
+    try:
+        here = _one_thread(lambda: {s: schedule_bits.schedule(s, CPU, 4, problems.SLOPE_LOADS[idx])
+                                    for s in solvers})
+        out, err = child.communicate(timeout=120)
+    finally:
+        child.kill()
+    assert child.returncode == 0, err
+    head, *lines = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    assert head["threads"] == 1 and head["poison"] and head["empty_is_nan"]
+    assert any(w.startswith("put_") for w in head["probe_warned"])
+    there = {line.pop("solver"): line for line in lines}
+    assert {s: line.pop("warned") for s, line in there.items()} == {s: [] for s in solvers}
+    assert there == here
+    assert [sum(here[s]["newton"]) for s in solvers] == [11] * 4
+
+
+def test_fresh_process_phase_fails_on_a_difference(tmp_path, monkeypatch):
+    """``chip_smoke.py`` phase 26 on the CPU: a phase whose reading differs
+    from the fresh processes' fails it, naming the first step apart; so
+    does a fresh process that fails."""
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "OUT_DIR", str(tmp_path))
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    idx = [0, 45]
+    ref = _one_thread(lambda: schedule_bits.schedule("bcr", CPU, 2, problems.SLOPE_LOADS[idx]))
+    ref["inner"][1] += 1
+    with pytest.raises(chip_smoke.SmokeFailure,
+                       match="bcr: phase 9's reading differs from the fresh processes' from "
+                             "step 2"):
+        chip_smoke.fresh_process_phase({"bcr_25x25": {"reading": ref}},
+                                       ("--device", "cpu", "--n", "2", "--loads", "0,45"))
+    with pytest.raises(chip_smoke.SmokeFailure, match=r"schedule_bits \(plain\) exited 2"):
+        chip_smoke.fresh_process_phase({}, ("--device", "cpu", "--solvers", "nothing"))
