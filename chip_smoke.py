@@ -237,7 +237,7 @@ from dolfinx_external_operator_torch.entry import (
 from dolfinx_external_operator_torch.parallel import bcr, dist, mg
 from dolfinx_external_operator_torch.tools import schedule_bits, slice_bits
 from dolfinx_external_operator_torch.tools.ec_compare import operand_inputs
-from dolfinx_external_operator_torch.utils import roofline
+from dolfinx_external_operator_torch.utils import profiling, roofline
 
 # kernel vs plain on the card: the f64 polish stops once |r| <= 1e-8 of the
 # lane's scale, so a lane whose last step lands on the other side of that
@@ -920,6 +920,14 @@ def mc_main_path(report):
     return fp_k, states, launches
 
 
+def bcr_counts():
+    """The BCR factorizations and the levels of them on the LU inverse
+    since the last ``profiling.reset_counters()``."""
+    c = profiling.counters()
+    return {"factorizations": c.get("bcr.factorizations", 0),
+            "inv_levels": c.get("bcr.inv_levels", 0)}
+
+
 def bcr_25x25_phase(report, fp_dense, state):
     """Phase 9: the 25x25 slope with BCR and the kernel over the 52 steps;
     one update's solve beside the dense path's at the iterate ``state``."""
@@ -929,13 +937,13 @@ def bcr_25x25_phase(report, fp_dense, state):
     check(fp.linear_solver == "bcr" and (fp._bcr["m"], fp._bcr["B"]) == (26, 204),
           "25x25 BCR plan")
     warm_up(fp, pt.SLOPE_LOADS[0])
-    fp.bcr_stats.update(factorizations=0, inv_levels=0)
+    profiling.reset_counters()
     mc_ops.mc_return_map.launches = 0
     ec.reset_launches()
     Du, its, rounds, walls, states = run_loads(fp, pt.SLOPE_LOADS)
     launches = mc_ops.mc_return_map.launches
     ec_launches = ec.launch_counts()
-    stats = dict(fp.bcr_stats)
+    stats = bcr_counts()
     du = schedule_bits.fingerprint(Du)
     check(its == rec["newton_per_step"], f"25x25 BCR Newton list {its} != record")
     check(launches == sum(its) + len(its), f"{launches} launches for Newton {its}")
@@ -1000,12 +1008,12 @@ def bcr_100x100_phase(report, mat):
     check((m, B) == (101, 804), f"100x100 BCR plan m={m} B={B}")
     warm_up(fp, loads[0])
     torch.cuda.reset_peak_memory_stats()
-    fp.bcr_stats.update(factorizations=0, inv_levels=0)
+    profiling.reset_counters()
     mc_ops.mc_return_map.launches = 0
     _, its, rounds, walls, states = run_loads(fp, loads, capture=(47,))
     launches = mc_ops.mc_return_map.launches
     peak = torch.cuda.max_memory_allocated()
-    stats = dict(fp.bcr_stats)
+    stats = bcr_counts()
     print(f"100x100 slope, auto -> {fp.linear_solver} (m={m}, B={B}), setup {setup_s:.1f} s: "
           f"newton {its} ({sum(its)}), launches {launches}, rounds "
           f"{sum(abs(r) for r in rounds)} (record {rec['cg_total']}; signed {rounds}), "

@@ -64,6 +64,7 @@ from .mesh import CELL_FACETS, FACET_CELL, REFERENCE_VERTICES, Mesh
 from .ops import element_chain as ec
 from .parallel.scatter import dedup_table, segment_sum, segment_table
 from .quadrature import make_quadrature
+from .utils.profiling import span
 
 __all__ = [
     "assemble_scalar", "assemble_vector", "assemble_matrix",
@@ -565,9 +566,10 @@ class CompiledForm:
         cell's block against x at its trial dofs (``ops.element_chain.
         ebe_cell_matvec``, a kernel of fixed summation order on the card),
         summed into the test dofs."""
-        x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
-        return self._scatter_rows([ec.ebe_cell_matvec(e, ud, x, 1)
-                                   for e, _, ud in self._elements()])
+        with span("deo.form.action"):
+            x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
+            return self._scatter_rows([ec.ebe_cell_matvec(e, ud, x, 1)
+                                       for e, _, ud in self._elements()])
 
     def diagonal(self):
         """Global matrix diagonal (for Jacobi preconditioning) without
@@ -582,7 +584,8 @@ class CompiledForm:
         return total
 
     def vector(self):
-        return self._scatter_rows([e for e, _, _ in self._elements()])
+        with span("deo.form.vector"):
+            return self._scatter_rows([e for e, _, _ in self._elements()])
 
     def _slot_plan(self):
         """The deduplicated table over the flat slots ``row * m + col`` of
@@ -605,11 +608,12 @@ class CompiledForm:
     def matrix(self):
         """The dense (n, m) matrix, summed through the deduplicated slot
         table."""
-        n, m = self.test_space.num_dofs, self.trial_space.num_dofs
-        _, slots, size = self._slot_plan()
-        out = torch.zeros(size, dtype=self.dtype, device=self.device)
-        out[slots] = self._slot_values()
-        return out.reshape(n, m)
+        with span("deo.form.matrix"):
+            n, m = self.test_space.num_dofs, self.trial_space.num_dofs
+            _, slots, size = self._slot_plan()
+            out = torch.zeros(size, dtype=self.dtype, device=self.device)
+            out[slots] = self._slot_values()
+            return out.reshape(n, m)
 
     def matrix_bcoo(self):
         """The assembled sparse (n, m) matrix with its duplicates summed,

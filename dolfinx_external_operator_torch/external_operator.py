@@ -36,6 +36,7 @@ from .elements import Element, element as make_element, mixed_element, quadratur
 from .expression import Expression
 from .function import Function, _owned
 from .functionspace import FunctionSpace, functionspace
+from .utils.profiling import span
 
 __all__ = [
     "FEMExternalOperator",
@@ -371,20 +372,22 @@ def evaluate_operands(external_operators, entities=None):
         return {}
     evaluated = _Operands()
     evaluated.layout = (entities, get_default_device_mesh())
-    for ex_op in external_operators:
-        mesh = _operand_mesh(ex_op)
-        for operand in ex_op.ufl_operands:
-            if operand in evaluated:
-                continue
-            if isinstance(operand, FEMExternalOperator):
-                evaluated[operand] = evaluate_operands([operand], entities)
-                continue
-            expr = ex_op._compiled_operands.get(operand)
-            if expr is None:
-                coef = ex_op.ref_coefficient
-                expr = Expression(operand, ex_op.eval_points, dtype=coef.dtype, device=coef.device)
-                ex_op._compiled_operands[operand] = expr
-            evaluated[operand] = expr.eval_local(mesh, entities)
+    with span("deo.operands"):
+        for ex_op in external_operators:
+            mesh = _operand_mesh(ex_op)
+            for operand in ex_op.ufl_operands:
+                if operand in evaluated:
+                    continue
+                if isinstance(operand, FEMExternalOperator):
+                    evaluated[operand] = evaluate_operands([operand], entities)
+                    continue
+                expr = ex_op._compiled_operands.get(operand)
+                if expr is None:
+                    coef = ex_op.ref_coefficient
+                    expr = Expression(operand, ex_op.eval_points, dtype=coef.dtype,
+                                      device=coef.device)
+                    ex_op._compiled_operands[operand] = expr
+                evaluated[operand] = expr.eval_local(mesh, entities)
     return evaluated
 
 
@@ -482,7 +485,8 @@ def evaluate_external_operators(external_operators, evaluated_operands):
     per-point result is gathered whole (``_Rows.gathered``): what is
     written back and returned is the unsharded result.
     """
-    return [whole for _, whole in _evaluate(external_operators, evaluated_operands)]
+    with span("deo.external"):
+        return [whole for _, whole in _evaluate(external_operators, evaluated_operands)]
 
 
 def _evaluate(external_operators, evaluated_operands):

@@ -27,6 +27,8 @@ from __future__ import annotations
 
 import torch
 
+from .utils.profiling import host_read
+
 __all__ = ["bicgstab", "gmres"]
 
 
@@ -83,10 +85,10 @@ def gmres(A, b, x0=None, *, tol=1e-5, atol=0.0, restart=20, maxiter=None, M=None
     M = M or (lambda r: r)
     maxiter = 10 * n if maxiter is None else maxiter
     restart = min(restart, n)
-    target = max(tol * float(torch.linalg.vector_norm(b)), atol)
+    target = max(tol * host_read(torch.linalg.vector_norm(b)), atol)
     unit_residual, residual_norm = _safe_normalize(M(b - A(x)))
     k = 0
-    while k < maxiter and float(residual_norm) > target:
+    while k < maxiter and host_read(residual_norm) > target:
         x, unit_residual, residual_norm = _gmres_restart(A, M, b, x, unit_residual,
                                                          residual_norm, restart)
         k += 1
@@ -101,7 +103,7 @@ def bicgstab(A, b, x0=None, *, tol=1e-5, atol=0.0, maxiter=None, M=None):
     x = torch.zeros_like(b) if x0 is None else x0
     M = M or (lambda r: r)
     maxiter = 10 * n if maxiter is None else maxiter
-    atol2 = max(tol * tol * float(torch.dot(b, b)), atol * atol)
+    atol2 = max(tol * tol * host_read(torch.dot(b, b)), atol * atol)
     r = b - A(x)
     rhat = p = q = r
     one = torch.ones((), dtype=b.dtype, device=b.device)
@@ -109,7 +111,7 @@ def bicgstab(A, b, x0=None, *, tol=1e-5, atol=0.0, maxiter=None, M=None):
     # k < 0 marks a breakdown: -10 (rho == 0), -11 (omega or alpha == 0)
     k = torch.zeros((), dtype=torch.int64, device=b.device)
     while True:
-        rs, kk = torch.stack([torch.dot(r, r), k.to(b.dtype)]).tolist()
+        rs, kk = host_read(torch.stack([torch.dot(r, r), k.to(b.dtype)]), torch.Tensor.tolist)
         if not (rs > atol2 and 0 <= kk < maxiter):
             return x
         rho_ = torch.dot(rhat, r)

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.abbo_sloan import grad_and_hess, make_surface, surface_constants
+from ..utils import profiling
 
 __all__ = ["MohrCoulombMaterial", "build_slope_problem", "epsilon", "solve_slope_stability",
            "solve_small"]
@@ -262,10 +263,12 @@ class MohrCoulombMaterial:
         dlambda))``.  dr/ddeps = [[-C], [0]] is constant, so dy*/deps =
         J(y*)^-1 [[C], [0]]; elastic lanes (J = I) give C_elas exactly."""
         aux = self.return_map(deps, sn)
-        sig, _, yielding, _, dlambda = aux
+        sig, _, yielding, norm_res, dlambda = aux
         y = torch.cat([sig, dlambda.unsqueeze(0)])
-        J = self._jacobian(y, yielding > 0.0)
+        plastic = yielding > 0.0
+        J = self._jacobian(y, plastic)
         n = deps.shape[1]
+        profiling.k1_tally(n, plastic.sum(), norm_res)
         C = torch.tensor(self.C_elas, dtype=_F64, device=deps.device)
         rhs = torch.cat([C, torch.zeros((1, STRESS_DIM), dtype=_F64, device=deps.device)])
         X = solve_small(J, rhs.unsqueeze(-1).expand(-1, -1, n))
@@ -407,7 +410,7 @@ def _to_soa(deps_flat, sigma_n_flat):
 
 def _to_flat(C_t, aux):
     sig, niter, yielding, norm_res, _ = aux
-    stats = {"niter": niter, "max_f": yielding.max(), "max_res": norm_res.max()}
+    stats = {"niter": niter, "yielding": yielding, "norm_res": norm_res}
     return C_t.permute(2, 0, 1).reshape(-1), sig.T.reshape(-1), stats
 
 
@@ -483,7 +486,8 @@ def build_slope_problem(Nx=25, Ny=25, L=1.2, H=1.0, gamma=1.0, material=None,
         if verbose_inner:
             uniq, counts = np.unique(stats["niter"].cpu().numpy(), return_counts=True)
             print(f"\tInner Newton: iters {uniq.tolist()} counts {counts.tolist()} "
-                  f"max_f {float(stats['max_f']):.3e} max_res {float(stats['max_res']):.3e}")
+                  f"max_f {float(stats['yielding'].max()):.3e} "
+                  f"max_res {float(stats['norm_res'].max()):.3e}")
         return C_tang, sig
 
     def sigma_external(derivatives):

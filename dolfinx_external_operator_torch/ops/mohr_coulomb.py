@@ -22,6 +22,7 @@ import ctypes
 
 import torch
 
+from ..utils import profiling
 from ..utils.roofline import MC_BYTES_PER_POINT as BYTES_PER_POINT
 
 __all__ = ["mc_return_map", "mc_return_map_host", "BYTES_PER_POINT"]
@@ -96,7 +97,9 @@ def mc_return_map(deps, sig_n, material):
 
     CUDA tensors go through the kernel (any N: it masks the ragged edge);
     CPU tensors through the plain version.  ``mc_return_map.launches``
-    counts kernel calls (one per call, both passes)."""
+    counts kernel calls (one per call, both passes).  Inside
+    ``utils.profiling.trace`` the call's points, pass A's listed lanes and
+    its largest ``norm_res`` are also summed on the device."""
     if deps.device.type == "cpu":
         n = _check(deps, sig_n, "cpu")
         C_t, (sig, niter, yielding, norm_res, dlambda) = material.tangent_stress(deps, sig_n)
@@ -105,7 +108,9 @@ def mc_return_map(deps, sig_n, material):
         raise ValueError(f"unsupported device {deps.device}")
     n = _check(deps, sig_n, "cuda")
     outs = _outputs(n, deps.device)
-    _launch(deps, sig_n, material, outs, _workspace(n, deps.device))
+    work = _workspace(n, deps.device)
+    _launch(deps, sig_n, material, outs, work)
+    profiling.k1_tally(n, work[:1], outs[4])
     return outs
 
 

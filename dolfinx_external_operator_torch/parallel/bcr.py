@@ -26,6 +26,8 @@ import math
 import numpy as np
 import torch
 
+from ..utils.profiling import count, host_read, span
+
 __all__ = ["bcr_apply", "bcr_factor", "build_bcr_statics", "equilibrate", "ir_direct"]
 
 
@@ -134,7 +136,7 @@ def build_bcr_statics(mesh, V, bc_mask):
 # device-side factorization and solve
 # ---------------------------------------------------------------------------
 
-def _spd_inv_batched(Ks, stats=None):
+def _spd_inv_batched(Ks, counter=None):
     """Explicit inverses of a batch of SPD matrices: batched Cholesky, the
     factor's inverse by one triangular solve against I, and the Gram
     product ``inv(L)^T inv(L)``, as the JAX package computes it (on an H100
@@ -142,12 +144,12 @@ def _spd_inv_batched(Ks, stats=None):
     two batched triangular solves dominate).  A breakdown anywhere in
     the batch (``info != 0`` or a non-finite factor entry: a non-SPD block)
     sends the whole batch to the pivoted-LU ``inv``, as the JAX package
-    does; ``stats["inv_levels"]`` counts those batches.  One host sync per
-    call (the breakdown test)."""
+    does; the profiling counter named ``counter`` (if any) counts those
+    batches.  One host read per call (the breakdown test)."""
     L, info = torch.linalg.cholesky_ex(Ks)
-    if bool((info != 0).any() | ~torch.isfinite(L).all()):
-        if stats is not None:
-            stats["inv_levels"] = stats.get("inv_levels", 0) + 1
+    if host_read((info != 0).any() | ~torch.isfinite(L).all(), bool):
+        if counter is not None:
+            count(counter)
         return torch.linalg.inv(Ks)
     eye = torch.eye(Ks.shape[-1], dtype=Ks.dtype, device=Ks.device).expand_as(Ks)
     Li = torch.linalg.solve_triangular(L, eye, upper=False)
@@ -169,13 +171,14 @@ def _pad_back_to(x, k):
     return torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
 
 
-def bcr_factor(T, m, B, stats=None):
+def bcr_factor(T, m, B):
     """Cyclic-reduction factorization of the block-tridiagonal system.
 
     ``T`` (m, B, 3B): per block row the dense row band [L | D | U]
     (equilibrated, identity bc rows).  A Python loop over the log2(m)
-    levels; all work in a level is batched.  ``stats`` (a dict, optional)
-    counts the levels whose inversion fell back to ``inv``.
+    levels; all work in a level is batched.  Counts ``bcr.factorizations``
+    and, in ``bcr.inv_levels``, the levels whose inversion fell back to
+    ``inv`` (``utils.profiling``).
 
     Returns (levels, root_inv): per level the solve operators
       A  = L_even @ inv(D_left-odd)      (ne, B, B)
@@ -183,6 +186,7 @@ def bcr_factor(T, m, B, stats=None):
       V  = inv(D_odd)                    (no, B, B)
       VL = V @ L_odd,  VU = V @ U_odd    (no, B, B)
     """
+    count("bcr.factorizations")
     L = T[:, :, :B]
     D = T[:, :, B:2 * B]
     U = T[:, :, 2 * B:]
@@ -190,7 +194,7 @@ def bcr_factor(T, m, B, stats=None):
     while m > 1:
         no = m // 2
         ne = m - no
-        V = _spd_inv_batched(D[1::2], stats)
+        V = _spd_inv_batched(D[1::2], "bcr.inv_levels")
         L_odd, U_odd = L[1::2], U[1::2]
         # alignment for even block 2k: left odd = #(k-1), right odd = #k
         Vl = _pad_front(V)[:ne]
@@ -208,7 +212,7 @@ def bcr_factor(T, m, B, stats=None):
         L = -(A @ Llo)
         U = -(C @ Uro)
         m = ne
-    root_inv = _spd_inv_batched(D, stats)  # (1, B, B)
+    root_inv = _spd_inv_batched(D, "bcr.inv_levels")  # (1, B, B)
     return levels, root_inv
 
 
@@ -265,20 +269,26 @@ def ir_direct(mv64, solve32, b, rtol):
     with the exact f64 operator.  Exits on ``|r| <= rtol * |b|``, on a round
     that does not contract (stall) or after ``_MAX_ROUNDS``; returns (best
     iterate, signed rounds), the count negated when the target was not
-    reached.  One host sync per round (the loop test)."""
-    bnorm = float(torch.sqrt(torch.dot(b, b)))
+    reached.  One host read per round (the loop test); counts
+    ``solve.rounds``, and ``solve.short`` where the target was not
+    reached."""
+    bnorm = host_read(torch.sqrt(torch.dot(b, b)))
     target = rtol * bnorm
     x = torch.zeros_like(b)
     r, rn, k = b, bnorm, 0
     xb, nb = x, bnorm
     while rn > target and k < _MAX_ROUNDS:
-        x = x + solve32(r)
-        r = b - mv64(x)
-        nn = float(torch.sqrt(torch.dot(r, r)))
+        with span("deo.solve.round"):
+            x = x + solve32(r)
+            r = b - mv64(x)
+            nn = host_read(torch.sqrt(torch.dot(r, r)))
         k += 1
         if nn < nb:
             xb, nb = x, nn
         if not (math.isfinite(nn) and nn < rn):  # a round that stalls
             break
         rn = nn
+    count("solve.rounds", k)
+    if nb > target:
+        count("solve.short")
     return xb, (k if nb <= target else -k)

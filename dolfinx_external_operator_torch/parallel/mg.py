@@ -52,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import element_chain as ec
+from ..utils.profiling import count, host_read, span
 from .bcr import _lattice_node_perm
 from .scatter import dedup_table, dedup_write, segment_sum, segment_table
 
@@ -1088,11 +1089,11 @@ def ir_pcg(mv64, mv32, M32, b, rtol, maxiter, *, atol=0.0, to_inner=None, from_i
     the f32 iteration then runs in the inner layout (the DIA lattice
     numbering) while ``mv64`` and the result stay in the caller's.
 
-    One host read per inner iteration (the loop test) and one per round.
-    Returns (x_best, total_inner_iterations)."""
+    One host read per inner iteration (the loop test) and one per round;
+    counts ``solve.rounds``.  Returns (x_best, total_inner_iterations)."""
     to_inner = to_inner or (lambda v: v)
     from_inner = from_inner or (lambda v: v)
-    bnorm = float(torch.linalg.vector_norm(b))
+    bnorm = host_read(torch.linalg.vector_norm(b))
     target = max(rtol * bnorm, atol)
 
     def pcg32(r32, tgt, budget):
@@ -1105,7 +1106,7 @@ def ir_pcg(mv64, mv32, M32, b, rtol, maxiter, *, atol=0.0, to_inner=None, from_i
         z = M32(r)
         rz = torch.dot(r, z)
         nb = torch.linalg.vector_norm(r)
-        ok, ncur = (float(v) for v in torch.stack([(rz >= 0.0).to(_F32), nb]).tolist())
+        ok, ncur = host_read(torch.stack([(rz >= 0.0).to(_F32), nb]), torch.Tensor.tolist)
         p, xb, k, k_best = z, x, 0, 0
         while ok and ncur > tgt and k < budget and k - k_best < _STALL_WINDOW:
             Ap = mv32(p)
@@ -1125,7 +1126,8 @@ def ir_pcg(mv64, mv32, M32, b, rtol, maxiter, *, atol=0.0, to_inner=None, from_i
             good = good & torch.isfinite(nn) & (nn < 100.0 * nb)
             rz = rz2
             k += 1
-            ok, ncur, is_better = torch.stack([good.to(_F32), nn, better.to(_F32)]).tolist()
+            ok, ncur, is_better = host_read(torch.stack([good.to(_F32), nn, better.to(_F32)]),
+                                            torch.Tensor.tolist)
             if is_better:
                 k_best = k
         return xb, k
@@ -1137,11 +1139,13 @@ def ir_pcg(mv64, mv32, M32, b, rtol, maxiter, *, atol=0.0, to_inner=None, from_i
         # inner tolerance: enough to reach the outer target in this round,
         # floored at the f32 attainable range
         t_rel = min(max(target / max(rnorm, 1e-300), _INNER_FLOOR), 0.5)
-        dx, k = pcg32(to_inner(r64.to(_F32)), float(np.float32(t_rel * rnorm)),
-                      min(maxiter - k_tot, _INNER_CAP))
-        x = x + from_inner(dx).to(b.dtype)
-        r64 = b - mv64(x)
-        rn = float(torch.linalg.vector_norm(r64))
+        with span("deo.solve.round"):
+            dx, k = pcg32(to_inner(r64.to(_F32)), float(np.float32(t_rel * rnorm)),
+                          min(maxiter - k_tot, _INNER_CAP))
+            x = x + from_inner(dx).to(b.dtype)
+            r64 = b - mv64(x)
+            rn = host_read(torch.linalg.vector_norm(r64))
+        count("solve.rounds")
         if rn < nbest:
             xb, nbest = x, rn
         ok = np.isfinite(rn) and rn < rnorm  # stop when a round stalls

@@ -64,6 +64,7 @@ from .scatter import dedup_table, dedup_write, segment_sum, segment_table
 from ..elements import Element
 from ..mesh import Mesh
 from ..quadrature import make_quadrature
+from ..utils.profiling import count, host_read, span
 
 __all__ = ["FusedPlasticityStep", "host_statics"]
 
@@ -338,8 +339,6 @@ class FusedPlasticityStep:
             "perm_l2o": t(info["perm_l2o"]),
             "perm_o2l": t(info["perm_o2l"]),
         }
-        # levels of the factorizations that fell back to the LU inverse
-        self.bcr_stats = {"factorizations": 0, "inv_levels": 0}
         return True
 
     def _elastic_tangent(self):
@@ -449,20 +448,22 @@ class FusedPlasticityStep:
         return segment_sum(self._whole(cell_vals).reshape(-1), self._scatter_table)
 
     def _constitutive(self, Du, sigma_n):
-        st = self.statics
-        deps = ec.cell_strain(st["B"], st["dofmap"], Du)
-        nc = deps.shape[0]
-        C_t, sig_t = self._vkernel(deps.reshape(-1, 4).T, sigma_n.reshape(-1, 4).T)
-        C_tang = C_t.permute(2, 0, 1).reshape(nc, self.nq, 4, 4)
-        sigma = sig_t.T.reshape(nc, self.nq, 4)
-        return C_tang, sigma
+        with span("deo.constitutive"):
+            st = self.statics
+            deps = ec.cell_strain(st["B"], st["dofmap"], Du)
+            nc = deps.shape[0]
+            C_t, sig_t = self._vkernel(deps.reshape(-1, 4).T, sigma_n.reshape(-1, 4).T)
+            C_tang = C_t.permute(2, 0, 1).reshape(nc, self.nq, 4, 4)
+            sigma = sig_t.T.reshape(nc, self.nq, 4)
+            return C_tang, sigma
 
     def _assemble_f(self):
         return self._scatter(self.statics["f_cell"])
 
     def _residual(self, sigma, load, fvec):
-        st = self.statics
-        return self._scatter(ec.cell_residual(st["B"], sigma, st["wdet"])) - fvec * load
+        with span("deo.residual"):
+            st = self.statics
+            return self._scatter(ec.cell_residual(st["B"], sigma, st["wdet"])) - fvec * load
 
     def _tangent_matvec(self, C_tang, x):
         st = self.statics
@@ -503,7 +504,7 @@ class FusedPlasticityStep:
         x_best = x
         ok = rz >= 0.0
         k = 0
-        while k < maxiter and bool(ok & (n_cur > target)):
+        while k < maxiter and host_read(ok & (n_cur > target), bool):
             Ap = mv(p)
             pAp = torch.dot(p, Ap)
             ok = torch.isfinite(pAp) & (pAp > 0.0) & torch.isfinite(rz) & (rz > 0.0)
@@ -541,14 +542,17 @@ class FusedPlasticityStep:
         d = 1.0 / torch.sqrt(torch.clamp(torch.abs(torch.diagonal(K)), min=1e-30).to(_F))
         Ks32 = K * (d[:, None] * d[None, :]).to(f32)
         if self._dense_fact == "lu":
-            LU, piv = torch.linalg.lu_factor(Ks32)
+            with span("deo.solve.factor"):
+                LU, piv = torch.linalg.lu_factor(Ks32)
 
             def solve32(rr):
                 y = torch.linalg.lu_solve(LU, piv, (rr * d).to(f32)[:, None])[:, 0]
                 return y.to(_F) * d
         else:
-            L, info = torch.linalg.cholesky_ex(Ks32)
-            if int(info) == 0:
+            with span("deo.solve.factor"):
+                L, info = torch.linalg.cholesky_ex(Ks32)
+                spd = host_read(info, int) == 0
+            if spd:
                 def solve32(rr):
                     y = torch.cholesky_solve((rr * d).to(f32)[:, None], L)[:, 0]
                     return y.to(_F) * d
@@ -560,7 +564,9 @@ class FusedPlasticityStep:
 
         x = solve32(b)
         for _ in range(self._dense_refine):
-            x = x + solve32(b - self._bc_matvec(C_tang, x))
+            with span("deo.solve.round"):
+                x = x + solve32(b - self._bc_matvec(C_tang, x))
+        count("solve.rounds", self._dense_refine)
         return x, 0
 
     def _k_cell32(self, C_tang):
@@ -603,8 +609,8 @@ class FusedPlasticityStep:
         plan = self._bcr
         T, d = _bcr.equilibrate(self._bcr_bands(C_tang), plan["diag_slot"], plan["m"],
                                 plan["B"])
-        fact = _bcr.bcr_factor(T, plan["m"], plan["B"], self.bcr_stats)
-        self.bcr_stats["factorizations"] += 1
+        with span("deo.solve.factor"):
+            fact = _bcr.bcr_factor(T, plan["m"], plan["B"])
         return _bcr.ir_direct(lambda x: self._bc_matvec(C_tang, x),
                               lambda rr: self._bcr_apply(fact, d, rr), b, rtol)
 
@@ -619,7 +625,8 @@ class FusedPlasticityStep:
         Returns (dx, inner iterations)."""
         plan = self._mg
         K_cell = self._k_cell_masked(C_tang)
-        rt = _mg.mg_setup(plan, K_cell.to(torch.float32))
+        with span("deo.solve.factor"):
+            rt = _mg.mg_setup(plan, K_cell.to(torch.float32))
         mv64 = _mg.ebe_matvec(K_cell, plan["ebe"])
         if self._mg_mv0_mode == "dia":
             mask, l2o, o2l = plan["mask0_lat"], plan["perm0_l2o"], plan["perm0_o2l"]
@@ -674,15 +681,16 @@ class FusedPlasticityStep:
 
     def _solve(self, C_tang, b, rtol):
         """One Newton update's linear solve: (dx, inner count)."""
-        if self.linear_solver == "dense":
-            return self._dense_solve(C_tang, b)
-        if self.linear_solver == "bcr":
-            return self._bcr_solve(C_tang, b, rtol)
-        if self.linear_solver == "mg":
-            return self._mg_solve(C_tang, b, rtol)
-        if self.linear_solver == "elastic":
-            return self._elastic_solve(C_tang, b, rtol)
-        return self._cg_solve(C_tang, b, rtol, self.cg_maxiter)
+        with span("deo.solve"):
+            if self.linear_solver == "dense":
+                return self._dense_solve(C_tang, b)
+            if self.linear_solver == "bcr":
+                return self._bcr_solve(C_tang, b, rtol)
+            if self.linear_solver == "mg":
+                return self._mg_solve(C_tang, b, rtol)
+            if self.linear_solver == "elastic":
+                return self._elastic_solve(C_tang, b, rtol)
+            return self._cg_solve(C_tang, b, rtol, self.cg_maxiter)
 
     # ------------------------------------------------------------------
     def _newton(self, Du, sigma_n, load, max_it, cg_rtol, norm0_ref):
@@ -705,10 +713,12 @@ class FusedPlasticityStep:
         norm, norm0 = math.nan, float(norm0_ref)
         it = cg_tot = 0
         while it < max_it:
-            C_tang, sigma = self._constitutive(Du, sigma_n)
-            r = self._residual(sigma, load, fvec)
-            r = torch.where(mask, Du - bc_vals, r)
-            norm = float(torch.sqrt(torch.dot(r, r)))
+            with span("deo.pass"):
+                C_tang, sigma = self._constitutive(Du, sigma_n)
+                r = self._residual(sigma, load, fvec)
+                r = torch.where(mask, Du - bc_vals, r)
+                norm = host_read(torch.sqrt(torch.dot(r, r)))
+            count("newton.passes")
             if math.isnan(norm0):
                 norm0 = norm
             if norm < self.newton_atol or norm < self.newton_rtol * norm0:
@@ -718,6 +728,7 @@ class FusedPlasticityStep:
                 eta = math.sqrt(min(max(norm / max(norm0, 1e-300), 0.0), 1.0))
                 rtol_it = min(max(eta, cg_rtol), self.fused_forcing)
             dx, cg_k = self._solve(C_tang, -r, rtol_it)
+            count("newton.updates")
             Du = Du + dx
             it += 1
             cg_tot += cg_k
@@ -733,9 +744,10 @@ class FusedPlasticityStep:
         """One load step: (Du (n,), sigma_n (nc_pad // ranks, nq, 4), load)
         -> (Du_new, sigma (nc_pad // ranks, nq, 4), residual_norm,
         newton_its, cg_its)."""
-        Du, sigma_n = self._state_in(Du, sigma_n)
-        return self._newton(Du, sigma_n, float(load), self.newton_max_it, self.cg_rtol,
-                            math.nan)
+        with span("deo.step", load):
+            Du, sigma_n = self._state_in(Du, sigma_n)
+            return self._newton(Du, sigma_n, float(load), self.newton_max_it, self.cg_rtol,
+                                math.nan)
 
     def run_schedule(self, loads, Du=None, sigma_n=None):
         """``run_step`` over ``loads``, committing the state between steps.
@@ -767,21 +779,22 @@ class FusedPlasticityStep:
         norm0 = norm = None
         sigma = sigma_n
         converged = False
-        for _ in range(self.newton_max_it + 1):
-            if forcing and norm0 is not None and norm is not None and norm0 > 0:
-                eta = float(np.sqrt(max(min(norm / norm0, 1.0), 0.0)))
-                rtol_eff = max(min(0.1, eta), self.cg_rtol)
-            else:
-                rtol_eff = min(1e-2, max(self.cg_rtol, 1e-6)) if forcing else self.cg_rtol
-            norm0_ref = math.nan if norm0 is None else norm0
-            Du, sigma, norm, its, cg = self._newton(Du, sigma_n, load, 1, rtol_eff, norm0_ref)
-            its_total += its
-            cg_total += cg
-            if norm0 is None:
-                norm0 = norm
-            if its == 0:  # converged: no update; sigma is at this iterate
-                converged = True
-                break
+        with span("deo.step", load):
+            for _ in range(self.newton_max_it + 1):
+                if forcing and norm0 is not None and norm is not None and norm0 > 0:
+                    eta = float(np.sqrt(max(min(norm / norm0, 1.0), 0.0)))
+                    rtol_eff = max(min(0.1, eta), self.cg_rtol)
+                else:
+                    rtol_eff = min(1e-2, max(self.cg_rtol, 1e-6)) if forcing else self.cg_rtol
+                norm0_ref = math.nan if norm0 is None else norm0
+                Du, sigma, norm, its, cg = self._newton(Du, sigma_n, load, 1, rtol_eff, norm0_ref)
+                its_total += its
+                cg_total += cg
+                if norm0 is None:
+                    norm0 = norm
+                if its == 0:  # converged: no update; sigma is at this iterate
+                    converged = True
+                    break
         if not converged:
             raise RuntimeError(
                 f"host-driven Newton failed to converge within "

@@ -48,6 +48,7 @@ import torch
 from . import krylov
 from .assembly import bc_arrays, create_form
 from .ops import element_chain as ec
+from .utils.profiling import count, host_read, span
 
 __all__ = ["solve_dense", "cg", "NewtonSolver", "NonlinearProblem"]
 
@@ -61,10 +62,11 @@ _F32 = torch.float32
 def lu_factor32(A):
     """Jacobi equilibration and the f32 LU factorization with partial
     pivoting: ``(As, d, lu, piv)`` with ``As = D A D``, ``D = diag(d)``."""
-    d = 1.0 / torch.sqrt(torch.clamp(torch.abs(torch.diagonal(A)), min=1e-300))
-    As = A * d[:, None] * d[None, :]
-    lu, piv = torch.linalg.lu_factor(As.to(_F32))
-    return As, d, lu, piv
+    with span("deo.solve.factor"):
+        d = 1.0 / torch.sqrt(torch.clamp(torch.abs(torch.diagonal(A)), min=1e-300))
+        As = A * d[:, None] * d[None, :]
+        lu, piv = torch.linalg.lu_factor(As.to(_F32))
+        return As, d, lu, piv
 
 
 def lu_refine(factors, b, n_refine: int = 4):
@@ -78,8 +80,10 @@ def lu_refine(factors, b, n_refine: int = 4):
     bs = b * d
     y = solve32(bs)
     for _ in range(n_refine):
-        r = bs - As @ y
-        y = y + solve32(r)
+        with span("deo.solve.round"):
+            r = bs - As @ y
+            y = y + solve32(r)
+    count("solve.rounds", n_refine)
     return y * d
 
 
@@ -109,7 +113,7 @@ def _pcg(matvec, M, b, x, target, maxiter, p_update):
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
     one = torch.ones((), dtype=b.dtype, device=b.device)
     k = 0
-    while k < maxiter and bool(ok & (n_cur > target)):
+    while k < maxiter and host_read(ok & (n_cur > target), bool):
         Ap = matvec(p)
         pAp = torch.dot(p, Ap)
         ok = torch.isfinite(pAp) & (pAp > 0.0) & torch.isfinite(rz) & (rz > 0.0)
@@ -380,6 +384,12 @@ class NewtonSolver:
         return mgmod.ir_pcg(mv, mv32, M, b, self.ksp_rtol, maxiter, atol=self.ksp_atol)
 
     def solve(self, problem) -> tuple[int, bool]:
+        """Newton on ``problem`` from its current iterate: (updates,
+        converged), inside a ``deo.step`` span."""
+        with span("deo.step"):
+            return self._newton(problem)
+
+    def _newton(self, problem):
         u = problem.u
         n = u.function_space.num_dofs
         mask, g = bc_arrays(problem.bcs, n, u.device, u.dtype)
@@ -410,45 +420,60 @@ class NewtonSolver:
             r = problem.F.vector()
             x = u.data
             dx_bc = torch.where(mask, g - x, zero)
-            if bool(torch.any(dx_bc != 0.0)):
+            if host_read(torch.any(dx_bc != 0.0), bool):
                 r = r + problem.J.action(dx_bc)
             return torch.where(mask, x - g, r)
+
+        def newton_pass():
+            """The constitutive update, the residual and its norm."""
+            with span("deo.pass"):
+                r = residual()
+                norm = rnorm(r)
+            count("newton.passes")
+            return r, norm
 
         def newton_step(r, emask):
             """delta solving  J_elim @ delta = -r  (rows/cols of ``emask``,
             the BC dofs plus, under vinewtonrsls, the active bound set,
-            eliminated)."""
+            eliminated); the solve in a ``deo.solve`` span, the dense
+            path's assembly of the matrix before it."""
             if matrix_free:
-                elems = problem.J.element_tensors()
-                # PETSc KSP default maxits parity (10000); the breakdown
-                # guard in _ebe_pcg exits earlier at the rounding floor
-                maxiter = self.ksp_max_it if self.ksp_max_it is not None else min(10 * n, 10000)
-                if self.pc_type == "mg":
-                    delta, k = self._mg_solve(problem, elems, emask, -r, maxiter)
-                    self.ksp_iterations += int(k)
-                    return delta
-                diag = torch.where(emask, torch.ones((), dtype=r.dtype, device=r.device),
-                                   problem.J.diagonal())
-                args = ([e for e, _, _ in elems], [ud for _, _, ud in elems],
-                        problem.J._scatter_rows, emask)
-                if self.ksp_type == "cg":
-                    delta, k = _ebe_pcg(*args, diag, -r, self.ksp_rtol, self.ksp_atol, maxiter)
-                    self.ksp_iterations += int(k)
-                    return delta
-                # gmres / bicgstab for nonsymmetric Jacobians, over the same
-                # operator with Jacobi preconditioning; neither reports an
-                # iteration count
-                if self.ksp_type == "gmres":
-                    return krylov.gmres(_ebe_operator(*args), -r, M=_jacobi(diag), tol=self.ksp_rtol,
-                                        atol=self.ksp_atol, maxiter=maxiter, restart=min(n, 50))
-                return krylov.bicgstab(_ebe_operator(*args), -r, M=_jacobi(diag), tol=self.ksp_rtol,
-                                       atol=self.ksp_atol, maxiter=maxiter)
+                with span("deo.solve"):
+                    return krylov_step(r, emask)
             # the assembled matrix is a fresh tensor: eliminate in place
             A = problem.J.matrix()
             keep = (~emask).to(A.dtype)
             A.mul_(keep[:, None]).mul_(keep[None, :])
             A.diagonal().add_(emask.to(A.dtype))
-            return solve_dense(A, -r)
+            with span("deo.solve"):
+                return solve_dense(A, -r)
+
+        def krylov_step(r, emask):
+            """``newton_step`` by a Krylov method over the element tensors."""
+            elems = problem.J.element_tensors()
+            # PETSc KSP default maxits parity (10000); the breakdown guard
+            # in _ebe_pcg exits earlier at the rounding floor
+            maxiter = self.ksp_max_it if self.ksp_max_it is not None else min(10 * n, 10000)
+            if self.pc_type == "mg":
+                delta, k = self._mg_solve(problem, elems, emask, -r, maxiter)
+                self.ksp_iterations += int(k)
+                return delta
+            diag = torch.where(emask, torch.ones((), dtype=r.dtype, device=r.device),
+                               problem.J.diagonal())
+            args = ([e for e, _, _ in elems], [ud for _, _, ud in elems],
+                    problem.J._scatter_rows, emask)
+            if self.ksp_type == "cg":
+                delta, k = _ebe_pcg(*args, diag, -r, self.ksp_rtol, self.ksp_atol, maxiter)
+                self.ksp_iterations += int(k)
+                return delta
+            # gmres / bicgstab for nonsymmetric Jacobians, over the same
+            # operator with Jacobi preconditioning; neither reports an
+            # iteration count
+            if self.ksp_type == "gmres":
+                return krylov.gmres(_ebe_operator(*args), -r, M=_jacobi(diag), tol=self.ksp_rtol,
+                                    atol=self.ksp_atol, maxiter=maxiter, restart=min(n, 50))
+            return krylov.bicgstab(_ebe_operator(*args), -r, M=_jacobi(diag), tol=self.ksp_rtol,
+                                   atol=self.ksp_atol, maxiter=maxiter)
 
         def vi_active(r):
             """RSLS active set: dofs on a bound whose residual pushes them
@@ -464,12 +489,11 @@ class NewtonSolver:
             zero)."""
             if vi:
                 r = torch.where(vi_active(r), zero, r)
-            return float(torch.linalg.vector_norm(r))
+            return host_read(torch.linalg.vector_norm(r))
 
         if vi:
             u._data = torch.clamp(u.data, lb, ub)
-        r = residual()
-        norm0 = rnorm(r)
+        r, norm0 = newton_pass()
         norm = norm0
         it = 0
         # per-solve stats: residual-norm history + backtracking counter.
@@ -490,9 +514,9 @@ class NewtonSolver:
             else:
                 delta = newton_step(r, mask)
                 u._data = u._data + delta
+            count("newton.updates")
             it += 1
-            r = residual()
-            new_norm = rnorm(r)
+            r, new_norm = newton_pass()
             # divergence-only backtracking: full steps on nominal paths (the
             # reference's "basic" line search), halved steps only when the
             # residual grows strongly (robustness; the reference would fail)
@@ -503,8 +527,7 @@ class NewtonSolver:
                 if vi:
                     u._data = torch.clamp(u._data, lb, ub)
                 alpha *= 0.5
-                r = residual()
-                new_norm = rnorm(r)
+                r, new_norm = newton_pass()
             norm = new_norm
             self.history.append(norm)
             if self.monitor:

@@ -47,6 +47,7 @@ import warnings
 import torch
 
 from dolfinx_external_operator_torch import problems
+from dolfinx_external_operator_torch.utils import profiling
 
 SOLVERS = ("dense", "bcr", "mg", "elastic", "general")
 FUSED = ("dense", "bcr", "mg", "elastic")
@@ -129,11 +130,12 @@ def schedule(solver, device, n=25, loads=problems.SLOPE_LOADS):
     fp.run_step(*fp.zero_state(), float(loads[0]))
     if solver == "elastic":
         fp._el_precond = first
-    if solver == "bcr":
-        fp.bcr_stats.update(factorizations=0, inv_levels=0)
+    profiling.reset_counters()
     out = fused_schedule(fp, loads)
     if solver == "bcr":
-        out.update(fp.bcr_stats)
+        c = profiling.counters()
+        out.update(factorizations=c.get("bcr.factorizations", 0),
+                   inv_levels=c.get("bcr.inv_levels", 0))
     return out
 
 

@@ -32,6 +32,7 @@ from dolfinx_external_operator_torch import convert
 from dolfinx_external_operator_torch import mesh as mesh_t
 from dolfinx_external_operator_torch.ops import element_chain as ec
 from dolfinx_external_operator_torch.parallel import bcr as bcr_t
+from dolfinx_external_operator_torch.utils import profiling
 from test_bcr import _random_block_tridiag
 from test_torch_slope_step import RECORD_25X25
 
@@ -124,6 +125,14 @@ def test_build_statics_matches_jax(N):
         assert np.array_equal(a, b), k
 
 
+def _bcr_counts():
+    """The profiling counters of the BCR factorization, as
+    ``{"factorizations": ..., "inv_levels": ...}``."""
+    c = profiling.counters()
+    return {"factorizations": c.get("bcr.factorizations", 0),
+            "inv_levels": c.get("bcr.inv_levels", 0)}
+
+
 def _schedule(fp, loads=LOADS):
     """(Du per step, Newton list, signed rounds per step) as numpy/ints."""
     Du, sig = fp.zero_state()
@@ -145,7 +154,9 @@ def jax_bcr():
 @pytest.fixture(scope="module")
 def port_bcr():
     fp = pt.mohr_coulomb_slope_step(12, 12, route="plain", device="cpu", linear_solver="bcr")
-    return fp, _schedule(fp), dict(fp.bcr_stats)
+    profiling.reset_counters()
+    run = _schedule(fp)
+    return fp, run, _bcr_counts()
 
 
 def test_bcr_step_matches_jax(jax_bcr, port_bcr):
@@ -245,9 +256,10 @@ def test_slope_25x25_bcr_full_schedule():
     of steps 1 and 2 stall short of 1e-13 (negative counts), and the total
     is ~555 rounds against the record's 335 (ROADMAP queue 3)."""
     fp = pt.mohr_coulomb_slope_step(25, 25, route="plain", device="cpu", linear_solver="bcr")
+    profiling.reset_counters()
     du, its, _ = _schedule(fp, loads=pt.SLOPE_LOADS)
     assert its == RECORD_25X25 and sum(its) == 171
-    assert fp.bcr_stats == {"factorizations": 171, "inv_levels": 0}
+    assert _bcr_counts() == {"factorizations": 171, "inv_levels": 0}
     du_j, its_j, _ = _schedule(StepJ(*_jax_slope(25), linear_solver="bcr"), loads=pt.SLOPE_LOADS)
     assert its_j == its
     for a, b in zip(du, du_j):

@@ -324,16 +324,17 @@ def test_cuda_bcr_factor_apply(cuda, dtype, tol):
     64: within 1e-10 in f64, 1e-5 in f32 (this system's condition number
     is a few units), with no level falling back to the LU inverse."""
     from dolfinx_external_operator_torch.parallel import bcr
+    from dolfinx_external_operator_torch.utils import profiling
 
     m, B = 11, 64
     T, A = _block_tridiag(m, B)
     b = np.random.default_rng(1).normal(size=m * B)
-    stats = {}
-    fact = bcr.bcr_factor(torch.tensor(T, dtype=dtype, device=cuda), m, B, stats)
+    profiling.reset_counters()
+    fact = bcr.bcr_factor(torch.tensor(T, dtype=dtype, device=cuda), m, B)
     x = bcr.bcr_apply(fact, torch.tensor(b, dtype=dtype, device=cuda)).cpu().numpy()
     x_ref = np.linalg.solve(A, b)
     assert np.abs(x - x_ref).max() < tol * np.abs(x_ref).max()
-    assert stats.get("inv_levels", 0) == 0
+    assert profiling.counters().get("bcr.inv_levels", 0) == 0
 
 
 def test_cuda_bcr_step_matches_cpu(cuda):

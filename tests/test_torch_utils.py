@@ -16,6 +16,8 @@ Mirrors ``tests/test_taylor.py`` and ``tests/test_checkpoint.py``:
   checkpoint after its first load step equals the uninterrupted run bit
   for bit.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -64,7 +66,10 @@ def _load(P, refresh, to_numpy):
         P["sigma_n"].x.array[:] = sigma.ref_coefficient.data
         if Du0_elastic is None:
             Du0_elastic = to_numpy(Du.data).copy()
-    assert float(P["stats"]["max_f"]) > 1.0  # genuinely yielded final state
+    # genuinely yielded final state: the JAX package's stats keep the
+    # largest f, the port's each point's
+    stats = P["stats"]
+    assert float(stats["max_f"] if "max_f" in stats else stats["yielding"].max()) > 1.0
     return Du0_elastic, to_numpy(Du.data).copy(), to_numpy(P["sigma_n"].data).copy()
 
 
@@ -200,19 +205,21 @@ def test_resumed_run_equals_uninterrupted(tmp_path):
 
 def test_plots_and_step_stats(tmp_path):
     """The figures are written where matplotlib exists (None where it is
-    missing); StepStats records and sums the steps."""
+    missing); ``profiling.trace`` writes a Chrome trace holding the load
+    step's ``deo.step`` span and the counters over its block."""
     P = _slope_start()
     out = plots.save_displacement_field(P["mesh"], P["Du"], str(tmp_path / "u.png"))
     curve = plots.save_load_displacement([("a", np.array([[0.0, 0.0], [1.0, 2.0]]))],
                                          str(tmp_path / "c.png"))
     for path in (out, curve):
         assert path is None or (tmp_path / path.split("/")[-1]).exists()
-    stats = profiling.StepStats(device="cpu")
-    for its in (2, 3):
-        stats.start()
-        stats.stop(newton_its=its)
-    summary = stats.summary()
-    assert summary["n_steps"] == 2 and summary["total_newton_its"] == 5
     with profiling.trace(str(tmp_path / "trace")):
-        torch.ones(3).sum()
-    assert (tmp_path / "trace" / "trace.json").exists()
+        P["q"].value = LOADS[0] * np.array([0.0, -P["gamma"]])
+        its, _ = P["problem"].solve()
+    with open(tmp_path / "trace" / "trace.json") as f:
+        names = [e.get("name") for e in json.load(f)["traceEvents"]]
+    assert names.count("deo.step") == 1
+    with open(tmp_path / "trace" / "counters.json") as f:
+        counters = json.load(f)
+    assert counters["newton.updates"] == its > 0
+    assert counters["host.reads"] == names.count("deo.host_read") > 0
