@@ -947,8 +947,11 @@ def bcr_25x25_phase(report, fp_dense, state):
     du = schedule_bits.fingerprint(Du)
     check(its == rec["newton_per_step"], f"25x25 BCR Newton list {its} != record")
     check(launches == sum(its) + len(its), f"{launches} launches for Newton {its}")
-    # E3: an update's f32 blocks (the bands) and its refinement matvecs
-    check(ec_launches["cell_tangent"] > sum(its), f"BCR's E3 launches {ec_launches}")
+    # E3: an update's f32 blocks (the bands) launched, and its refinement
+    # matvecs inside the round's CUDA graph, a replay a round
+    replays = profiling.counters().get("bcr.round_replays", 0)
+    check(ec_launches["cell_tangent"] >= sum(its) and replays == sum(abs(r) for r in rounds),
+          f"BCR's E3 launches {ec_launches}, {replays} round replays for rounds {rounds}")
     # the rounds beside the last step's Du: other rounds with the same Du
     # bits would not come from E3's bits
     print(f"25x25 slope, BCR + kernel: newton {sum(its)}, launches {launches}, rounds "
@@ -979,7 +982,8 @@ def bcr_layers(fp, Du, sig_n, load):
     plan, m, B = fp._bcr, fp._bcr["m"], fp._bcr["B"]
     C_tang, b = newton_rhs(fp, Du, sig_n, load)
     Tflat = fp._bcr_bands(C_tang)
-    T, d = bcr.equilibrate(Tflat, plan["diag_slot"], m, B)
+    # equilibrate scales in place: the timed calls below rescale Tflat only
+    T, d = bcr.equilibrate(Tflat.clone(), plan["diag_slot"], m, B)
     fact = bcr.bcr_factor(T, m, B)
     return {
         "constitutive_ms": cuda_time_ms(lambda: fp._constitutive(Du, sig_n), 5, warmup=1),

@@ -16,7 +16,9 @@ exact f64 operator.
 
 The host part (``build_bcr_statics``) is numpy; the device part works on
 tensors of any device.  Batched products are ``torch.matmul`` in true f32
-(TF32 is off for the whole package).
+(TF32 is off for the whole package).  A solver keeps one factorization's
+tensors (``bcr_workspace``) and refactors into them, so that a CUDA graph
+of the refinement round (``fixed_round``) reads the current factor.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ import torch
 
 from ..utils.profiling import count, host_read, span
 
-__all__ = ["bcr_apply", "bcr_factor", "build_bcr_statics", "equilibrate", "ir_direct"]
+__all__ = ["bcr_apply", "bcr_factor", "bcr_workspace", "build_bcr_statics", "equilibrate",
+           "fixed_round", "ir_direct"]
 
 
 # ---------------------------------------------------------------------------
@@ -136,7 +139,7 @@ def build_bcr_statics(mesh, V, bc_mask):
 # device-side factorization and solve
 # ---------------------------------------------------------------------------
 
-def _spd_inv_batched(Ks, counter=None):
+def _spd_inv_batched(Ks, counter=None, out=None):
     """Explicit inverses of a batch of SPD matrices: batched Cholesky, the
     factor's inverse by one triangular solve against I, and the Gram
     product ``inv(L)^T inv(L)``, as the JAX package computes it (on an H100
@@ -145,15 +148,17 @@ def _spd_inv_batched(Ks, counter=None):
     the batch (``info != 0`` or a non-finite factor entry: a non-SPD block)
     sends the whole batch to the pivoted-LU ``inv``, as the JAX package
     does; the profiling counter named ``counter`` (if any) counts those
-    batches.  One host read per call (the breakdown test)."""
+    batches.  Written into ``out`` where given.  One host read per call
+    (the breakdown test)."""
     L, info = torch.linalg.cholesky_ex(Ks)
     if host_read((info != 0).any() | ~torch.isfinite(L).all(), bool):
         if counter is not None:
             count(counter)
-        return torch.linalg.inv(Ks)
+        inv = torch.linalg.inv(Ks)
+        return inv if out is None else out.copy_(inv)
     eye = torch.eye(Ks.shape[-1], dtype=Ks.dtype, device=Ks.device).expand_as(Ks)
     Li = torch.linalg.solve_triangular(L, eye, upper=False)
-    return Li.mT @ Li
+    return torch.matmul(Li.mT, Li, out=out)
 
 
 def _bmv(A, x):
@@ -171,7 +176,21 @@ def _pad_back_to(x, k):
     return torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
 
 
-def bcr_factor(T, m, B):
+def bcr_workspace(m, B, dtype, device):
+    """The tensors of one factorization of ``m`` block rows of ``B``, for
+    ``bcr_factor(..., workspace=)`` to write into: a (levels, root_inv)
+    pair shaped as ``bcr_factor`` returns it, its values unset."""
+    levels = []
+    while m > 1:
+        no = m // 2
+        ne = m - no
+        levels.append({k: torch.empty((ne if k in "AC" else no, B, B), dtype=dtype,
+                                      device=device) for k in ("A", "C", "V", "VL", "VU")})
+        m = ne
+    return levels, torch.empty((1, B, B), dtype=dtype, device=device)
+
+
+def bcr_factor(T, m, B, workspace=None):
     """Cyclic-reduction factorization of the block-tridiagonal system.
 
     ``T`` (m, B, 3B): per block row the dense row band [L | D | U]
@@ -185,34 +204,35 @@ def bcr_factor(T, m, B):
       C  = U_even @ inv(D_right-odd)     (ne, B, B)
       V  = inv(D_odd)                    (no, B, B)
       VL = V @ L_odd,  VU = V @ U_odd    (no, B, B)
+    written into ``workspace`` (``bcr_workspace(m, B, ...)``) where given,
+    by the same operations: the same bits in the same tensors each call.
     """
     count("bcr.factorizations")
     L = T[:, :, :B]
     D = T[:, :, B:2 * B]
     U = T[:, :, 2 * B:]
+    outs, root_out = workspace if workspace is not None else (None, None)
     levels = []
     while m > 1:
         no = m // 2
         ne = m - no
-        V = _spd_inv_batched(D[1::2], "bcr.inv_levels")
+        out = outs[len(levels)] if outs is not None else {}
+        V = _spd_inv_batched(D[1::2], "bcr.inv_levels", out=out.get("V"))
         L_odd, U_odd = L[1::2], U[1::2]
-        # alignment for even block 2k: left odd = #(k-1), right odd = #k
-        Vl = _pad_front(V)[:ne]
-        Llo = _pad_front(L_odd)[:ne]
-        Ulo = _pad_front(U_odd)[:ne]
-        Vr = _pad_back_to(V, ne)
-        Lro = _pad_back_to(L_odd, ne)
-        Uro = _pad_back_to(U_odd, ne)
-
-        A = L[0::2] @ Vl
-        C = U[0::2] @ Vr
+        # alignment for even block 2k: left odd = #(k-1) (padded in front),
+        # right odd = #k (padded at the back).  Each padded operand lives
+        # only for its product, and L, U are negated in place: the first
+        # level's peak then holds a workspace's later levels too
+        A = torch.matmul(L[0::2], _pad_front(V)[:ne], out=out.get("A"))
+        C = torch.matmul(U[0::2], _pad_back_to(V, ne), out=out.get("C"))
         levels.append({"A": A, "C": C, "V": V,
-                       "VL": V @ L_odd, "VU": V @ U_odd})
-        D = D[0::2] - A @ Ulo - C @ Lro
-        L = -(A @ Llo)
-        U = -(C @ Uro)
+                       "VL": torch.matmul(V, L_odd, out=out.get("VL")),
+                       "VU": torch.matmul(V, U_odd, out=out.get("VU"))})
+        D = D[0::2] - A @ _pad_front(U_odd)[:ne] - C @ _pad_back_to(L_odd, ne)
+        L = (A @ _pad_front(L_odd)[:ne]).neg_()
+        U = (C @ _pad_back_to(U_odd, ne)).neg_()
         m = ne
-    root_inv = _spd_inv_batched(D, "bcr.inv_levels")  # (1, B, B)
+    root_inv = _spd_inv_batched(D, "bcr.inv_levels", out=root_out)  # (1, B, B)
     return levels, root_inv
 
 
@@ -246,23 +266,25 @@ def bcr_apply(fact, b):
 
 
 def equilibrate(Tflat, diag_slot, m, B):
-    """Symmetric diagonal equilibration of the assembled row bands.
+    """Symmetric diagonal equilibration of the assembled row bands, in
+    place: a scaled copy would hold the bands twice beside a solver's
+    factor workspace.
 
-    Returns (T (m, B, 3B) scaled, d (m*B,) with ``d = 1/sqrt(|diag|)``); the
-    solve applies ``x = d * apply(d * r)``.  Identity rows (bc/padding) have
-    diag exactly 1, so d = 1 there.  ``Tflat`` is left as it is."""
+    Returns (T (m, B, 3B), ``Tflat`` scaled, d (m*B,) with ``d =
+    1/sqrt(|diag|)``); the solve applies ``x = d * apply(d * r)``.  Identity
+    rows (bc/padding) have diag exactly 1, so d = 1 there."""
     d = 1.0 / torch.sqrt(torch.clamp(torch.abs(Tflat[diag_slot]), min=1e-30))
     dpad = torch.cat([d.new_zeros(B), d, d.new_zeros(B)])
     rows = torch.arange(m, device=d.device)[:, None] * B
     win = dpad[rows + torch.arange(3 * B, device=d.device)[None, :]]
-    T = Tflat.reshape(m, B, 3 * B) * d.view(m, B, 1)
+    T = Tflat.view(m, B, 3 * B).mul_(d.view(m, B, 1))
     return T.mul_(win.view(m, 1, 3 * B)), d
 
 
 _MAX_ROUNDS = 25
 
 
-def ir_direct(mv64, solve32, b, rtol):
+def ir_direct(mv64, solve32, b, rtol, round_fn=None):
     """f64 iterative refinement around the f32 direct solve.
 
     Each round applies the factorization once and re-evaluates the residual
@@ -271,7 +293,17 @@ def ir_direct(mv64, solve32, b, rtol):
     iterate, signed rounds), the count negated when the target was not
     reached.  One host read per round (the loop test); counts
     ``solve.rounds``, and ``solve.short`` where the target was not
-    reached."""
+    reached.
+
+    ``round_fn`` ``(x, r) -> (x', r', |r'| tensor)`` computes a round in
+    place of ``mv64`` and ``solve32`` (``fixed_round``); the iterate it
+    returns may then live in its buffers."""
+    if round_fn is None:
+        def round_fn(x, r):
+            x = x + solve32(r)
+            r = b - mv64(x)
+            return x, r, torch.sqrt(torch.dot(r, r))
+
     bnorm = host_read(torch.sqrt(torch.dot(b, b)))
     target = rtol * bnorm
     x = torch.zeros_like(b)
@@ -279,9 +311,8 @@ def ir_direct(mv64, solve32, b, rtol):
     xb, nb = x, bnorm
     while rn > target and k < _MAX_ROUNDS:
         with span("deo.solve.round"):
-            x = x + solve32(r)
-            r = b - mv64(x)
-            nn = host_read(torch.sqrt(torch.dot(r, r)))
+            x, r, nn = round_fn(x, r)
+            nn = host_read(nn)
         k += 1
         if nn < nb:
             xb, nb = x, nn
@@ -292,3 +323,56 @@ def ir_direct(mv64, solve32, b, rtol):
     if nb > target:
         count("solve.short")
     return xb, (k if nb <= target else -k)
+
+
+def fixed_round(solve32, mv64, b):
+    """``ir_direct``'s round over fixed buffers, for ``ir_direct(...,
+    round_fn=)``: ``x' = x + solve32(r)``, ``r' = b - mv64(x')`` and
+    ``|r'|`` by the eager round's operations, written into one of two
+    (x, r) pairs while the other holds the round's input, so that the best
+    iterate survives a round that does not contract.  ``solve32``, ``mv64``
+    and ``b`` read tensors that stay put: the caller refreshes their
+    values in place between solves.
+
+    Where ``b`` is on the card each direction is captured once as a CUDA
+    graph, after one eager round on the current stream (first-use work
+    stays out of the graphs, and cuBLAS keeps the current stream's
+    workspace), and a round is one replay where the eager round launches
+    about 150 kernels.  Counts ``bcr.round_captures`` once and
+    ``bcr.round_replays`` a round."""
+    pairs = ((torch.zeros_like(b), b.clone()), (torch.empty_like(b), torch.empty_like(b)))
+    nn = b.new_empty(())
+
+    def body(i):
+        (x, r), (x2, r2) = pairs[i], pairs[1 - i]
+        torch.add(x, solve32(r), out=x2)
+        torch.sub(b, mv64(x2), out=r2)
+        torch.sqrt(torch.dot(r2, r2), out=nn)
+
+    run = body
+    if b.is_cuda:
+        body(0)
+        g = (torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph())
+        with torch.cuda.graph(g[0]):
+            body(0)
+        with torch.cuda.graph(g[1], pool=g[0].pool()):
+            body(1)
+        count("bcr.round_captures")
+
+        def run(i):
+            g[i].replay()
+            count("bcr.round_replays")
+
+    def round_fn(x, r):
+        if x is pairs[0][0]:
+            i = 0
+        elif x is pairs[1][0]:
+            i = 1
+        else:  # a solve's first round: its zero iterate and b
+            pairs[0][0].copy_(x)
+            pairs[0][1].copy_(r)
+            i = 0
+        run(i)
+        return (*pairs[1 - i], nn)
+
+    return round_fn

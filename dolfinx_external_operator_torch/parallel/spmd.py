@@ -338,6 +338,16 @@ class FusedPlasticityStep:
             "diag_slot": t(info["diag_slot"]),
             "perm_l2o": t(info["perm_l2o"]),
             "perm_o2l": t(info["perm_o2l"]),
+            # the factor's tensors, refactored in place (first solve on)
+            "ws": None,
+            # the refinement round over fixed buffers, replayed from CUDA
+            # graphs, on the card as ``_mg_solve`` decides: a graph can hold
+            # an NCCL all-reduce (the matvec's sum), not gloo's, which
+            # stages through the host.  Else the eager round
+            "replay": dev.type == "cuda" and (self.device_mesh is None
+                                              or self.device_mesh.backend == "nccl"),
+            "round": None,   # the round and its inputs C_tang, d, b
+            "held": None,
         }
         return True
 
@@ -605,14 +615,32 @@ class FusedPlasticityStep:
         """Block-cyclic-reduction direct solve (spmd.py:724-775): the f32
         factorization of the lattice block-tridiagonal tangent inside f64
         iterative refinement on the exact element-by-element operator.
-        Returns (dx, signed refinement rounds)."""
+        The factor is written into the solver's own tensors.  On the card
+        each refinement round is replayed from a CUDA graph captured at the
+        first solve (``bcr.fixed_round``) over copies of ``C_tang``, ``d``
+        and ``b`` refreshed every solve: the same kernels on the same
+        inputs, so the same bits.  Returns (dx, signed refinement rounds)."""
         plan = self._bcr
-        T, d = _bcr.equilibrate(self._bcr_bands(C_tang), plan["diag_slot"], plan["m"],
-                                plan["B"])
+        m, B = plan["m"], plan["B"]
+        T, d = _bcr.equilibrate(self._bcr_bands(C_tang), plan["diag_slot"], m, B)
+        if plan["ws"] is None:
+            plan["ws"] = _bcr.bcr_workspace(m, B, T.dtype, T.device)
         with span("deo.solve.factor"):
-            fact = _bcr.bcr_factor(T, plan["m"], plan["B"])
-        return _bcr.ir_direct(lambda x: self._bc_matvec(C_tang, x),
-                              lambda rr: self._bcr_apply(fact, d, rr), b, rtol)
+            fact = _bcr.bcr_factor(T, m, B, workspace=plan["ws"])
+        if not plan["replay"]:
+            return _bcr.ir_direct(lambda x: self._bc_matvec(C_tang, x),
+                                  lambda rr: self._bcr_apply(fact, d, rr), b, rtol)
+        held = plan["held"]
+        if held is None:
+            held = plan["held"] = {"C": C_tang.clone(), "d": d.clone(), "b": b.clone()}
+            plan["round"] = _bcr.fixed_round(
+                lambda rr: self._bcr_apply(plan["ws"], held["d"], rr),
+                lambda x: self._bc_matvec(held["C"], x), held["b"])
+        else:
+            for k, v in (("C", C_tang), ("d", d), ("b", b)):
+                held[k].copy_(v)
+        x, k = _bcr.ir_direct(None, None, b, rtol, round_fn=plan["round"])
+        return x.clone(), k  # x may be the round's buffer
 
     def _mg_solve(self, C_tang, b, rtol):
         """AMG-preconditioned mixed-precision CG (spmd.py:639-722): the

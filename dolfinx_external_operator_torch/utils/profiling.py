@@ -30,7 +30,10 @@
 * ``count(name, n=1)``: always-on Python counters: ``newton.passes``,
   ``newton.updates``, ``solve.rounds``, ``solve.short`` (solves that
   ``ir_direct`` ended above their target), ``host.reads``,
-  ``bcr.factorizations``, ``bcr.inv_levels``.  ``counters()`` is a
+  ``bcr.factorizations``, ``bcr.inv_levels``, ``bcr.round_captures``
+  (BCR's refinement round captured as CUDA graphs: once a solver, on the
+  card), ``bcr.round_replays`` (rounds replayed from them: all of that
+  solver's rounds after the capture).  ``counters()`` is a
   snapshot of them and of the kernel wrappers' own launch counts
   (``launches.<wrapper>``, read where they live); ``reset_counters()``
   zeroes the registry (not the wrappers' counts).

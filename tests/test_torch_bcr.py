@@ -2,15 +2,19 @@
 
 - ``bcr_factor``/``bcr_apply`` in f64 on the random SPD block-tridiagonal
   systems of ``tests/test_bcr.py`` agree with the JAX functions and with
-  ``np.linalg.solve`` to 1e-10 relative; ``equilibrate`` agrees in f32 to
-  1e-6 and keeps identity rows at d = 1; ``ir_direct`` signs its round
-  count.
+  ``np.linalg.solve`` to 1e-10 relative; ``equilibrate`` (in place)
+  agrees in f32 to 1e-6 and keeps identity rows at d = 1; ``ir_direct``
+  signs its round count, and gives the eager round's bits and counts
+  through ``fixed_round`` (converging, stalling, capped); ``bcr_factor``
+  into a workspace gives the bits of the factor without one, in the same
+  tensors call after call.
 - ``build_bcr_statics`` is array-equal to the JAX package's (8x8, 25x25).
 - The Mohr-Coulomb slope step with ``linear_solver="bcr"`` on the 12x12
   slope over ``linspace(2, 22.9, 50)[:8]`` (the protocol of
   ``tests/test_bcr.py``) gives the JAX BCR step's Newton list with Du
   within 1e-10, the port's dense step's (two refinement rounds) likewise,
-  repeats bitwise, and refines at most 6 rounds per update.
+  repeats bitwise, gives the same bits with its rounds through
+  ``fixed_round``, and refines at most 6 rounds per update.
 - ``auto`` resolves to BCR above 10k dofs, and to AMG-CG on a mesh that is
   not a lattice, where ``"bcr"`` raises; a step built from a JAX step's
   statics (``convert.py``) runs BCR without a mesh.
@@ -60,8 +64,8 @@ def test_factor_apply_matches_jax(m, B):
 
 
 def test_equilibrate_matches_jax():
-    """f32 equilibration equals the JAX package's to 1e-6 relative and
-    leaves identity (bc/padding) rows with d == 1."""
+    """f32 equilibration, in place, equals the JAX package's to 1e-6
+    relative and leaves identity (bc/padding) rows with d == 1."""
     m, B = 3, 4
     T, _ = _random_block_tridiag(m, B)
     r0, r1 = 5, 9
@@ -71,9 +75,11 @@ def test_equilibrate_matches_jax():
     rows = np.arange(m * B)
     diag_slot = (rows // B) * (B * 3 * B) + (rows % B) * (3 * B) + B + (rows % B)
     Tflat = T.ravel().astype(np.float32)
-    T_t, d_t = bcr_t.equilibrate(torch.tensor(Tflat), torch.tensor(diag_slot), m, B)
+    Tflat_t = torch.tensor(Tflat)
+    T_t, d_t = bcr_t.equilibrate(Tflat_t, torch.tensor(diag_slot), m, B)
     T_j, d_j = bcr_j.equilibrate(jnp.asarray(Tflat), jnp.asarray(diag_slot), m, B)
     assert T_t.dtype == d_t.dtype == torch.float32
+    assert T_t.data_ptr() == Tflat_t.data_ptr()  # scaled in place
     assert float(d_t[r0]) == 1.0 and float(d_t[r1]) == 1.0
     assert _rel(d_t.numpy(), np.asarray(d_j)) < 1e-6
     assert _rel(T_t.numpy(), np.asarray(T_j)) < 1e-6
@@ -92,6 +98,79 @@ def test_ir_direct_signed_rounds():
     assert float(torch.linalg.norm(b - A_t @ x)) < 1e-11 * float(torch.linalg.norm(b))
     _, k_bad = bcr_t.ir_direct(lambda x: A_t @ x, lambda r: 1e-3 * r, b, rtol=1e-12)
     assert k_bad < 0
+
+
+def _solve_counts():
+    c = profiling.counters()
+    return (c.get("solve.rounds", 0), c.get("solve.short", 0), c.get("bcr.round_captures", 0),
+            c.get("bcr.round_replays", 0))
+
+
+# (solve32 from the f64 and f32 factors, rtol, sign of the rounds):
+# converging on the f32 factor; stalling at rounding, below any reachable
+# target, so the round before the last is the best; capped by a solve that
+# halves the error each round
+IR_CASES = {
+    "converging": (lambda f64, f32: (lambda r: bcr_t.bcr_apply(f32, r.float()).double()),
+                   1e-12, 1),
+    "stalling": (lambda f64, f32: (lambda r: bcr_t.bcr_apply(f32, r.float()).double()),
+                 1e-30, -1),
+    "capped": (lambda f64, f32: (lambda r: 0.5 * bcr_t.bcr_apply(f64, r)), 1e-12, -1),
+}
+
+
+@pytest.mark.parametrize("case", list(IR_CASES))
+def test_ir_direct_fixed_round_matches_eager(case):
+    """``ir_direct`` with ``fixed_round``'s buffered round (no graphs off
+    the card) against the eager composition, on two right-hand sides in
+    turn through one round, as a solver reuses it: the same iterate bit for
+    bit, the same signed rounds, ``solve.rounds`` and ``solve.short``; no
+    capture and no replay counted."""
+    make, rtol, sign = IR_CASES[case]
+    m, B = 4, 6
+    T, A = _random_block_tridiag(m, B)
+    A_t = torch.tensor(A)
+    solve32 = make(bcr_t.bcr_factor(torch.tensor(T), m, B),
+                   bcr_t.bcr_factor(torch.tensor(T, dtype=torch.float32), m, B))
+    rhs = [torch.tensor(np.random.default_rng(s).normal(size=m * B)) for s in (2, 3)]
+    held = rhs[0].clone()
+    round_fn = bcr_t.fixed_round(solve32, lambda x: A_t @ x, held)
+    for b in rhs:
+        profiling.reset_counters()
+        x_e, k_e = bcr_t.ir_direct(lambda x: A_t @ x, solve32, b, rtol)
+        eager = _solve_counts()
+        held.copy_(b)
+        profiling.reset_counters()
+        x_f, k_f = bcr_t.ir_direct(None, None, b, rtol, round_fn=round_fn)
+        assert torch.equal(x_f, x_e) and k_f == k_e
+        assert _solve_counts() == eager
+        assert eager[1] == (k_e < 0) and eager[2:] == (0, 0)
+        assert k_e * sign > 0 and (case != "capped" or k_e == -bcr_t._MAX_ROUNDS)
+        if case == "stalling":  # the last round is not the best
+            x_last = x_e + solve32(b - A_t @ x_e)
+            assert 1 < -k_e < bcr_t._MAX_ROUNDS and not torch.equal(x_last, x_e)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_bcr_factor_workspace_bitwise(dtype):
+    """``bcr_factor`` into a ``bcr_workspace``: every level's A, C, V, VL, VU
+    and ``root_inv`` equal to the factor without one, bit for bit; a second
+    call on other bands writes the same tensors (each ``data_ptr`` kept)
+    with that band's factor."""
+    m, B = 11, 4
+    ws = bcr_t.bcr_workspace(m, B, dtype, "cpu")
+    ptrs = [t.data_ptr() for lv in ws[0] for t in lv.values()] + [ws[1].data_ptr()]
+    for seed in (0, 5):
+        T = torch.tensor(_random_block_tridiag(m, B, seed)[0], dtype=dtype)
+        levels, root = bcr_t.bcr_factor(T, m, B)
+        levels_w, root_w = bcr_t.bcr_factor(T, m, B, workspace=ws)
+        assert len(levels_w) == len(levels) == len(ws[0]) == 4
+        for lv, lw, wv in zip(levels, levels_w, ws[0]):
+            assert lv.keys() == lw.keys() == wv.keys()
+            for k in lv:
+                assert lw[k] is wv[k] and lw[k].dtype == dtype and torch.equal(lw[k], lv[k]), k
+        assert root_w is ws[1] and torch.equal(root_w, root)
+        assert [t.data_ptr() for lv in ws[0] for t in lv.values()] + [ws[1].data_ptr()] == ptrs
 
 
 def _jax_slope(N):
@@ -184,6 +263,24 @@ def test_bcr_step_repeats_bitwise(port_bcr):
     du2, its2, rounds2 = _schedule(fp)
     assert (its2, rounds2) == (its, rounds)
     assert all(np.array_equal(a, b) for a, b in zip(du2, du))
+
+
+def test_bcr_step_fixed_rounds_match_eager(port_bcr):
+    """The fused step with its refinement rounds through ``fixed_round``
+    (the card's path, here without graphs) over the schedule: the eager
+    step's Du bit for bit, its Newton list and signed rounds; nothing
+    captured or replayed off the card."""
+    _, (du, its, rounds), _ = port_bcr
+    fp = pt.mohr_coulomb_slope_step(12, 12, route="plain", device="cpu", linear_solver="bcr")
+    assert fp._bcr["replay"] is False
+    fp._bcr["replay"] = True
+    profiling.reset_counters()
+    du2, its2, rounds2 = _schedule(fp)
+    assert (its2, rounds2) == (its, rounds)
+    assert all(np.array_equal(a, b) for a, b in zip(du2, du))
+    c = profiling.counters()
+    assert (c.get("bcr.round_captures", 0), c.get("bcr.round_replays", 0)) == (0, 0)
+    assert c["solve.rounds"] == sum(abs(r) for r in rounds) > 0
 
 
 def test_bcr_rounds_bounded(port_bcr):

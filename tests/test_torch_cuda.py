@@ -360,6 +360,44 @@ def test_cuda_bcr_step_matches_cpu(cuda):
     assert its_c2 == its_c and torch.equal(Du_c2, Du_c)
 
 
+def test_cuda_bcr_graphed_rounds_match_eager(cuda):
+    """The 8x8 slope with linear_solver="bcr" over linspace(2, 22.9,
+    50)[:8], its refinement rounds replayed from CUDA graphs and run eagerly
+    (``_bcr["replay"]`` off): every update's dx bit for bit and its signed
+    rounds, each update on another tangent; the solver captured once, and
+    a replay for every round."""
+    from dolfinx_external_operator_torch.utils import profiling
+
+    loads = np.linspace(2, 22.9, 50)[:8]
+
+    def run(replay):
+        fp = pt.mohr_coulomb_slope_step(8, 8, route="plain", device=cuda, linear_solver="bcr")
+        assert fp._bcr["replay"] is True
+        fp._bcr["replay"] = replay
+        solves, solve = [], fp._bcr_solve
+
+        def logged(C_tang, b, rtol):
+            dx, k = solve(C_tang, b, rtol)
+            solves.append((dx.cpu(), k))
+            return dx, k
+
+        fp._bcr_solve = logged
+        profiling.reset_counters()
+        Du, sig = fp.zero_state()
+        for load in loads:
+            Du, sig, *_ = fp.run_step(Du, sig, load)
+        return solves, profiling.counters()
+
+    eager, c_e = run(False)
+    graphed, c_g = run(True)
+    assert len(graphed) == len(eager) > 1
+    assert [k for _, k in graphed] == [k for _, k in eager]
+    assert all(torch.equal(a, b) for (a, _), (b, _) in zip(graphed, eager))
+    assert c_g["bcr.round_captures"] == 1
+    assert c_g["bcr.round_replays"] == c_g["solve.rounds"] == c_e["solve.rounds"] > 0
+    assert c_e.get("bcr.round_captures", 0) == c_e.get("bcr.round_replays", 0) == 0
+
+
 def _slope_run(solver, device, N=12, loads=(2.0, 6.0, 10.0, 14.0)):
     """The N x N slope with the plain return map over ``loads``: Du (on
     the CPU), the Newton list and the inner iterations per step."""
