@@ -6,7 +6,8 @@ it (``problems.build_plasticity_block``, the material's
 ``run_schedule`` carries it.
 
 Spans in traced runs: ``_constitutive`` (E1 and K1), ``_residual`` (E2),
-``_dense_solve``, ``_bcr_solve`` and ``parallel.bcr.bcr_factor``."""
+``_dense_solve``, ``_bcr_solve``, ``parallel.bcr.bcr_factor`` and
+``_mg_solve``; each solver runs only its own."""
 
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ import numpy as np
 from .common import port_material
 
 SPANS = {"_constitutive": "fembench.constitutive", "_residual": "fembench.residual",
-         "_dense_solve": "fembench.dense_solve", "_bcr_solve": "fembench.bcr_solve"}
+         "_dense_solve": "fembench.dense_solve", "_bcr_solve": "fembench.bcr_solve",
+         "_mg_solve": "fembench.mg_solve"}
 
 
 class Cell:

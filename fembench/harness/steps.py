@@ -3,9 +3,15 @@
 The configuration's schedule runs in order from the zero state, as a
 user's script runs it (a closed loop: one step at a time), and starts
 again after its last step.  A timed window ends at the first step boundary
-after ``seconds``; a traced one runs ``passes`` whole schedules.  Each step
-is timed from one CUDA event at each boundary; the window by the host
-clock, from a synchronise to the synchronise after its last step.
+after ``seconds``, or with ``whole`` at the first schedule boundary after
+it, where the steps' costs differ so much that a window ending inside a
+schedule would read as many rates as places it can end.  A traced one runs
+``passes`` whole schedules; where a whole schedule's trace would be too
+large to read within a run's time, it starts at step ``first`` of the
+schedule, from the state that ``lead_in`` left before the profiler
+opened.  Each step is timed from one CUDA event at each boundary; the
+window by the host clock, from a synchronise to the synchronise after its
+last step.
 
 The steps judged afterwards: the first schedule's last ``tail`` steps (the
 ones nearest collapse, with the most Newton updates), and of every step
@@ -40,22 +46,37 @@ class Window:
         self.kept = []
 
 
+def lead_in(cell, loads, steps):
+    """The schedule's first ``steps`` steps from the zero state, outside any
+    window: each step's Newton updates and how many did not converge."""
+    updates, failed = [], 0
+    if steps:
+        cell.start()
+        for load in np.asarray(loads, dtype=np.float64)[:steps]:
+            its, ok, _ = cell.step(float(load), False)
+            updates.append(int(its))
+            failed += not ok
+    return updates, failed
+
+
 def run(cell, loads, seed, device, seconds=None, passes=None, sample=16, tail=3,
-        span=False):
+        span=False, first=0, whole=False):
     """Drive ``cell`` (an entry's load-step cell: ``start()``, ``step(load,
     keep) -> (updates, converged, state or None)``) over ``loads``; with
-    ``span``, inside the spans of a traced window."""
+    ``span``, inside the spans of a traced window; from step ``first``
+    where ``lead_in`` ran the steps before it."""
     loads = np.asarray(loads, dtype=np.float64)
     prio = sample_priorities(seed)
     heap, forced = [], []  # (draw, index, state)
     w = Window()
     clock = EventClock(device)
-    pos, done_passes = 0, 0
+    pos, done_passes = first, 0
     sync(device)
     with window_span() if span else contextlib.nullcontext():
         t0 = time.perf_counter()
         clock.mark()
-        cell.start()
+        if not first:
+            cell.start()
         while True:
             draw = next(prio)
             first_tail = done_passes == 0 and pos >= len(loads) - tail
@@ -82,7 +103,8 @@ def run(cell, loads, seed, device, seconds=None, passes=None, sample=16, tail=3,
                 if passes is not None and done_passes == passes:
                     break
                 cell.start()
-            if seconds is not None and time.perf_counter() - t0 >= seconds:
+            if (seconds is not None and time.perf_counter() - t0 >= seconds
+                    and (pos == 0 or not whole)):
                 break
         sync(device)
         w.seconds = time.perf_counter() - t0

@@ -96,6 +96,11 @@ class Trace:
                     break
         return total * 1e-6
 
+    def idle_s_in(self, name):
+        """Idle seconds of the gaps that began where span ``name`` was the
+        innermost of the benchmark's spans open."""
+        return self._gaps.get(name, 0.0)
+
     def device_s_of(self, pattern):
         """Device seconds of the kernels whose name matches ``pattern``."""
         rx = re.compile(pattern)

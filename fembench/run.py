@@ -2,19 +2,20 @@
 
     python3 fembench/run.py --workload <name> --seed <n> --seconds <s> --trace <0|1>
 
-Set-up builds the cell from its configuration and traffic mix (the
-program's tables, the inputs from the seed, the kernels from the build
-cache in the checkout) and warms every shape the window uses.  With
-``--trace 0`` the window runs ``--seconds`` and the line's metrics are the
-cell's end-to-end metrics; with ``--trace 1`` it runs under the profiler
-for the mix's traced length and the metrics are the cell's per-layer
-metrics.  Then the plain reference judges what the window produced, and
-the last line of standard output is one JSON object: ``correct``,
-``attempted``, ``failed``, ``metrics``, ``device``, with ``--trace 1``
-``breakdown``, and last ``checks``, each number compared beside its limit
-(also the last lines of standard error).  Without a CUDA device, or with
-fewer than the cell asks for, or with JAX loaded at the end, it exits
-non-zero and prints no result.
+The cell is one of ``BENCHMARK.json``, or a held-out cell whose file keeps
+its entries.  Set-up builds the cell from its configuration, the problem
+it names and its traffic mix (the program's tables, the inputs from the
+seed, the kernels from the build cache in the checkout) and warms every
+shape the window uses.  With ``--trace 0`` the window runs ``--seconds`` and the
+line's metrics are the cell's end-to-end metrics; with ``--trace 1`` it
+runs under the profiler for the mix's traced length and the metrics are
+the cell's per-layer metrics.  Then the problem's plain reference judges
+what the window produced, and the last line of standard output is one JSON
+object: ``correct``, ``attempted``, ``failed``, ``metrics``, ``device``,
+with ``--trace 1`` ``breakdown``, and last ``checks``, each number compared
+beside its limit (also the last lines of standard error).  Without a CUDA
+device, or with fewer than the cell asks for, or with JAX loaded at the
+end, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -38,7 +39,6 @@ import torch  # noqa: E402
 from fembench.harness import catalog, guard, steps  # noqa: E402
 from fembench.harness.timing import process_age_s, sync  # noqa: E402
 from fembench.harness.trace import traced  # noqa: E402
-from fembench.harness.traffic import cohesion_factor  # noqa: E402
 
 
 def schedule(config):
@@ -61,21 +61,18 @@ def verdict(attempted, failed, checks, limits):
 def run_cell(cell, seed, seconds, trace, device):
     """Set-up, window, judgment and metrics of one run: the result's
     fields.  ``main`` adds the look for a card and the JAX check."""
-    from fembench.counts import bcr as bcr_counts
-    from fembench.reference.judge import judge_points, judge_steps
-    from fembench.reference.mohr_coulomb import Material
-    from fembench.reference.slope import Slope
-
     cfg, traffic, spec = cell.config, cell.traffic, cell.spec
-    factor = cohesion_factor(seed, cfg["seed"]["cohesion_spread"])
+    problem = cell.problem(seed)
     Entry = cell.driver().Cell
-    prog = Entry(cfg, traffic, factor, device, seed, spans=bool(trace))
+    prog = Entry(cfg, traffic, problem.draw, device, seed, spans=bool(trace))
     loads = schedule(cfg)
     prog.warm(loads)
     sync(device)
     setup_s = process_age_s()
 
     box = {}
+    first = traffic.get("trace_from", 0) if trace and Entry.kind == "steps" else 0
+    lead, lead_failed = steps.lead_in(prog, loads, first)
     with traced(device, box) if trace else contextlib.nullcontext():
         if Entry.kind == "calls":
             w = prog.run(seconds=None if trace else seconds,
@@ -84,33 +81,30 @@ def run_cell(cell, seed, seconds, trace, device):
             w = steps.run(prog, loads, seed, device, seconds=None if trace else seconds,
                           passes=traffic["trace_passes"] if trace else None,
                           sample=traffic["judge"]["sample"], tail=traffic["judge"]["tail"],
-                          span=bool(trace))
+                          span=bool(trace), first=first,
+                          whole=traffic.get("close_at") == "schedule")
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
     counts = prog.counts()
 
     # the reference, once the window has closed
-    mat = Material.from_config(cfg["material"], factor)
     if Entry.kind == "calls":
         batches = prog.batches()
         del prog
         gc.collect()
-        checks, ref_iters = judge_points(mat, batches)
+        checks, ref_iters = problem.judge_points(batches)
         attempted, failed = w.calls, w.failed
         metrics = {"gauss_pts_per_s": w.calls * counts["points"] / w.seconds}
     else:
         kept = w.kept
         del prog
         gc.collect()
-        m = cfg["mesh"]
-        slope = Slope(m["Nx"], m["Ny"], m["L"], m["H"])
-        checks = judge_steps(slope, slope.on(device, torch.float64), mat, kept)
+        checks = problem.judge_steps(kept, device)
         ref_iters = None
-        attempted, failed = w.steps, w.failed
+        attempted, failed = w.steps, w.failed + lead_failed
         metrics = steps.step_metrics(w)
-        counts["n_dofs_reference"] = slope.n_dofs
-        counts["bcr_blocks"] = bcr_counts.lattice_blocks(m["Nx"], m["Ny"])
+        counts.update(problem.counts())
         counts["updates"] = int(sum(w.updates))
-        counts["newton_first_pass"] = w.updates[:len(loads)]
+        counts["newton_first_pass"] = lead + w.updates[:len(loads) - first]
     limits = spec["limits"]
     correct = verdict(attempted, failed, checks, limits)
 
@@ -135,7 +129,7 @@ def run_cell(cell, seed, seconds, trace, device):
     if trace:
         result["device"].update(busy_s=tr.busy_s, window_s=tr.window_s)
         result["breakdown"] = tr.breakdown()
-    result["info"] = {"seed": seed, "cohesion_factor": factor, "setup_s": setup_s,
+    result["info"] = {"seed": seed, "draw": problem.draw, "setup_s": setup_s,
                       "window_s": w.seconds, **counts}
     result["checks"] = {k: {"value": checks[k], "limit": limits[k]} for k in limits}
     return result
@@ -159,7 +153,7 @@ def main(argv=None):
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = ap.parse_args(argv)
 
-    cell = catalog.Cell(args.workload)
+    cell = catalog.find(args.workload)
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
         print(f"fembench: {args.workload} needs {cell.chips} CUDA device(s); "
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0} available",

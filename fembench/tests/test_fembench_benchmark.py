@@ -6,13 +6,14 @@ the JAX check behave as the benchmark's contract asks."""
 import json
 import os
 import sys
+import time
 
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, ROOT)
 
-from fembench.harness import catalog, guard  # noqa: E402
+from fembench.harness import catalog, guard, steps  # noqa: E402
 from fembench.run import verdict  # noqa: E402
 
 BENCH = catalog.benchmark()
@@ -82,18 +83,34 @@ def test_metric_reader_is_found_by_name(metric):
     assert callable(reader.read)
 
 
-def test_held_out_cell_is_complete():
+@pytest.mark.parametrize("name, kind, end_to_end", [
+    ("mc-slope-100x100.returnmap-mix", "calls", {"gauss_pts_per_s", "setup_s"}),
+    ("mc-slope-25x25.fused-mg", "steps", {"step_s", "setup_s"}),
+])
+def test_held_out_cell_is_complete(name, kind, end_to_end):
     """A held-out cell's file keeps its BENCHMARK.json entries, which name
-    files that exist, so that putting it back edits no file."""
-    name = "mc-slope-100x100.returnmap-mix"
+    files that exist, so that putting it back edits no file; a metric that
+    BENCHMARK.json already has gains the cell in its list, once."""
     assert name not in CELLS
     bench = catalog.with_held_out(name)
-    cell = catalog.Cell(name, bench)
-    assert cell.driver().Cell.kind == "calls"
-    assert {m["name"] for m in cell.end_to_end} == {"gauss_pts_per_s", "setup_s"}
+    for group in ("workloads", "end_to_end", "per_layer"):
+        names = [m["name"] for m in bench[group]]
+        assert len(names) == len(set(names)), group
+    cell = catalog.find(name)
+    assert cell.driver().Cell.kind == kind
+    assert {m["name"] for m in cell.end_to_end} == end_to_end
+    assert cell.per_layer
     for m in cell.per_layer:
         reader = catalog.metric_reader(m["name"])
         assert (reader.LAYER, reader.MOVES, reader.UNIT) == (m["layer"], m["moves"], m["unit"])
+    assert all(name not in m.get("workloads", ()) for m in BENCH["per_layer"])
+
+
+def test_a_cell_neither_listed_nor_held_out_is_refused():
+    with pytest.raises(KeyError, match="no-such"):
+        catalog.find("mc-slope-25x25.no-such")
+    with pytest.raises(KeyError, match="held-out"):
+        catalog.with_held_out("mc-slope-25x25.fused-dense")
 
 
 def test_files_under_paths_are_named_from_name_characters():
@@ -105,13 +122,15 @@ def test_files_under_paths_are_named_from_name_characters():
 
 
 def test_configs_hold_the_cells_sizes():
+    """Each configuration's file agrees with its entry, and its stated dofs
+    with its problem's reference (the slope's other sizes:
+    ``test_fembench_problems.py``)."""
     for c in BENCH["configs"]:
         cfg = catalog.load_json(os.path.join(ROOT, c["file"]))
         assert cfg["name"] == c["name"] and cfg["source"] == c["source"]
         assert sorted(cfg["reduced"]) == sorted(c["reduced"])
-        n = cfg["mesh"]["Nx"]
-        assert cfg["sizes"]["dofs"] == 2 * (2 * n + 1) ** 2
-        assert cfg["sizes"]["gauss_points"] == 6 * n * n
+        counts = catalog.problem_class(cfg)(cfg, 0).counts()
+        assert cfg["sizes"]["dofs"] == counts["n_dofs_reference"]
         assert len(cfg["record"]["newton_per_step"]) == cfg["schedule"]["steps"]
 
 
@@ -158,3 +177,58 @@ def test_last_line_keys(tmp_path):
     assert {"step_s", "step_p95_s", "setup_s"} == set(line["metrics"])
     for c in line["checks"].values():
         assert set(c) == {"value", "limit"}
+
+
+def test_traced_window_from_a_later_step():
+    """A mix's ``trace_from`` runs the schedule's first steps before the
+    profiler opens; the traced window holds the rest of the schedule, the
+    per-update metrics read its updates alone, and the Newton list is the
+    whole schedule's."""
+    import torch
+
+    from fembench.run import run_cell
+
+    cell = catalog.find("mc-slope-25x25.fused-mg")
+    cell.config["mesh"].update(Nx=2, Ny=2)
+    cell.config["schedule"] = {"linspace": [[2.0, 12.0, 3]], "steps": 3}
+    cell.traffic["trace_from"] = 1
+    torch.set_num_threads(1)
+    res = run_cell(cell, 11, 0.05, 1, torch.device("cpu"))
+    assert res["correct"] and res["attempted"] == 2
+    first_pass = res["info"]["newton_first_pass"]
+    assert len(first_pass) == 3 and res["info"]["updates"] == sum(first_pass[1:])
+    assert "host_reads_per_update" in res["metrics"]
+
+
+class Sleeper:
+    """A load-step cell whose step sleeps for its load in seconds."""
+
+    def __init__(self):
+        self.starts, self.seen = 0, []
+
+    def start(self):
+        self.starts += 1
+
+    def step(self, load, keep):
+        time.sleep(load)
+        self.seen.append(load)
+        return 1, True, ({} if keep else None)
+
+
+@pytest.mark.parametrize("whole, want", [(False, 1), (True, 3)])
+def test_window_closes_at_a_step_or_at_a_schedule_boundary(whole, want):
+    import torch
+
+    w = steps.run(Sleeper(), [0.02, 0.001, 0.001], 5, torch.device("cpu"), seconds=0.005,
+                  sample=0, tail=0, whole=whole)
+    assert w.steps == want
+
+
+def test_lead_in_then_a_window_from_that_step():
+    import torch
+
+    cell, loads = Sleeper(), [0.0, 1e-4, 2e-4, 3e-4]
+    assert steps.lead_in(cell, loads, 2) == ([1, 1], 0)
+    w = steps.run(cell, loads, 5, torch.device("cpu"), passes=1, sample=0, tail=1, first=2)
+    assert cell.starts == 1 and cell.seen == loads and w.steps == 2
+    assert [s["load"] for s in w.kept] == [3e-4] and w.updates == [1, 1]

@@ -17,12 +17,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 sys.path.insert(0, ROOT)
 
 from fembench.harness import catalog  # noqa: E402
-from fembench.harness.traffic import cohesion_factor  # noqa: E402
 from fembench.run import run_cell  # noqa: E402
 
 HELD_OUT = "mc-slope-100x100.returnmap-mix"
 CELLS = ["mc-slope-25x25.fused-dense", "mc-slope-25x25.general-lu",
-         "mc-slope-100x100.fused-bcr", HELD_OUT]
+         "mc-slope-100x100.fused-bcr", "mc-slope-25x25.fused-mg", HELD_OUT]
 CPU = torch.device("cpu")
 SEED = 2**31 + 5
 
@@ -31,7 +30,7 @@ def small(name):
     """The cell at 3 x 3 cells with a three-step schedule to 22 (a pool of
     two 54-point batches): every path, plastic points included; Newton is
     cut at 6 updates, so that a broken path fails soon."""
-    cell = catalog.Cell(name, catalog.with_held_out(HELD_OUT) if name == HELD_OUT else None)
+    cell = catalog.find(name)
     cell.config["mesh"].update(Nx=3, Ny=3)
     cell.config["newton"]["max_it"] = 6
     cell.config["schedule"] = {"linspace": [[2.0, 22.0, 3]], "steps": 3}
@@ -138,8 +137,8 @@ def _kernel(monkeypatch, fault):
     monkeypatch.setattr(M, "batched_kernel", faulty)
 
 
-PLANT = {"fused-dense": _fused, "fused-bcr": _fused, "general-lu": _general,
-         "returnmap-mix": _kernel}
+PLANT = {"fused-dense": _fused, "fused-bcr": _fused, "fused-mg": _fused,
+         "general-lu": _general, "returnmap-mix": _kernel}
 
 
 @pytest.mark.parametrize("fault", ["unchanged", "half", "altered"])
@@ -157,17 +156,12 @@ def _reference_steps(monkeypatch, dtype):
     the step in ``dtype``."""
     from dolfinx_external_operator_torch.parallel.spmd import FusedPlasticityStep as FP
 
-    from fembench.reference.mohr_coulomb import Material
-    from fembench.reference.slope import Slope
-    from fembench.reference.solve import solve_step
-
     def reference_step(self, Du, sn, load):
         cfg = self._fembench_cfg
-        slope = Slope(cfg["mesh"]["Nx"], cfg["mesh"]["Ny"])
-        mat = Material.from_config(cfg["material"],
-                                   cohesion_factor(SEED, cfg["seed"]["cohesion_spread"]))
-        Du_r, sig_r = solve_step(slope, slope.on(CPU, dtype), mat, sn, Du, load, dtype)
-        return Du_r.to(torch.float64), sig_r.to(torch.float64), 0.0, 1, 0
+        problem = catalog.problem_class(cfg)(cfg, SEED)
+        (step,) = problem.control_steps([{"load": load, "sigma_n": sn, "Du_in": Du}], CPU,
+                                        dtype)
+        return step["Du"].to(torch.float64), step["sigma"].to(torch.float64), 0.0, 1, 0
 
     monkeypatch.setattr(FP, "run_step", reference_step)
 
@@ -186,16 +180,13 @@ def test_reference_in_the_programs_place(monkeypatch, dtype, correct):
 def test_f32_return_map_in_the_kernels_place(monkeypatch):
     from dolfinx_external_operator_torch.models.mohr_coulomb import MohrCoulombMaterial as M
 
-    from fembench.reference.mohr_coulomb import Material, return_map
-
     cfg = small("mc-slope-100x100.returnmap-mix").config
-    mat = Material.from_config(cfg["material"],
-                               cohesion_factor(SEED, cfg["seed"]["cohesion_spread"]))
+    problem = catalog.problem_class(cfg)(cfg, SEED)
 
     def f32_kernel(self, route="cuda"):
         def call(deps, sn):
-            sig, C, *_ = return_map(mat, deps, sn, dtype=torch.float32)
-            return C.to(torch.float64), sig.to(torch.float64)
+            (b,) = problem.control_points([{"deps": deps, "sigma_n": sn}], torch.float32)
+            return b["tangent"].to(torch.float64), b["sigma"].to(torch.float64)
         return call
 
     monkeypatch.setattr(M, "batched_kernel", f32_kernel)
@@ -206,7 +197,7 @@ def test_f32_return_map_in_the_kernels_place(monkeypatch):
 # -- on the card ---------------------------------------------------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", CELLS[:3])
+@pytest.mark.parametrize("name", [c for c in CELLS if c != HELD_OUT])
 def test_cell_is_correct_on_the_card(name):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")

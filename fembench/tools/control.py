@@ -6,10 +6,12 @@ float64), judged as a run is judged; beside it, the same seed's sound run.
 
 For a load-step cell the program runs one schedule from the zero state and
 keeps the steps a run keeps (the last ``tail`` and the ``sample`` with the
-highest draws); the control solves each of those steps in f32 with the
-reference's Newton and sparse LU (``reference.solve``), from the stress
-and the first guess the step was handed.  For the return-map cell the
-control is the reference's return map in f32 on every batch of the pool.
+highest draws); the control solves each of those steps in f32 by the
+reference alone, from the stress and the first guess the step was handed
+(the problem's ``control_steps``; for the slope, the reference's Newton
+and sparse LU, ``reference.solve``).  For the return-map cell the control
+is the reference's return map in f32 on every batch of the pool
+(``control_points``).  Both are judged by the problem's own judge.
 Each reading is printed and appended to ``--out``: the benchmark's own runs
 never run this."""
 
@@ -28,11 +30,6 @@ if ROOT not in sys.path:
 import torch  # noqa: E402
 
 from fembench.harness import catalog, steps  # noqa: E402
-from fembench.harness.traffic import cohesion_factor  # noqa: E402
-from fembench.reference.judge import judge_points, judge_steps  # noqa: E402
-from fembench.reference.mohr_coulomb import Material, return_map  # noqa: E402
-from fembench.reference.slope import Slope  # noqa: E402
-from fembench.reference.solve import solve_step  # noqa: E402
 from fembench.run import schedule  # noqa: E402
 
 
@@ -40,35 +37,20 @@ def readings(cell, seed, device, dtype=torch.float32, sample=None):
     """``{"program": {...}, "control": {...}}`` for one seed; ``sample``
     overrides the mix's number of sampled steps (the tail is kept)."""
     cfg, traffic = cell.config, cell.traffic
-    factor = cohesion_factor(seed, cfg["seed"]["cohesion_spread"])
-    mat = Material.from_config(cfg["material"], factor)
+    problem = cell.problem(seed)
     Entry = cell.driver().Cell
+    prog = Entry(cfg, traffic, problem.draw, device, seed)
     if Entry.kind == "calls":
-        prog = Entry(cfg, traffic, factor, device, seed)
         prog.warm(None)
         batches = prog.batches()
-        program, _ = judge_points(mat, batches)
-        ctrl = []
-        for b in batches:
-            sig, C, *_ = return_map(mat, b["deps"], b["sigma_n"], dtype=dtype)
-            ctrl.append(dict(b, sigma=sig, tangent=C))
-        control, _ = judge_points(mat, ctrl)
+        program, _ = problem.judge_points(batches)
+        control, _ = problem.judge_points(problem.control_points(batches, dtype))
         return {"program": program, "control": control}
-    prog = Entry(cfg, traffic, factor, device, seed)
-    loads = schedule(cfg)
-    w = steps.run(prog, loads, seed, device, passes=1,
+    w = steps.run(prog, schedule(cfg), seed, device, passes=1,
                   sample=traffic["judge"]["sample"] if sample is None else sample,
                   tail=traffic["judge"]["tail"])
-    m = cfg["mesh"]
-    slope = Slope(m["Nx"], m["Ny"], m["L"], m["H"])
-    program = judge_steps(slope, slope.on(device, torch.float64), mat, w.kept)
-    arrays = slope.on(device, dtype)
-    ctrl = []
-    for s in w.kept:
-        Du, sig = solve_step(slope, arrays, mat, s["sigma_n"], s["Du_in"], s["load"], dtype,
-                             atol=cfg["newton"]["atol"])
-        ctrl.append({"load": s["load"], "sigma_n": s["sigma_n"], "Du": Du, "sigma": sig})
-    control = judge_steps(slope, slope.on(device, torch.float64), mat, ctrl)
+    program = problem.judge_steps(w.kept, device)
+    control = problem.judge_steps(problem.control_steps(w.kept, device, dtype), device)
     return {"program": program, "control": control, "steps": len(w.kept)}
 
 
@@ -82,7 +64,7 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
-    cell = catalog.Cell(args.workload)
+    cell = catalog.find(args.workload)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     for seed in args.seeds:
         t0 = time.perf_counter()

@@ -36,7 +36,6 @@ import torch  # noqa: E402
 from fembench.harness import catalog, steps  # noqa: E402
 from fembench.harness.program_spans import ProgramSpans  # noqa: E402
 from fembench.harness.trace import Trace  # noqa: E402
-from fembench.harness.traffic import cohesion_factor  # noqa: E402
 from fembench.run import card_line, schedule  # noqa: E402
 
 # the program's spans that stand for the benchmark's, by linear solver
@@ -48,6 +47,7 @@ PAIRS = {
     "dense": dict(_FUSED, dense_solve=(("deo.solve",), ("fembench.dense_solve",))),
     "bcr": dict(_FUSED, bcr_factor=(("deo.solve.factor",), ("fembench.bcr_factor",)),
                 bcr_solve=(("deo.solve",), ("fembench.bcr_solve",))),
+    "mg": dict(_FUSED, mg_solve=(("deo.solve",), ("fembench.mg_solve",))),
     "lu_ir": {"lu_ir": (("deo.solve",), ("fembench.lu_ir",)),
               **{mine: ((f"deo.{mine}",), (f"fembench.{theirs}",)) for mine, theirs in _FORMS},
               "assembly": (tuple(f"deo.{mine}" for mine, _ in _FORMS),
@@ -90,15 +90,18 @@ def traced_events(body, device):
             return out, json.load(f)["traceEvents"]
 
 
-def window(prog, loads, seed, device, program_spans):
-    """One traced schedule; the program's spans on or off."""
+def window(prog, loads, seed, device, program_spans, first=0):
+    """One traced schedule from its step ``first``, the steps before it run
+    untraced (the mix's ``trace_from``); the program's spans on or off."""
     from dolfinx_external_operator_torch.utils import profiling
 
     shut = (lambda: False) if not program_spans else profiling._recording
+    steps.lead_in(prog, loads, first)
     with mock.patch.object(profiling, "_recording", shut):
         profiling.reset_counters()
         w, events = traced_events(lambda: steps.run(prog, loads, seed, device, passes=1,
-                                                    sample=0, tail=0, span=True), device)
+                                                    sample=0, tail=0, span=True,
+                                                    first=first), device)
         sites = sum(profiling.span_counts().values())
     return w, events, sites
 
@@ -128,7 +131,7 @@ def main(argv=None):
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    result = measure(catalog.Cell(args.workload), args.seed, args.repeat,
+    result = measure(catalog.find(args.workload), args.seed, args.repeat,
                      torch.device("cuda", 0))
     out = args.out or os.path.join("chiprun_out", f"program_spans.{args.workload}.json")
     os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
@@ -142,18 +145,18 @@ def measure(cell, seed, repeat, device):
     """The readings of ``main`` for ``cell`` on ``device``."""
     cfg, traffic = cell.config, cell.traffic
     Entry = cell.driver().Cell
-    prog = Entry(cfg, traffic, cohesion_factor(seed, cfg["seed"]["cohesion_spread"]),
-                 device, seed, spans=True)
+    prog = Entry(cfg, traffic, cell.problem(seed).draw, device, seed, spans=True)
     loads = schedule(cfg)
     prog.warm(loads)
     idle = catalog.metric_reader("device_idle_pct.step")
     result = {"workload": cell.name, "seed": seed,
               "card": card_line() if device.type == "cuda" else "cpu",
               "gate": gate_cost_us(), "runs": []}
-    window(prog, loads, seed, device, True)
+    first = traffic.get("trace_from", 0)
+    window(prog, loads, seed, device, True, first)
     for k in range(repeat):
         for on in (True, False) if k % 2 == 0 else (False, True):
-            w, events, sites = window(prog, loads, seed, device, on)
+            w, events, sites = window(prog, loads, seed, device, on, first)
             tr = Trace(events)
             updates = int(sum(w.updates))
             run = {"program_spans": on, "steps": w.steps, "updates": updates,
