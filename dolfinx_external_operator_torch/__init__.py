@@ -39,8 +39,8 @@ callback.  Its linear solvers: the dense f32 LU with f64 refinement, and
 element-by-element CG, GMRES and BiCGStab (``krylov``) with Jacobi or
 aggregation-AMG preconditioning; bound-constrained Newton
 (``vinewtonrsls``).  Through it run the reference's other demos: the von
-Mises cylinder (``models.von_mises.solve_von_mises`` and its pure-form
-twin) and the ICNN hyperelasticity model (``models.icnn``,
+Mises cylinder (``models.von_mises.build_cylinder_problem``, stepped by
+``solve_von_mises``, and its pure-form twin) and the ICNN hyperelasticity model (``models.icnn``,
 ``models.hyperelasticity``).
 
 Entry points take ``device=None``, meaning ``"cuda"``; without a card they

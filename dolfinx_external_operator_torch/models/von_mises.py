@@ -9,12 +9,15 @@ material constants (``:54-74``), the return maps (``_return_mapping_kernel``
 here every map is written on the batch directly, with the Gauss-point axis
 LAST (SoA), the layout of the fused step's kernel contract.
 
-``solve_von_mises`` runs the reference demo ``demo_plasticity_von_mises.py``
-through the general pipeline: the stress is a ``FEMExternalOperator`` of
+``build_cylinder_problem`` writes the reference demo
+``demo_plasticity_von_mises.py`` through the general pipeline, one load step
+a ``problem.solve()``: the stress is a ``FEMExternalOperator`` of
 ``epsilon(Du)`` whose callback is the f64 ``VonMisesMaterial`` on the
 operands' device (as in the JAX package, whose general path uses the f64
-map, not the f32 kernel).  ``solve_von_mises_pure_form`` is the analytic
-pure-form twin (``demo_plasticity_von_mises_pure_ufl.py``), the oracle.
+map, not the f32 kernel K2, whose f64 entry computes in f32 inside);
+``solve_von_mises`` steps it over the demo's schedule.
+``solve_von_mises_pure_form`` is the analytic pure-form twin
+(``demo_plasticity_von_mises_pure_ufl.py``), the oracle.
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ import torch
 from ..ops.vonmises import vonmises_return_map_f64
 
 __all__ = ["VonMisesMaterial", "batched_kernel_f32", "batched_kernel_f64",
-           "return_mapping_kernel", "solve_von_mises", "solve_von_mises_pure_form"]
+           "build_cylinder_problem", "return_mapping_kernel", "solve_von_mises",
+           "solve_von_mises_pure_form"]
 
 # Geometry / material constants of the reference demo (:183-204)
 R_E, R_I = 1.3, 1.0
@@ -52,31 +56,35 @@ Q_LIM = float(2.0 / np.sqrt(3.0) * np.log(R_E / R_I) * SIGMA_0)
 PARAMS = (LAMBDA, MU, H_MOD, SIGMA_0)
 
 
-def return_mapping_kernel(deps, sigma_n, p):
+def return_mapping_kernel(deps, sigma_n, p, material=None):
     """Analytic return map with consistent tangent, f64, batch last:
     deps/sigma_n (4, N), p (N,) -> (C_tang (4, 4, N), sig (4, N), dp (N,)).
     The formula of the JAX package's ``_return_mapping_kernel``, with the
-    same guarded divisions (elastic points get exactly zero plastic terms)."""
+    same guarded divisions (elastic points get exactly zero plastic terms).
+    ``material``: a ``VonMisesMaterial`` whose constants the map reads
+    (default: the demo's)."""
+    m = _DEMO if material is None else material
+    mu, H, sigma_0 = m.mu, m.H, m.sigma_0
     dt, dev = deps.dtype, deps.device
-    C = torch.as_tensor(C_ELAS, dtype=dt, device=dev)
+    C = torch.as_tensor(m.C, dtype=dt, device=dev)
     D = torch.as_tensor(DEV4, dtype=dt, device=dev)
     sig_el = sigma_n + C @ deps
     s = D @ sig_el
     sig_eq = torch.sqrt(1.5 * (s * s).sum(0))
-    f_el = sig_eq - SIGMA_0 - H_MOD * p
+    f_el = sig_eq - sigma_0 - H * p
     f_plus = (f_el + torch.sqrt(f_el * f_el)) / 2.0
-    dp = f_plus / (3.0 * MU + H_MOD)
+    dp = f_plus / (3.0 * mu + H)
     plastic = f_el > 0.0
     one = torch.ones((), dtype=dt, device=dev)
     zero = torch.zeros((), dtype=dt, device=dev)
     sig_eq_safe = torch.where(sig_eq > 0.0, sig_eq, one)
     n_elas = torch.where(plastic, s / sig_eq_safe * f_plus / torch.where(plastic, f_el, one), zero)
-    beta = torch.where(plastic, 3.0 * MU * dp / sig_eq_safe, zero)
+    beta = torch.where(plastic, 3.0 * mu * dp / sig_eq_safe, zero)
     sig = sig_el - beta * s
     C_tang = (
         C[:, :, None]
-        - 3.0 * MU * (3.0 * MU / (3.0 * MU + H_MOD) - beta) * (n_elas[:, None, :] * n_elas[None, :, :])
-        - 2.0 * MU * beta * D[:, :, None]
+        - 3.0 * mu * (3.0 * mu / (3.0 * mu + H) - beta) * (n_elas[:, None, :] * n_elas[None, :, :])
+        - 2.0 * mu * beta * D[:, :, None]
     )
     return C_tang, sig, dp
 
@@ -113,14 +121,34 @@ def batched_kernel_f32(tile=512):
 
 class VonMisesMaterial:
     """Batched f64 return map with consistent tangent on flat point-major
-    arrays, as the JAX package's ``VonMisesMaterial.__call__`` takes them."""
+    arrays, as the JAX package's ``VonMisesMaterial.__call__`` takes them,
+    for J2 plasticity with linear isotropic hardening: Young's modulus
+    ``E``, Poisson's ratio ``nu``, tangent modulus ``E_t`` and yield stress
+    ``sigma_0`` (default: the demo's, which give the module constants'
+    bits)."""
+
+    def __init__(self, E=E_MOD, nu=NU, E_t=E_TANGENT, sigma_0=SIGMA_0):
+        self.E, self.nu, self.E_t, self.sigma_0 = E, nu, E_t, sigma_0
+        self.H = E * E_t / (E - E_t)
+        self.lmbda = E * nu / (1.0 + nu) / (1.0 - 2.0 * nu)
+        self.mu = E / 2.0 / (1.0 + nu)
+        lm, mu = self.lmbda, self.mu
+        self.C = np.array([[lm + 2 * mu, lm, lm, 0.0], [lm, lm + 2 * mu, lm, 0.0],
+                           [lm, lm, lm + 2 * mu, 0.0], [0.0, 0.0, 0.0, 2 * mu]])
+
+    def q_lim(self, R_e=R_E, R_i=R_I):
+        """The thick cylinder's limit pressure under this yield stress."""
+        return float(2.0 / np.sqrt(3.0) * np.log(R_e / R_i) * self.sigma_0)
 
     def __call__(self, deps_flat, sigma_n_flat, p_flat):
         deps = deps_flat.reshape(-1, 4).T
         sn = sigma_n_flat.reshape(-1, 4).T
         p = p_flat.reshape(-1)
-        C_tang, sig, dp = return_mapping_kernel(deps, sn, p)
+        C_tang, sig, dp = return_mapping_kernel(deps, sn, p, self)
         return C_tang.permute(2, 0, 1).reshape(-1), sig.T.reshape(-1), dp.reshape(-1)
+
+
+_DEMO = VonMisesMaterial()
 
 
 # ----------------------------------------------------------------------
@@ -162,20 +190,23 @@ def _probe(mesh):
     return find_cell_by_point(mesh, np.array([[R_I, 0, 0]]))
 
 
-def solve_von_mises(lc=0.3, num_increments=20, verbose=False, snes_opts=None, device=None,
-                    steps=None):
-    """External-operator implementation (reference
-    demo_plasticity_von_mises.py) on ``device`` (``None``: the card; raises
-    without one).  ``snes_opts`` go into the Newton solver's PETSc options
-    (``{"ksp_type": "cg", "pc_type": "mg"}``: AMG-CG).  ``steps``: run only
-    the first ``steps`` load steps of the ``num_increments`` schedule
-    (default: all; the rows of ``results`` after them stay zero).
+def build_cylinder_problem(lc=0.3, material=None, snes_opts=None, device=None):
+    """The demo's cylinder (``demo_plasticity_von_mises.py``) as a problem
+    to step by hand, on ``device`` (``None``: the card; raises without
+    one): the stress a ``FEMExternalOperator`` of ``epsilon(Du)`` with the
+    hidden operands ``sigma_n`` and ``p``, whose callback is ``material``'s
+    f64 map (default: the demo's), the inner arc's pressure ``loading``,
+    solved by ``NonlinearProblem`` with ``snes_opts`` in its PETSc options
+    (``{"ksp_type": "cg", "pc_type": "mg"}``: AMG-CG).
 
-    Returns the JAX package's results, and besides them ``step_s`` (the
-    host seconds of each load step), ``ksp_iterations`` (the inner
-    iterations of each step) and ``problem``."""
-    import time
-
+    A load step: set ``loading.value`` and ``Du`` (the demo: machine
+    epsilon everywhere), call ``problem.solve()``, then add ``Du`` to
+    ``u`` and ``dp`` to ``p`` and hand ``sigma``'s values on to
+    ``sigma_n``, as ``solve_von_mises`` does.  Returns a dict of
+    ``problem``, ``mesh``, ``V``, ``S``, ``Du``, ``u``, ``p``, ``dp``,
+    ``sigma``, ``sigma_n``, ``loading``, ``constitutive_update``,
+    ``material``, ``q_lim`` (the material's limit pressure) and ``probe``
+    (the cells and points of ``(R_i, 0)``, for ``u.eval``)."""
     from .. import resolve_device, solvers
     from ..elements import quadrature_element
     from ..external_operator import (
@@ -189,6 +220,7 @@ def solve_von_mises(lc=0.3, num_increments=20, verbose=False, snes_opts=None, de
     from ..sym import FacetNormal, TestFunction, TrialFunction, derivative, inner
 
     dev = resolve_device(device)
+    material = VonMisesMaterial() if material is None else material
     mesh, facet_tags, V, bcs, ds, dx, k_stress = _setup_common(lc)
 
     Du = Function(V, name="displacement_increment", device=dev)
@@ -200,7 +232,6 @@ def solve_von_mises(lc=0.3, num_increments=20, verbose=False, snes_opts=None, de
     dp = Function(P, name="incremental_plastic_strain", device=dev)
     sigma_n = Function(S, name="stress_n", device=dev)
 
-    material = VonMisesMaterial()
     sigma = FEMExternalOperator(epsilon(Du), function_space=S,
                                 hidden_operands=[sigma_n, p], name="sigma", device=dev)
 
@@ -232,15 +263,39 @@ def solve_von_mises(lc=0.3, num_increments=20, verbose=False, snes_opts=None, de
     opts.update(snes_opts or {})
     problem = solvers.NonlinearProblem(F_replaced, Du, J_replaced, bcs=bcs,
                                        petsc_options=opts, external_callback=constitutive_update)
+    return {"problem": problem, "mesh": mesh, "V": V, "S": S, "Du": Du, "u": u, "p": p,
+            "dp": dp, "sigma": sigma, "sigma_n": sigma_n, "loading": loading,
+            "constitutive_update": constitutive_update, "material": material,
+            "q_lim": material.q_lim(), "probe": _probe(mesh)}
 
-    cells, points = _probe(mesh)
+
+def solve_von_mises(lc=0.3, num_increments=20, verbose=False, snes_opts=None, device=None,
+                    steps=None):
+    """External-operator implementation (reference
+    demo_plasticity_von_mises.py) on ``device`` (``None``: the card; raises
+    without one): ``build_cylinder_problem`` stepped over the demo's
+    schedule.  ``snes_opts`` go into the Newton solver's PETSc options
+    (``{"ksp_type": "cg", "pc_type": "mg"}``: AMG-CG).  ``steps``: run only
+    the first ``steps`` load steps of the ``num_increments`` schedule
+    (default: all; the rows of ``results`` after them stay zero).
+
+    Returns the JAX package's results, and besides them ``step_s`` (the
+    host seconds of each load step), ``ksp_iterations`` (the inner
+    iterations of each step) and ``problem``."""
+    import time
+
+    P = build_cylinder_problem(lc, snes_opts=snes_opts, device=device)
+    problem, Du, u, p, dp = P["problem"], P["Du"], P["u"], P["p"], P["dp"]
+    sigma, sigma_n, loading, q_lim = P["sigma"], P["sigma_n"], P["loading"], P["q_lim"]
+    cells, points = P["probe"]
 
     load_steps = np.linspace(0, 1.1, num_increments, endpoint=True) ** 0.5
-    loadings = Q_LIM * load_steps
+    loadings = q_lim * load_steps
     results = np.zeros((num_increments, 2))
     iterations, step_s, ksp_its = [], [], []
 
-    eps_tiny = torch.full((V.num_dofs,), np.finfo(np.float64).eps, dtype=torch.float64, device=dev)
+    eps_tiny = torch.full((Du.function_space.num_dofs,), np.finfo(np.float64).eps,
+                          dtype=torch.float64, device=Du.device)
     for i, load in enumerate(loadings[:steps]):
         if verbose:
             print(f"Load increment #{i}, load: {load:.3f}")
@@ -257,11 +312,11 @@ def solve_von_mises(lc=0.3, num_increments=20, verbose=False, snes_opts=None, de
         p.x.axpy(1.0, dp.x)
         sigma_n.x.array[:] = sigma.ref_coefficient.data
         if points:
-            results[i, :] = (float(u.eval(points, cells)[0, 0]), load / Q_LIM)
+            results[i, :] = (float(u.eval(points, cells)[0, 0]), load / q_lim)
         step_s.append(time.perf_counter() - t0)
 
     return {"results": results, "iterations": iterations, "u": u, "p": p,
-            "sigma": sigma, "mesh": mesh, "q_lim": Q_LIM, "step_s": step_s,
+            "sigma": sigma, "mesh": P["mesh"], "q_lim": q_lim, "step_s": step_s,
             "ksp_iterations": ksp_its, "problem": problem}
 
 

@@ -40,8 +40,9 @@ package loops in Python over bands and stencil taps (and XLA fuses the
 loop), this module gathers through a table built once and sums over the
 table's axis, a few launches per operator.  Every scatter-add is a padded
 gather table (``scatter.py``), never ``index_add_``.  The JAX
-``while_loop``s are Python loops with one host read per inner iteration
-and one per refinement round.
+``while_loop``s are Python loops with one host read per inner iteration,
+or per batch of them (``ir_pcg``'s ``graphs``), and one per refinement
+round.
 """
 
 from __future__ import annotations
@@ -81,6 +82,9 @@ _MAX_ROUNDS = 6
 _INNER_FLOOR = 1e-6
 _INNER_CAP = 600
 _STALL_WINDOW = 30
+# ir_pcg reads its loop tests once per batch of iterations, the batch
+# doubling from 1 up to this
+_READ_BATCH = 8
 
 
 # ======================================================================
@@ -957,7 +961,7 @@ def _chebyshev(matvec, dinv, b, x0, coeffs):
     return x
 
 
-def mg_setup(plan, K0_cell_f32, free=None):
+def mg_setup(plan, K0_cell_f32, free=None, out=None):
     """Per-Newton values: level-0 operator and diagonal, coarse values
     (level 1 by the per-cell triple product, deeper levels by their
     Galerkin maps or frozen), Jacobi diagonals, Chebyshev bounds, the
@@ -966,7 +970,13 @@ def mg_setup(plan, K0_cell_f32, free=None):
     ``K0_cell_f32`` (nc, nk, nk): bc-masked element blocks.  In dia mode
     the level-0 runtime vectors are in the lattice numbering.  ``free``:
     the level-0 element-blocked matvec's free dofs for this call
-    (``ebe_matvec``; scalar and node mode), the hierarchy's otherwise."""
+    (``ebe_matvec``; scalar and node mode), the hierarchy's otherwise.
+
+    ``out``: an earlier call's result on the same plan, ``K0_cell_f32``
+    and ``free`` (the same tensors, holding this call's values): its
+    tensors take this call's values in place and it is returned, so that
+    its matvecs, and a CUDA graph of a cycle captured over it, read the
+    new hierarchy."""
     levels, transfers, whole = plan["levels"], plan["transfers"], plan["whole"]
     n0, degree = plan["n0"], plan["cheb_degree"]
     if plan["mode"] == "dia":
@@ -982,7 +992,8 @@ def mg_setup(plan, K0_cell_f32, free=None):
         mv0 = ebe_matvec(K0_cell_f32, plan["ebe"], free)
     d0 = torch.where(d0.abs() > 1e-30, d0, 1.0)
     dinv0 = 1.0 / d0
-    rt = {"d0": d0, "dinv0": dinv0, "mv0": mv0, "lmax0": _power_lmax(mv0, dinv0, n0)}
+    rt = {"d0": d0, "dinv0": dinv0, "mv0": mv0, "lmax0": _power_lmax(mv0, dinv0, n0),
+          "vals0": vals0 if plan["mode"] == "dia" else None}
     rt["cheb0"] = _cheb_coeffs(rt["lmax0"], degree)
 
     # level 1: per-cell triple product (E5 twice, (W^T K) W in a fixed
@@ -1000,7 +1011,7 @@ def mg_setup(plan, K0_cell_f32, free=None):
         lvl_vals.append(dedup_write(prev[t["src"]] * t["w"], t["dst"]).view(lvl["cols"].shape))
     rt["vals"] = lvl_vals
 
-    rt["dinvs"], rt["lmaxs"], rt["chebs"], rt["mvs"] = [], [], [], []
+    rt["dinvs"], rt["lmaxs"], rt["chebs"], rt["mvs"], rt["level_ops"] = [], [], [], [], []
     dense = None
     for lvl, vals in zip(levels, lvl_vals):
         d = vals.reshape(-1)[lvl["diag_slot"]]
@@ -1012,18 +1023,20 @@ def mg_setup(plan, K0_cell_f32, free=None):
             # slots hold zeros and alias the diagonal band); no identity
             # rows, as the ELL matvec
             band1 = lvl["dia"]
-            vals1 = dedup_write(vals.reshape(-1), band1["vals"]).view(band1["nb"], n)
-            mv = (lambda v, b: lambda x: _dia_matvec(v, b, None, x))(vals1, band1)
+            op = dedup_write(vals.reshape(-1), band1["vals"]).view(band1["nb"], n)
+            mv = (lambda v, b: lambda x: _dia_matvec(v, b, None, x))(op, band1)
         elif lvl["kind"] == "dense":
-            dense = dedup_write(vals.reshape(-1), lvl["dense"]).view(n, n)
+            dense = op = dedup_write(vals.reshape(-1), lvl["dense"]).view(n, n)
             mv = dense.mv
         else:
+            op = vals
             mv = (lambda v, c: lambda x: _ell_matvec(v, c, x))(vals, lvl["cols"])
         lmax = _power_lmax(mv, dinv, n)
         rt["dinvs"].append(dinv)
         rt["lmaxs"].append(lmax)
         rt["chebs"].append(_cheb_coeffs(lmax, degree))
         rt["mvs"].append(mv)
+        rt["level_ops"].append(op)
 
     # coarsest level: explicit f32 inverse (the W-cycle applies it several
     # times per cycle as one matvec); zero rows (dofs supported by bc
@@ -1033,7 +1046,24 @@ def mg_setup(plan, K0_cell_f32, free=None):
         dense = dedup_write(lvl_vals[-1].reshape(-1), last["dense"]).view(last["n"], last["n"])
     dL = torch.diagonal(dense)
     rt["coarse_inv"] = torch.linalg.inv(dense + torch.diag(1.0 - (dL.abs() > 1e-30).to(_F32)))
-    return rt
+    if out is None:
+        return rt
+    for old, new in zip(_tensors(out), _tensors(rt)):
+        old.copy_(new)
+    return out
+
+
+def _tensors(tree):
+    """The tensors of ``mg_setup``'s result in a fixed order (its matvecs,
+    closures over some of them, are skipped)."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
 
 
 def _restrict(t, r_f):
@@ -1051,6 +1081,36 @@ def _prolong(t, x_c):
     return (t["P_w"] * x_c[t["P_idx"]]).sum(1)
 
 
+def _graphed(fn, *args):
+    """``fn(*args)`` captured once in a CUDA graph over copies of its
+    tensor arguments (a dict of them, or tensors): each call copies its
+    arguments in, replays, and returns the graph's outputs, which the next
+    replay overwrites."""
+    def copies(a):
+        return {k: v.clone() for k, v in a.items()} if isinstance(a, dict) else a.clone()
+
+    inputs = [copies(a) if isinstance(a, (dict, torch.Tensor)) else a for a in args]
+    # one eager call first: first-use work (library handles, workspaces)
+    # stays out of the graph.  On the current stream: a new stream per
+    # capture would give cuBLAS a new workspace each time, which it keeps
+    fn(*inputs)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*inputs)
+
+    def run(*args):
+        for dst, src in zip(inputs, args):
+            if isinstance(dst, dict):
+                for k, v in src.items():
+                    dst[k].copy_(v)
+            elif isinstance(dst, torch.Tensor):
+                dst.copy_(src)
+        graph.replay()
+        return out
+
+    return run
+
+
 def cuda_graphed(fn, like):
     """``fn``, a map of one tensor to one tensor that reads nothing back to
     the host, captured once in a CUDA graph; each call of the returned
@@ -1060,24 +1120,53 @@ def cuda_graphed(fn, like):
     shape and dtype) is not on the card, ``fn`` itself."""
     if like.device.type != "cuda":
         return fn
-    x = like.clone()
-    # one eager call first: first-use work (library handles, workspaces)
-    # stays out of the graph.  On the current stream: a new stream per
-    # capture would give cuBLAS a new workspace each time, which it keeps
-    fn(x)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        y = fn(x)
-
-    def replay(r):
-        x.copy_(r)
-        graph.replay()
-        return y.clone()
-
-    return replay
+    run = _graphed(fn, like)
+    return lambda r: run(r).clone()
 
 
-def ir_pcg(mv64, mv32, M32, b, rtol, maxiter, *, atol=0.0, to_inner=None, from_inner=None):
+def _pcg_iterations(mv32, M32, state, n):
+    """``n`` iterations of ``ir_pcg``'s f32 PCG from ``state`` (``x``,
+    ``r``, ``p``, ``rz``, ``nb``, ``xb``), reading nothing back: the state
+    after them, each iteration's loop test (n, 3: ``good``, the residual
+    norm, ``better``) and each iteration's best iterate (n, len)."""
+    x, r, p, rz, nb, xb = (state[k] for k in ("x", "r", "p", "rz", "nb", "xb"))
+    tests, xbs = [], []
+    for _ in range(n):
+        Ap = mv32(p)
+        pAp = torch.dot(p, Ap)
+        good = torch.isfinite(pAp) & (pAp > 0.0) & torch.isfinite(rz) & (rz > 0.0)
+        alpha = torch.where(good, rz / torch.where(pAp > 0.0, pAp, 1.0), 0.0)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = M32(r)
+        rz2 = torch.dot(r, z)
+        beta = torch.where(rz > 0.0, rz2 / torch.where(rz > 0.0, rz, 1.0), 0.0)
+        p = z + beta * p
+        nn = torch.linalg.vector_norm(r)
+        better = nn < nb
+        xb = torch.where(better, x, xb)
+        nb = torch.where(better, nn, nb)
+        good = good & torch.isfinite(nn) & (nn < 100.0 * nb)
+        rz = rz2
+        tests.append(torch.stack([good.to(_F32), nn, better.to(_F32)]))
+        xbs.append(xb)
+    state = {"x": x, "r": r, "p": p, "rz": rz, "nb": nb, "xb": xb}
+    if n == 1:  # views: a read an iteration launches what it always did
+        return state, tests[0][None], xb[None]
+    return state, torch.stack(tests), torch.stack(xbs)
+
+
+def _pcg_start(M32, r):
+    """The f32 PCG's first preconditioned residual: ``z``, ``r . z``,
+    ``|r|`` and the loop's first test (``r . z >= 0``, ``|r|``)."""
+    z = M32(r)
+    rz = torch.dot(r, z)
+    nb = torch.linalg.vector_norm(r)
+    return z, rz, nb, torch.stack([(rz >= 0.0).to(_F32), nb])
+
+
+def ir_pcg(mv64, mv32, M32, b, rtol, maxiter, *, atol=0.0, to_inner=None, from_inner=None,
+           graphs=None):
     """Mixed-precision solve: f32 PCG rounds inside f64 iterative
     refinement.  Each round solves ``A dx = r`` in f32 (``mv32``, ``M32``)
     to the tolerance that reaches the outer target ``max(rtol * |b|,
@@ -1089,8 +1178,17 @@ def ir_pcg(mv64, mv32, M32, b, rtol, maxiter, *, atol=0.0, to_inner=None, from_i
     the f32 iteration then runs in the inner layout (the DIA lattice
     numbering) while ``mv64`` and the result stay in the caller's.
 
-    One host read per inner iteration (the loop test) and one per round;
-    counts ``solve.rounds``.  Returns (x_best, total_inner_iterations)."""
+    ``graphs``: a dict the caller keeps, where ``mv32`` and ``M32`` read
+    nothing but tensors that outlive it.  Given it, the f32 iterations run
+    in batches of 1, 2, 4, then ``_READ_BATCH``, each batch's loop tests
+    read in one host read (where a test ends the loop inside a batch, the
+    best iterate of that iteration is the result: the iterations after it
+    change nothing returned), and on the card each batch, and each round's
+    first cycle, is replayed from a CUDA graph stored there (by the batch's
+    size, and as ``"start"``), captured at its first use (counted as
+    ``mg.captures``).  Without it, one host read per iteration.  One more
+    per round; counts ``solve.rounds`` and the f32 iterations as
+    ``solve.inner``.  Returns (x_best, total_inner_iterations)."""
     to_inner = to_inner or (lambda v: v)
     from_inner = from_inner or (lambda v: v)
     bnorm = host_read(torch.linalg.vector_norm(b))
@@ -1101,36 +1199,35 @@ def ir_pcg(mv64, mv32, M32, b, rtol, maxiter, *, atol=0.0, to_inner=None, from_i
         the target, the budget, SPD breakdown, divergence past 100x the
         best residual, or stagnation (no new best iterate within
         ``_STALL_WINDOW`` iterations)."""
+        graphed = graphs is not None and r32.is_cuda
+        if graphed:
+            if "start" not in graphs:
+                graphs["start"] = _graphed(_pcg_start, M32, r32)
+                count("mg.captures")
+            z, rz, nb, test = graphs["start"](M32, r32)
+        else:
+            z, rz, nb, test = _pcg_start(M32, r32)
+        ok, ncur = host_read(test, torch.Tensor.tolist)
         x = torch.zeros_like(r32)
-        r = r32
-        z = M32(r)
-        rz = torch.dot(r, z)
-        nb = torch.linalg.vector_norm(r)
-        ok, ncur = host_read(torch.stack([(rz >= 0.0).to(_F32), nb]), torch.Tensor.tolist)
-        p, xb, k, k_best = z, x, 0, 0
+        state = {"x": x, "r": r32, "p": z, "rz": rz, "nb": nb, "xb": x}
+        k, k_best, batch = 0, 0, 1
         while ok and ncur > tgt and k < budget and k - k_best < _STALL_WINDOW:
-            Ap = mv32(p)
-            pAp = torch.dot(p, Ap)
-            good = torch.isfinite(pAp) & (pAp > 0.0) & torch.isfinite(rz) & (rz > 0.0)
-            alpha = torch.where(good, rz / torch.where(pAp > 0.0, pAp, 1.0), 0.0)
-            x = x + alpha * p
-            r = r - alpha * Ap
-            z = M32(r)
-            rz2 = torch.dot(r, z)
-            beta = torch.where(rz > 0.0, rz2 / torch.where(rz > 0.0, rz, 1.0), 0.0)
-            p = z + beta * p
-            nn = torch.linalg.vector_norm(r)
-            better = nn < nb
-            xb = torch.where(better, x, xb)
-            nb = torch.where(better, nn, nb)
-            good = good & torch.isfinite(nn) & (nn < 100.0 * nb)
-            rz = rz2
-            k += 1
-            ok, ncur, is_better = host_read(torch.stack([good.to(_F32), nn, better.to(_F32)]),
-                                            torch.Tensor.tolist)
-            if is_better:
-                k_best = k
-        return xb, k
+            n = min(batch, budget - k)
+            if graphed:
+                if n not in graphs:
+                    graphs[n] = _graphed(_pcg_iterations, mv32, M32, state, n)
+                    count("mg.captures")
+                state, tests, xbs = graphs[n](mv32, M32, state, n)
+            else:
+                state, tests, xbs = _pcg_iterations(mv32, M32, state, n)
+            for j, (ok, ncur, is_better) in enumerate(host_read(tests, torch.Tensor.tolist)):
+                k += 1
+                if is_better:
+                    k_best = k
+                if not (ok and ncur > tgt and k < budget and k - k_best < _STALL_WINDOW):
+                    return xbs[j].clone() if graphed else xbs[j], k
+            batch = min(2 * batch, _READ_BATCH) if graphs is not None else 1
+        return state["xb"].clone() if graphed else state["xb"], k
 
     x = torch.zeros_like(b)
     r64, rnorm, k_tot, rounds, ok = b, bnorm, 0, 0, True
@@ -1146,6 +1243,7 @@ def ir_pcg(mv64, mv32, M32, b, rtol, maxiter, *, atol=0.0, to_inner=None, from_i
             r64 = b - mv64(x)
             rn = host_read(torch.linalg.vector_norm(r64))
         count("solve.rounds")
+        count("solve.inner", k)
         if rn < nbest:
             xb, nbest = x, rn
         ok = np.isfinite(rn) and rn < rnorm  # stop when a round stalls

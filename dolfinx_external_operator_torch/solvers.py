@@ -332,9 +332,15 @@ class NewtonSolver:
         cg: the mixed-precision ``ir_pcg`` (f32 PCG with one cycle per
         iteration inside f64 refinement), honouring ``ksp_atol``.  gmres:
         f64 GMRES on the true operator with the cycle (symmetrized values)
-        as its preconditioner; it reports 0 iterations.  On the card the
-        cycle is replayed from a CUDA graph captured once per call
-        (``mg.cuda_graphed``).  Returns (delta, inner iterations)."""
+        as its preconditioner; it reports 0 iterations.  A workspace kept
+        for the solver's life holds every batch's f32 element blocks, the
+        masks and the hierarchy's values, which ``mg_setup(..., out=)``
+        refreshes in place each call; on the card cg replays the f32 PCG's
+        batches of iterations (``ir_pcg``'s ``graphs``) and gmres the cycle
+        (``mg.cuda_graphed``) from CUDA graphs over it, captured at the
+        first call.  The set-up lies in a ``deo.solve.setup`` span and
+        counts ``mg.setups``; each graph counts ``mg.captures``.  Returns
+        (delta, inner iterations)."""
         from .parallel import mg as mgmod
 
         if self._mg is None:
@@ -350,10 +356,7 @@ class NewtonSolver:
         K_dom = Kbs[dom]
         if gmres:  # the smoother values track the symmetric part
             K_dom = 0.5 * (K_dom + K_dom.transpose(1, 2))
-        rt = mgmod.mg_setup(plan, K_dom.to(f32), free)
         mvs64 = [mgmod.ebe_matvec(Kb, e, free) for Kb, e in zip(Kbs, st["ebe"])]
-        sec32 = [mgmod.ebe_matvec(Kb.to(f32), e, free)
-                 for i, (Kb, e) in enumerate(zip(Kbs, st["ebe"])) if i != dom]
 
         def mv(x):
             out = mvs64[0](x)
@@ -362,26 +365,46 @@ class NewtonSolver:
             return out
 
         def mv32(x):
-            out = rt["mv0"](x)
-            for m in sec32:
-                out = out + m(x) - torch.where(mask, x, 0.0)
+            out = ws["rt"]["mv0"](x)
+            for m in ws["sec32"]:
+                out = out + m(x) - torch.where(ws["mask"], x, 0.0)
             return out
 
         def M(r):
-            z = mgmod.vcycle(plan, rt, torch.where(mask, 0.0, r.to(f32)))
-            return torch.where(mask, r, z.to(r.dtype))
+            z = mgmod.vcycle(plan, ws["rt"], torch.where(ws["mask"], 0.0, r.to(f32)))
+            return torch.where(ws["mask"], r, z.to(r.dtype))
 
-        # sharded, the cycle's level-0 matvec all-reduces: a graph holds an
-        # NCCL all-reduce, not gloo's, which stages through the host, so
-        # over gloo the cycle runs eager
+        # on the card, graphs over the workspace: cg's batches of f32 PCG
+        # iterations, gmres's cycle, captured at the first call; sharded,
+        # the level-0 matvec all-reduces, and a graph holds an NCCL
+        # all-reduce, not gloo's, which stages through the host
         dmesh = problem.J.device_mesh
-        if dmesh is None or dmesh.backend == "nccl":
-            M = mgmod.cuda_graphed(M, torch.zeros_like(b if gmres else b.to(f32)))
+        graphable = dmesh is None or dmesh.backend == "nccl"
+        with span("deo.solve.setup"):
+            ws = st.get("ws")
+            sec = [i for i in range(len(Kbs)) if i != dom]
+            if ws is None:
+                ws = st["ws"] = {"K32": K_dom.to(f32), "free": free.clone(),
+                                 "mask": mask.clone(), "pcg": {},
+                                 "K32s": [Kbs[i].to(f32) for i in sec]}
+                ws["sec32"] = [mgmod.ebe_matvec(K, st["ebe"][i], ws["free"])
+                               for K, i in zip(ws["K32s"], sec)]
+            else:
+                for key, val in (("K32", K_dom), ("free", free), ("mask", mask)):
+                    ws[key].copy_(val)
+                for K, i in zip(ws["K32s"], sec):
+                    K.copy_(Kbs[i])
+            ws["rt"] = mgmod.mg_setup(plan, ws["K32"], ws["free"], out=ws.get("rt"))
+            count("mg.setups")
+            if gmres and graphable and b.is_cuda and "M" not in ws:
+                ws["M"] = mgmod.cuda_graphed(M, torch.zeros_like(b))
+                count("mg.captures")
         if gmres:
-            delta = krylov.gmres(mv, b, M=M, tol=self.ksp_rtol, atol=self.ksp_atol,
+            delta = krylov.gmres(mv, b, M=ws.get("M", M), tol=self.ksp_rtol, atol=self.ksp_atol,
                                  maxiter=maxiter, restart=min(st["n"], 50))
             return delta, 0
-        return mgmod.ir_pcg(mv, mv32, M, b, self.ksp_rtol, maxiter, atol=self.ksp_atol)
+        return mgmod.ir_pcg(mv, mv32, M, b, self.ksp_rtol, maxiter, atol=self.ksp_atol,
+                            graphs=ws["pcg"] if graphable else None)
 
     def solve(self, problem) -> tuple[int, bool]:
         """Newton on ``problem`` from its current iterate: (updates,

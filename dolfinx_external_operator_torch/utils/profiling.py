@@ -18,7 +18,11 @@
   ``deo.residual``       the fused step's residual (E2)
   ``deo.solve``          one Newton update's linear solve
   ``deo.solve.factor``   its factorization (Cholesky, LU, block-cyclic
-                         reduction) or the AMG hierarchy's values
+                         reduction) or the fused step's AMG hierarchy's
+                         values
+  ``deo.solve.setup``    the general path's AMG hierarchy's values and,
+                         under gmres, the capture of its cycle
+                         (``_mg_solve``)
   ``deo.solve.round``    each refinement round (dense, ``ir_direct``,
                          ``lu_refine``, ``ir_pcg``)
   ``deo.operands``       ``evaluate_operands``
@@ -33,12 +37,18 @@
   ``bcr.factorizations``, ``bcr.inv_levels``, ``bcr.round_captures``
   (BCR's refinement round captured as CUDA graphs: once a solver, on the
   card), ``bcr.round_replays`` (rounds replayed from them: all of that
-  solver's rounds after the capture).  ``counters()`` is a
+  solver's rounds after the capture), ``solve.inner`` (f32 PCG
+  iterations in ``mg.ir_pcg``, from its host-side count), ``mg.setups``
+  and ``mg.captures`` (the general path's AMG hierarchy values set, and
+  its CUDA graphs captured: cg's PCG batches in ``ir_pcg``, gmres's
+  cycle in ``_mg_solve``).  ``counters()`` is a
   snapshot of them and of the kernel wrappers' own launch counts
   (``launches.<wrapper>``, read where they live); ``reset_counters()``
   zeroes the registry (not the wrappers' counts).
 * ``span_counts()``: how many times each span was entered while a
-  session recorded, since the process began or ``reset_counters()``.
+  session recorded, and ``recorded_counts()``: what the counters added
+  while a session recorded, each since the process began or
+  ``reset_counters()``.
 * ``host_read(t, kind=float)``: ``kind(t)``, counted, inside a
   ``deo.host_read`` span.
 * ``trace(logdir)``: records its block into ``logdir/trace.json`` (a
@@ -59,13 +69,14 @@ import os
 
 import torch
 
-__all__ = ["span", "count", "counters", "reset_counters", "span_counts", "host_read", "trace",
-           "k1_tally"]
+__all__ = ["span", "count", "counters", "reset_counters", "span_counts", "recorded_counts",
+           "host_read", "trace", "k1_tally"]
 
 _recording = torch.autograd._profiler_enabled
 _NULL = contextlib.nullcontext()
 _counts = {}
 _spans = {}
+_recorded = {}
 _k1 = None  # {device: [points, tensor([listed, max norm_res])]} inside trace()
 
 
@@ -80,6 +91,8 @@ def span(name, args=None):
 
 def count(name, n=1):
     _counts[name] = _counts.get(name, 0) + n
+    if _recording():
+        _recorded[name] = _recorded.get(name, 0) + n
 
 
 def host_read(t, kind=float):
@@ -111,10 +124,15 @@ def counters():
 def reset_counters():
     _counts.clear()
     _spans.clear()
+    _recorded.clear()
 
 
 def span_counts():
     return dict(_spans)
+
+
+def recorded_counts():
+    return dict(_recorded)
 
 
 def k1_tally(points, listed, norm_res):
