@@ -82,13 +82,18 @@ Phases, in order; any failed check exits non-zero without the ``ok`` line:
    51 under the profiler (``trace_mg_step.json.gz``); the first 10
    steps run again, Du bitwise equal; the roofline entry of its level-0
    DIA matvec (``utils/roofline.py::dia_roofline_from_fp``: one matvec per
-   dispatch, and a chain of them in one CUDA graph, against HBM);
+   dispatch, and a chain of them in one CUDA graph, against HBM); M1's
+   launches over the schedule: one ``pcg_xr`` and one ``pcg_p`` an inner
+   iteration (read once an iteration), ``chebyshev_step`` in each update's
+   captured cycle;
 12. the same slope with ``linear_solver="elastic"`` (the lagged f32
    inverse as the preconditioner): 171 updates, 223 kernel calls, inner
-   iterations, s/step;
+   iterations, s/step; M1's PCG kernels once an inner iteration, no
+   Chebyshev launch;
 13. the 100x100 slope with AMG-CG through ``run_step_host(forcing=False)``,
    the protocol of ``docs/records/scaling_100x100_full_tpu.json``, over its
-   first ``MG_100_STEPS`` loads: that record's Newton counts, the host
+   first ``MG_100_STEPS`` loads: that record's Newton counts, M1's PCG
+   kernels once an inner iteration, the host
    build's time, inner iterations per update beside the record's, peak
    memory, one solve beside a BCR solve of the same system (in turns), the
    layers of that update, and the roofline entry of its level-0 DIA matvec;
@@ -140,7 +145,9 @@ Phases, in order; any failed check exits non-zero without the ``ok`` line:
    the Jacobian and the linear solve, the dense solve's residual by
    refinement rounds; mg takes one update on each linear step and at most
    one more than direct on any step, the final probes within 1e-8, gmres +
-   mg mg's list and within 1e-8 of direct;
+   mg mg's list and within 1e-8 of direct; M1's launches in each run (none
+   direct; cg + mg launches them at its graphs' captures and replays
+   them; gmres + mg the Chebyshev kernel only);
 21. ICNN hyperelasticity at the record's size (``models.hyperelasticity.
    run_comparison``, lc=0.05, 2,926 dofs, 100 steps to 0.5): Newton totals
    200 and 200 and ``rel_linf``/``l2`` within 1e-6 relative of
@@ -195,7 +202,21 @@ Phases, in order; any failed check exits non-zero without the ``ok`` line:
    general path's: u) must be equal between the two children and equal to
    phases 6, 9, 11, 12 and 18 of this process (BCR's LU-fallback levels and
    the general path's backtracks too); the ops that deterministic mode
-   warned about are printed.
+   warned about are printed;
+27. M1, AMG-CG's f32 iteration as three kernels (``ops/mg_cycle.py``):
+   at the lc = 0.02 cylinder's smoothed levels (11,222, 2,912 and 558
+   dofs) and the 25x25 slope's (5,202, 1,352 and 246), a Chebyshev call
+   (degree 3, zero and given start) and a batch of 8 PCG iterations
+   through the kernels bitwise the torch chains on the same CUDA tensors;
+   each kernel (Chebyshev zero start, start and step, PCG (a) and (b))
+   in a CUDA graph and a call, against its bound; a Chebyshev call and a
+   PCG iteration in a graph, kernels and chains, beside the operator's
+   matvec; then on the cylinder's own hierarchy (phase 20's cg + mg
+   solver) a cycle and a batch of 8 PCG iterations bitwise the chains,
+   the launches an iteration makes, and one iteration's device time in a
+   graph, kernels and chains.  Alone on the card (the hierarchy built
+   after two load steps): ``python3 -c "import chip_smoke as c;
+   c.mg_cycle_phase({})"``.
 
 Peaks, bounds and work counts come from
 ``dolfinx_external_operator_torch/utils/roofline.py``.  The line before the
@@ -207,6 +228,7 @@ beside the measurements.  Before it exits, it stops every process it
 started that is still alive (``stop_children``).
 """
 
+import contextlib
 import gc
 import gzip
 import json
@@ -227,6 +249,7 @@ import dolfinx_external_operator_torch as pt
 from dolfinx_external_operator_torch._native import cuda as native
 from dolfinx_external_operator_torch.models import von_mises as vm
 from dolfinx_external_operator_torch.ops import element_chain as ec
+from dolfinx_external_operator_torch.ops import mg_cycle as mgc
 from dolfinx_external_operator_torch.ops import mohr_coulomb as mc_ops
 from dolfinx_external_operator_torch.ops import vonmises as vm_ops
 from dolfinx_external_operator_torch.entry import (
@@ -948,10 +971,15 @@ def bcr_25x25_phase(report, fp_dense, state):
     check(its == rec["newton_per_step"], f"25x25 BCR Newton list {its} != record")
     check(launches == sum(its) + len(its), f"{launches} launches for Newton {its}")
     # E3: an update's f32 blocks (the bands) launched, and its refinement
-    # matvecs inside the round's CUDA graph, a replay a round
-    replays = profiling.counters().get("bcr.round_replays", 0)
-    check(ec_launches["cell_tangent"] >= sum(its) and replays == sum(abs(r) for r in rounds),
-          f"BCR's E3 launches {ec_launches}, {replays} round replays for rounds {rounds}")
+    # matvecs inside the round's CUDA graph, a replay a round run
+    # (``solve.rounds``; a step's signed count sums its updates' signed
+    # rounds, so its magnitude can fall below the rounds it ran)
+    counted = profiling.counters()
+    replays = counted.get("bcr.round_replays", 0)
+    check(ec_launches["cell_tangent"] >= sum(its)
+          and replays == counted.get("solve.rounds") >= sum(abs(r) for r in rounds),
+          f"BCR's E3 launches {ec_launches}, {replays} round replays for "
+          f"{counted.get('solve.rounds')} rounds run, steps' signed rounds {rounds}")
     # the rounds beside the last step's Du: other rounds with the same Du
     # bits would not come from E3's bits
     print(f"25x25 slope, BCR + kernel: newton {sum(its)}, launches {launches}, rounds "
@@ -1153,9 +1181,11 @@ def mg_25x25_phase(report, fp_dense, state):
     torch.cuda.reset_peak_memory_stats()
     mc_ops.mc_return_map.launches = 0
     ec.reset_launches()
+    mgc.reset_launches()
     Du_end, its, inner, walls, states = run_loads(fp, loads, capture=(10, 49, 50))
     launches = mc_ops.mc_return_map.launches
     ec_launches = ec.launch_counts()
+    m1_launches = mgc.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     print(f"25x25 slope, mg (dia) + kernel: newton {sum(its)}, launches {launches}, inner "
           f"{sum(inner)} ({sum(inner) / sum(its):.1f} per update), Du "
@@ -1180,7 +1210,9 @@ def mg_25x25_phase(report, fp_dense, state):
           f"CPU: {gap:+.1%} (bound {MG_INNER_TOL:.0%})", flush=True)
     check(abs(gap) <= MG_INNER_TOL, f"25x25 mg inner iterations {sum(inner)} beyond "
           f"{MG_INNER_TOL:.0%} of {MG_25_INNER_JAX}")
+    m1_check("25x25 mg", m1_launches, pcg=sum(inner), cycle=True)
     out = {"newton": its, "inner": inner, "launches": launches, "ec_launches": ec_launches,
+           "m1_launches": m1_launches,
            "du": schedule_bits.fingerprint(Du_end), "reading": reading(its, inner, states["du"]),
            "wall_s": walls, "peak_bytes": peak,
            "levels": fp.mg_sizes,
@@ -1240,9 +1272,11 @@ def elastic_25x25_phase(report):
     fp._el_precond = first
     mc_ops.mc_return_map.launches = 0
     ec.reset_launches()
+    mgc.reset_launches()
     _, its, inner, walls, states = run_loads(fp, pt.SLOPE_LOADS, capture=(49,))
     launches = mc_ops.mc_return_map.launches
     ec_launches = ec.launch_counts()
+    m1_launches = mgc.launch_counts()
     print(f"25x25 slope, elastic + kernel: newton {sum(its)}, launches {launches}, inner "
           f"{sum(inner)} ({sum(inner) / sum(its):.1f} per update), Du {states['du'][-1]}, "
           f"setup {setup_s:.2f} s, "
@@ -1254,6 +1288,7 @@ def elastic_25x25_phase(report):
     check(ec_launches["ebe_cell_matvec"] > 0 and ec_launches["cell_product"]
           == ec_launches["cell_values_grads"] == ec_launches["cell_triple"] == 0,
           f"element-chain launches {ec_launches}")
+    m1_check("25x25 elastic", m1_launches, pcg=sum(inner), cycle=False)
     # the end-of-step refresh at step 50's first tangent: the SPD inverse
     # does n^3 operations (Cholesky, triangular inverse and the product,
     # n^3 / 3 each); it reads the f32 element blocks and writes the inverse
@@ -1265,7 +1300,8 @@ def elastic_25x25_phase(report):
           f"({refresh_by})", flush=True)
     report["elastic_25x25"] = {"newton": its, "inner": inner, "launches": launches,
                                "reading": reading(its, inner, states["du"]),
-                               "ec_launches": ec_launches, "wall_s": walls, "setup_s": setup_s,
+                               "ec_launches": ec_launches, "m1_launches": m1_launches,
+                               "wall_s": walls, "setup_s": setup_s,
                                "refresh_ms": refresh_ms,
                                "refresh_bound_ms": refresh_bound, "refresh_bound_by": refresh_by}
     return launches
@@ -1286,6 +1322,7 @@ def mg_100x100_phase(report, steps=MG_100_STEPS):
           f"100x100 mg: {fp.n_dofs} dofs, {fp._mg_mv0_mode}")
     torch.cuda.reset_peak_memory_stats()
     mc_ops.mc_return_map.launches = 0
+    mgc.reset_launches()
     Du, sig = fp.zero_state()
     its, inner, walls = [], [], []
     for k, load in enumerate(loads):
@@ -1299,6 +1336,7 @@ def mg_100x100_phase(report, steps=MG_100_STEPS):
         its.append(int(it))
         inner.append(int(cg))
     launches = mc_ops.mc_return_map.launches
+    m1_launches = mgc.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     ref = rec["newton_per_step"][:steps]
     print(f"100x100 slope, mg (dia) + kernel, host-driven, {steps} steps: host build "
@@ -1311,8 +1349,10 @@ def mg_100x100_phase(report, steps=MG_100_STEPS):
     print(f"  s/step {[round(w, 3) for w in walls]}", flush=True)
     check(its == ref, f"100x100 mg Newton list {its} != the record's first {steps} {ref}")
     check(launches == sum(its) + len(its), f"{launches} launches for Newton {its}")
+    m1_check("100x100 mg", m1_launches, pcg=sum(inner), cycle=True)
     out = {"newton": its, "inner": inner, "launches": launches, "wall_s": walls,
-           "build_s": build_s, "peak_bytes": peak, "levels": fp.mg_sizes, "steps": steps}
+           "build_s": build_s, "peak_bytes": peak, "levels": fp.mg_sizes, "steps": steps,
+           "m1_launches": m1_launches}
     report["mg_100x100"] = out
 
     fp_bcr = pt.mohr_coulomb_slope_step(100, 100, route="cuda", linear_solver="bcr")
@@ -1726,24 +1766,27 @@ def dense_rounds(run, device, rounds=8, seed=0):
 def vm_fine_phase(report, lc=0.02, device="cuda", gmres_steps=5):
     """Phase 20: the cylinder at lc=0.02 (11,222 dofs, 8,100 Gauss points),
     where AMG is meant to pay: 20 increments direct and with cg + mg, the
-    first ``gmres_steps`` with gmres + mg."""
+    first ``gmres_steps`` with gmres + mg.  Returns the cg + mg solver's
+    AMG-CG state (its last update's hierarchy, for phase 27)."""
     from dolfinx_external_operator_torch.models import von_mises as vmm
 
     runs = {}
     for name, opts, steps in (("direct", None, None),
-                              ("mg", {"ksp_type": "cg", "pc_type": "mg"}, None),
+                              ("mg", CYLINDER_MG, None),
                               ("gmres_mg", {"ksp_type": "gmres", "pc_type": "mg"}, gmres_steps)):
         if device == "cuda":
             gc.collect()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
         sync(device)
+        mgc.reset_launches()
         t0 = time.perf_counter()
         r = vmm.solve_von_mises(lc=lc, num_increments=20, snes_opts=opts, device=device,
                                 steps=steps)
         sync(device)
         r["wall_s"] = time.perf_counter() - t0
         r["peak_bytes"] = torch.cuda.max_memory_allocated() if device == "cuda" else None
+        r["m1_launches"] = mgc.launch_counts()
         runs[name] = r
     d, m, g = runs["direct"], runs["mg"], runs["gmres_mg"]
     n_dofs = d["u"].function_space.num_dofs
@@ -1789,6 +1832,18 @@ def vm_fine_phase(report, lc=0.02, device="cuda", gmres_steps=5):
     check(gap <= 1e-8, f"mg final probe {gap:.3e} from direct")
     check(g["iterations"] == m["iterations"][:gmres_steps] and gap_g <= 1e-8,
           f"gmres+mg {g['iterations']} / {gap_g:.3e} against mg's list and direct's probe")
+    if device == "cuda":
+        print("  M1 launches: " + ", ".join(f"{k} {r['m1_launches']}" for k, r in runs.items()),
+              flush=True)
+        m1_check("cylinder direct", d["m1_launches"], pcg=0, cycle=False)
+        # cg + mg: the wrappers run at each PCG batch's and each round's
+        # first cycle's capture (and its eager call before), not at the
+        # replays; gmres + mg: the cycle alone
+        check(m["m1_launches"]["pcg_xr"] == m["m1_launches"]["pcg_p"] > 0
+              and 0 < m["m1_launches"]["pcg_xr"] < sum(m["ksp_iterations"])
+              and m["m1_launches"]["chebyshev_step"] > 0,
+              f"cylinder cg + mg: M1 launches {m['m1_launches']}")
+        m1_check("cylinder gmres + mg", g["m1_launches"], pcg=0, cycle=True)
     report["vm_fine"] = {
         "lc": lc, "dofs": n_dofs, "gauss_points": n_pts,
         **{f"newton_{k}": r["iterations"] for k, r in runs.items()},
@@ -1796,7 +1851,9 @@ def vm_fine_phase(report, lc=0.02, device="cuda", gmres_steps=5):
         **{f"step_s_{k}": r["step_s"] for k, r in runs.items()},
         **{f"peak_bytes_{k}": r["peak_bytes"] for k, r in runs.items()},
         "probe_gap_mg": gap, "probe_gap_gmres_mg": gap_g, "update_layers": layers,
-        "dense_round_residuals": rounds, "last_step_history": last_hist}
+        "dense_round_residuals": rounds, "last_step_history": last_hist,
+        "m1_launches": {k: r["m1_launches"] for k, r in runs.items()}}
+    return m["problem"].solver._mg
 
 
 def icnn_call_times(run, device):
@@ -2255,6 +2312,209 @@ def demos_phase(report):
                        "wall_total_s": total}
 
 
+# phases 11-13 and 20-27: M1 (ops/mg_cycle.py); its operand lengths in
+# phase 27, the lc = 0.02 cylinder's smoothed levels and the 25x25 slope's
+# (phase 11's levels but the coarsest, which is inverted)
+CYLINDER_MG = {"ksp_type": "cg", "pc_type": "mg"}
+M1_LEVELS = {"cylinder": (11222, 2912, 558), "slope_25x25": (5202, 1352, 246)}
+
+
+def m1_check(label, counts, pcg, cycle):
+    """M1's launches on a path (``mgc.launch_counts()`` since its reset):
+    ``pcg_xr`` and ``pcg_p`` ``pcg`` times each (an inner iteration each
+    where the path reads once an iteration), ``chebyshev_step`` launched
+    where ``cycle``, else never."""
+    check(counts["pcg_xr"] == counts["pcg_p"] == pcg
+          and (counts["chebyshev_step"] > 0) == cycle,
+          f"{label}: M1 launches {counts}, expected {pcg} of each PCG kernel and "
+          f"{'some' if cycle else 'no'} Chebyshev launches")
+    print(f"  M1 launches ({label}): {counts}", flush=True)
+
+
+@contextlib.contextmanager
+def torch_chains():
+    """``mg``'s cycle and PCG batches through the torch chains, as before
+    M1 (``vcycle`` and ``ir_pcg`` look both up at each call)."""
+    held = mg._chebyshev, mg._pcg_iterations
+    mg._chebyshev, mg._pcg_iterations = mg._chebyshev_reference, mg._pcg_iterations_reference
+    try:
+        yield
+    finally:
+        mg._chebyshev, mg._pcg_iterations = held
+
+
+def same_bits(a, b):
+    """Equal bit for bit where not NaN, NaN at the same places."""
+    nan = torch.isnan(a)
+    return (a.shape == b.shape and a.dtype == b.dtype and torch.equal(nan, torch.isnan(b))
+            and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32)))
+
+
+def same_batch(a, b):
+    """Two ``_pcg_iterations`` results (state, loop tests, best iterates),
+    bit for bit."""
+    (s_a, t_a, x_a), (s_b, t_b, x_b) = a, b
+    return (same_bits(t_a, t_b) and same_bits(x_a, x_b)
+            and all(same_bits(s_a[k], s_b[k].reshape(s_a[k].shape)) for k in s_a))
+
+
+def pcg_state(M32, r):
+    """The f32 PCG's state after its start on ``r`` (``ir_pcg``'s)."""
+    z, rz, nb, _ = mg._pcg_start(M32, r)
+    x = torch.zeros_like(r)
+    return {"x": x, "r": r, "p": z, "rz": rz, "nb": nb, "xb": x}
+
+
+def m1_at(n, reps=200):
+    """M1 at ``n`` dofs on seeded operands (a shifted 1D Laplacian, its
+    Jacobi inverse diagonal): a Chebyshev call (degree 3, zero and given
+    start) and 8 PCG iterations through the kernels bitwise the torch
+    chains; each kernel in a CUDA graph (``reps`` launches) and a call,
+    against its bound (the vectors it reads and writes once over HBM, its
+    operations over the f32 peak); a Chebyshev call and a PCG iteration in
+    a graph, kernels and chains, beside one matvec."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(n)
+    diag = 2.5 + torch.rand(n, generator=gen, device=dev)
+
+    def mv(x):
+        return diag * x - F.pad(x[1:], (0, 1)) - F.pad(x[:-1], (1, 0))
+
+    def M32(r):
+        return dinv * r
+
+    dinv = 1.0 / diag
+    b, x0 = (torch.randn(n, generator=gen, device=dev) for _ in range(2))
+    coeffs = mg._cheb_coeffs(torch.tensor(3.0, device=dev), 3)
+    for start in (None, x0):
+        check(same_bits(mg._chebyshev_fused(mv, dinv, b, start, coeffs, mgc.chebyshev_step),
+                        mg._chebyshev_reference(mv, dinv, b, start, coeffs)),
+              f"M1 at n={n}: a Chebyshev call differs from the chain "
+              f"({'zero' if start is None else 'given'} start)")
+    state = pcg_state(M32, b)
+    check(same_batch(mg._pcg_iterations_fused(mv, M32, state, 8, mgc.pcg_xr, mgc.pcg_p),
+                     mg._pcg_iterations_reference(mv, M32, state, 8)),
+          f"M1 at n={n}: 8 PCG iterations differ from the chain")
+    theta, ((c_old, c_new), _) = coeffs
+    scalar = lambda v: torch.tensor(v, device=dev)  # noqa: E731
+    pAp, rz, rz2, nn, nb, nb_out = (scalar(v) for v in (2.0, 1.0, 0.5, 0.3, 0.4, 0.0))
+    test = torch.zeros(3, device=dev)
+    r, av, d, x, p, xb, xb2 = (b.clone() for _ in range(7))
+    # (launch, vectors read and written, operations a dof)
+    launches = {
+        "cheb_zero": (lambda: mgc.chebyshev_step(0, dinv, b, None, None, None, d, x, theta),
+                      4, 2),
+        "cheb_start": (lambda: mgc.chebyshev_step(1, dinv, b, av, x0, r, d, x, theta), 7, 4),
+        "cheb_step": (lambda: mgc.chebyshev_step(2, dinv, r, av, x, r, d, x, c_old, c_new),
+                      8, 6),
+        "pcg_xr": (lambda: mgc.pcg_xr(pAp, rz, x, r, p, av, x, r), 6, 4),
+        "pcg_p": (lambda: mgc.pcg_p(pAp, rz, rz2, nn, nb, b, p, x, xb, p, xb2, nb_out, test),
+                  5, 2),
+    }
+    out = {"n": n}
+    for name, (fn, vectors, ops) in launches.items():
+        bound_ms, by = roofline.bound(ops * n, 4 * vectors * n)
+        out[name] = {"ms": graph_time_ms(fn, reps), "call_ms": cuda_time_ms(fn, reps),
+                     "bound_ms": bound_ms, "bound_by": by, "bytes": 4 * vectors * n}
+    calls = {"chebyshev_call": (
+                 lambda: mg._chebyshev_fused(mv, dinv, b, x0, coeffs, mgc.chebyshev_step),
+                 lambda: mg._chebyshev_reference(mv, dinv, b, x0, coeffs)),
+             "pcg_iteration": (
+                 lambda: mg._pcg_iterations_fused(mv, M32, state, 1, mgc.pcg_xr, mgc.pcg_p),
+                 lambda: mg._pcg_iterations_reference(mv, M32, state, 1))}
+    for name, (kernels, chain) in calls.items():
+        out[name] = {"kernels_ms": graph_time_ms(kernels, 20), "chain_ms": graph_time_ms(chain, 20)}
+    out["matvec_ms"] = graph_time_ms(lambda: mv(x0), 20)
+    return out
+
+
+def cylinder_mg_state():
+    """The lc = 0.02 cylinder with cg + mg on the card after two load steps
+    (the second plastic): its solver's AMG-CG state."""
+    P = vm.build_cylinder_problem(0.02, snes_opts=CYLINDER_MG)
+    for load in (0.5, 0.85):
+        P["loading"].value = load * P["q_lim"]
+        P["Du"].x.array[:] = torch.full_like(P["Du"].data, np.finfo(np.float64).eps)
+        P["problem"].solve()
+        P["p"].x.axpy(1.0, P["dp"].x)
+        P["sigma_n"].x.array[:] = P["sigma"].ref_coefficient.data
+    return P["problem"].solver._mg
+
+
+def m1_cylinder(st, reps=20):
+    """M1 on the cylinder's own hierarchy (``st``: a cg + mg solver's
+    AMG-CG state; the preconditioner and the level-0 f32 operator as
+    ``_mg_solve`` builds them): a cycle and 8 PCG iterations through the
+    kernels bitwise the torch chains on the same CUDA tensors, the
+    launches of each kernel a cycle and a PCG iteration, and one
+    iteration's device time in a CUDA graph (``reps`` iterations), kernels
+    and chains."""
+    plan, ws = st["plan"], st["ws"]
+    mask, rt = ws["mask"], ws["rt"]
+    mv32 = rt["mv0"]
+
+    def M32(r):
+        return torch.where(mask, r, mg.vcycle(plan, rt, torch.where(mask, 0.0, r)))
+
+    gen = torch.Generator(device=mask.device).manual_seed(23)
+    r = torch.where(mask, 0.0, torch.randn(mask.shape[0], generator=gen, device=mask.device))
+    mgc.reset_launches()
+    z = mg.vcycle(plan, rt, r)
+    cycle = mgc.launch_counts()
+    state = pcg_state(M32, r)
+    mgc.reset_launches()
+    fused = mg._pcg_iterations(mv32, M32, state, 8)
+    per_iteration = {k: v / 8 for k, v in mgc.launch_counts().items()}
+    with torch_chains():
+        check(same_bits(z, mg.vcycle(plan, rt, r)),
+              "M1 on the cylinder's hierarchy: a cycle differs from the chains'")
+        check(same_batch(fused, mg._pcg_iterations(mv32, M32, pcg_state(M32, r), 8)),
+              "M1 on the cylinder's hierarchy: 8 PCG iterations differ from the chains'")
+        chain_ms = graph_time_ms(lambda: mg._pcg_iterations(mv32, M32, state, 1), reps)
+    kernels_ms = graph_time_ms(lambda: mg._pcg_iterations(mv32, M32, state, 1), reps)
+    return {"levels": [mask.shape[0]] + [lv["n"] for lv in plan["levels"]],
+            "launches_per_cycle": cycle, "launches_per_iteration": per_iteration,
+            "iteration_ms": {"kernels": kernels_ms, "chains": chain_ms}}
+
+
+def mg_cycle_phase(report, cylinder=None):
+    """Phase 27: M1 at the levels of ``M1_LEVELS``, then on the cylinder's
+    hierarchy (``cylinder``: phase 20's cg + mg solver state; built here
+    when None)."""
+    by_size = {}
+    for problem, sizes in M1_LEVELS.items():
+        for n in sizes:
+            m = m1_at(n)
+            by_size[n] = m
+            print(f"M1 at n={n} ({problem}): bitwise the chains; in a graph (a call) "
+                  + ", ".join(f"{k} {m[k]['ms'] * 1e3:.2f} us ({m[k]['call_ms'] * 1e3:.1f}), "
+                              f"bound {m[k]['bound_ms'] * 1e3:.3f}"
+                              for k in ("cheb_zero", "cheb_start", "cheb_step", "pcg_xr",
+                                        "pcg_p")), flush=True)
+            print(f"  in a graph, kernels / chains: a Chebyshev call (degree 3, a start) "
+                  f"{m['chebyshev_call']['kernels_ms'] * 1e3:.2f} / "
+                  f"{m['chebyshev_call']['chain_ms'] * 1e3:.2f} us, a PCG iteration "
+                  f"{m['pcg_iteration']['kernels_ms'] * 1e3:.2f} / "
+                  f"{m['pcg_iteration']['chain_ms'] * 1e3:.2f} us; one matvec "
+                  f"{m['matvec_ms'] * 1e3:.2f} us", flush=True)
+    if cylinder is None:
+        cylinder = cylinder_mg_state()
+    cyl = m1_cylinder(cylinder)
+    check(tuple(cyl["levels"][:3]) == M1_LEVELS["cylinder"],
+          f"the cylinder's levels {cyl['levels']}")
+    check(cyl["launches_per_iteration"]["pcg_xr"] == cyl["launches_per_iteration"]["pcg_p"] == 1,
+          f"M1 on the cylinder: {cyl['launches_per_iteration']} an iteration")
+    print(f"M1 on the cylinder's hierarchy (levels {cyl['levels']}): a cycle and 8 PCG "
+          f"iterations bitwise the chains; launches a cycle {cyl['launches_per_cycle']}, an "
+          f"iteration {cyl['launches_per_iteration']}; an iteration in a graph "
+          f"{cyl['iteration_ms']['kernels'] * 1e3:.1f} us (chains "
+          f"{cyl['iteration_ms']['chains'] * 1e3:.1f})", flush=True)
+    out = {"by_size": by_size, "cylinder": cyl}
+    print(json.dumps({"m1": out}), flush=True)
+    report["m1"] = out
+    return out
+
+
 # phase 26: the two fresh processes of tools/schedule_bits.py, and the
 # phases whose readings each must equal
 FRESH_RUNS = (("plain", []), ("poison", ["--poison"]))
@@ -2518,7 +2778,7 @@ def main():
     # phases 19-21: the reference's other demos through the general
     # pipeline and its Krylov, AMG and bound-constrained solvers
     vm_cylinder_phase(report)
-    vm_fine_phase(report)
+    cylinder_mg = vm_fine_phase(report)
     hyperelasticity_phase(report)
     vi_phase(report)
     # phases 22-23: phase 18's slope with the general pipeline cell-sharded,
@@ -2546,6 +2806,12 @@ def main():
     # phase 26: every schedule in two fresh processes, held to phases 6, 9,
     # 11, 12 and 18
     fresh_process_phase(report)
+    # phase 27: M1 at the cylinder's and the slope's level sizes, and on
+    # phase 20's hierarchy
+    check(tuple(report["mg_25x25"]["levels"][:3]) == M1_LEVELS["slope_25x25"],
+          f"25x25 mg levels {report['mg_25x25']['levels']}")
+    m1 = mg_cycle_phase(report, cylinder_mg)
+    del cylinder_mg
 
     # K2's row: the f64 entry, which the von Mises block path launches, on
     # that path's own call (3,750 points, its layout); the f32 entry (the
@@ -2644,6 +2910,30 @@ def main():
             "library_ms": m["library_ms"], "n_cells": fp_k.nc,
             "modes": {mode: m2 for (r2, mode), m2 in ec_meas.items()
                       if r2 == row and mode != head}})
+    # M1's row: the Chebyshev step at the cylinder's level 0, its other
+    # launches and sizes beside it; launches by path (the cylinder's cg +
+    # mg: at its graphs' captures, replayed after)
+    head = m1["by_size"][M1_LEVELS["cylinder"][0]]
+    kernels.append({
+        "name": "mg_cycle", "route": "cuda",
+        "source": "dolfinx_external_operator_torch/csrc/mg_cycle.cu",
+        "replaces": None,
+        "fuses": f"{jax_pkg}/parallel/mg.py:964-1010 (_chebyshev), :1066-1086 (the PCG body)",
+        "launches": report["vm_fine"]["m1_launches"]["mg"], "launches_path": "cylinder_lc002_mg",
+        "launches_by_path": {"slope_25x25_mg": report["mg_25x25"]["m1_launches"],
+                             "slope_25x25_elastic": report["elastic_25x25"]["m1_launches"],
+                             "slope_100x100_mg": report["mg_100x100"]["m1_launches"],
+                             **{f"cylinder_lc002_{k}": c
+                                for k, c in report["vm_fine"]["m1_launches"].items()}},
+        "launches_per_iteration": m1["cylinder"]["launches_per_iteration"],
+        "mode": "cheb_step", "max_abs_err": 0.0, "max_rel_err": 0.0,
+        "ms": head["cheb_step"]["ms"], "call_ms": head["cheb_step"]["call_ms"],
+        "plain_ms": None, "bound_ms": head["cheb_step"]["bound_ms"],
+        "bound_by": head["cheb_step"]["bound_by"], "library_ms": None,
+        "n": head["n"],
+        "iteration_ms": m1["cylinder"]["iteration_ms"],
+        "modes": {f"{k}_{n}": m[k] for n, m in m1["by_size"].items()
+                  for k in ("cheb_zero", "cheb_start", "cheb_step", "pcg_xr", "pcg_p")}})
     report["kernels"] = kernels
     report["roofline"] = {"dia_25x25_mg": report["mg_25x25"]["dia_roofline"],
                           "dia_100x100_mg": report["mg_100x100"]["dia_roofline"],

@@ -64,6 +64,11 @@ KERNELS = {
                           + [_VP] * 2 + [_LL] * 5 + [_VP]),
     "cell_triple": (("element_chain.cu", "element_chain.cuh"), "ec_triple_launch",
                     ([_VP] + [_LL] * 3) * 2 + [_VP] + [_LL] * 3 + [_VP]),
+    # AMG-CG's f32 iteration: a Chebyshev step, PCG (a) and (b) (one library)
+    "chebyshev_step": (("mg_cycle.cu", "mg_cycle.cuh"), "mg_cheb_launch",
+                       [_INT, _LL] + [_VP] * 9 + [_VP]),
+    "pcg_xr": (("mg_cycle.cu", "mg_cycle.cuh"), "mg_pcg_xr_launch", [_LL] + [_VP] * 8 + [_VP]),
+    "pcg_p": (("mg_cycle.cu", "mg_cycle.cuh"), "mg_pcg_p_launch", [_LL] + [_VP] * 13 + [_VP]),
 }
 _HOST = {
     "vonmises": (("vonmises_host.cpp", "vonmises.cuh"), "vonmises_return_map_host",
@@ -101,6 +106,10 @@ _HOST = {
     "cell_triple_staged": (("element_chain_host.cpp", "element_chain.cuh"),
                            "ec_triple_staged_host", ([_VP] + [_LL] * 3) * 2 + [_VP] + [_LL] * 3,
                            _INT),
+    "chebyshev_step": (("mg_cycle_host.cpp", "mg_cycle.cuh"), "mg_cheb_host",
+                       [_INT, _LL] + [_VP] * 9),
+    "pcg_xr": (("mg_cycle_host.cpp", "mg_cycle.cuh"), "mg_pcg_xr_host", [_LL] + [_VP] * 8),
+    "pcg_p": (("mg_cycle_host.cpp", "mg_cycle.cuh"), "mg_pcg_p_host", [_LL] + [_VP] * 13),
 }
 # what each compiler printed for a library built by this process (nvcc's
 # -Xptxas -v: registers, stack and spills of each kernel)

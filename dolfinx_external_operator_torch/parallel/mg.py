@@ -42,7 +42,12 @@ table's axis, a few launches per operator.  Every scatter-add is a padded
 gather table (``scatter.py``), never ``index_add_``.  The JAX
 ``while_loop``s are Python loops with one host read per inner iteration,
 or per batch of them (``ir_pcg``'s ``graphs``), and one per refinement
-round.
+round.  Inside them, on the card, each Chebyshev step's vector updates and
+each f32 PCG iteration's vector and scalar work run as hand-written
+kernels (``ops/mg_cycle.py``) where XLA fused the chains: the torch
+chains' operations and bits, a launch where they made tens.  On the CPU
+the torch chains run (``_chebyshev_reference``,
+``_pcg_iterations_reference``).
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import element_chain as ec
+from ..ops import mg_cycle as mgc
 from ..utils.profiling import count, host_read, span
 from .bcr import _lattice_node_perm
 from .scatter import dedup_table, dedup_write, segment_sum, segment_table
@@ -944,7 +950,36 @@ def _cheb_coeffs(lmax, degree):
 def _chebyshev(matvec, dinv, b, x0, coeffs):
     """Fixed-degree Chebyshev/Jacobi smoothing (a FIXED linear operator of
     (b, x0)).  ``x0=None`` means a zero initial guess: the first residual
-    is ``b`` and its matvec is skipped."""
+    is ``b`` and its matvec is skipped.  On the card the vector updates
+    between two matvecs are one kernel (``_chebyshev_fused``), on the CPU
+    the torch chain."""
+    if b.is_cuda:
+        return _chebyshev_fused(matvec, dinv, b, x0, coeffs, mgc.chebyshev_step)
+    return _chebyshev_reference(matvec, dinv, b, x0, coeffs)
+
+
+def _chebyshev_fused(matvec, dinv, b, x0, coeffs, step):
+    """``_chebyshev_reference``'s operations and bits, each launch between
+    two matvecs one call of ``step`` (``mg_cycle.chebyshev_step``, or its
+    g++ build on the CPU): r, d and x in buffers of the call's own,
+    updated in place; ``b`` and ``x0`` are only read.  The coefficients
+    are read where ``mg_setup`` keeps them."""
+    theta, steps = coeffs
+    r, d, x = (torch.empty_like(b) for _ in range(3))
+    if x0 is None:
+        step(0, dinv, b, None, None, None, d, x, theta)
+        r_in = b
+    else:
+        step(1, dinv, b, matvec(x0), x0, r, d, x, theta)
+        r_in = r
+    for c_old, c_new in steps:
+        step(2, dinv, r_in, matvec(d), x, r, d, x, c_old, c_new)
+        r_in = r
+    return x
+
+
+def _chebyshev_reference(matvec, dinv, b, x0, coeffs):
+    """``_chebyshev`` as torch ops, one launch an operation on the card."""
     theta, steps = coeffs
     if x0 is None:
         r = b
@@ -1128,7 +1163,43 @@ def _pcg_iterations(mv32, M32, state, n):
     """``n`` iterations of ``ir_pcg``'s f32 PCG from ``state`` (``x``,
     ``r``, ``p``, ``rz``, ``nb``, ``xb``), reading nothing back: the state
     after them, each iteration's loop test (n, 3: ``good``, the residual
-    norm, ``better``) and each iteration's best iterate (n, len)."""
+    norm, ``better``) and each iteration's best iterate (n, len).  On the
+    card the elementwise and scalar work of an iteration is two kernels
+    (``_pcg_iterations_fused``), on the CPU the torch chain."""
+    if state["r"].is_cuda:
+        return _pcg_iterations_fused(mv32, M32, state, n, mgc.pcg_xr, mgc.pcg_p)
+    return _pcg_iterations_reference(mv32, M32, state, n)
+
+
+def _pcg_iterations_fused(mv32, M32, state, n, xr, pz):
+    """``_pcg_iterations_reference``'s operations and bits with ``xr``
+    (``mg_cycle.pcg_xr``: alpha, x, r) after ``A p`` and ``p . A p``, and
+    ``pz`` (``mg_cycle.pcg_p``: beta, p, the best iterate, the best norm
+    and the test row) after the cycle, ``r . z`` and ``|r|`` (or their g++
+    builds on the CPU).  The dots and the norm stay torch's.  x, r and p
+    lie in buffers of the call's own, updated in place; each iteration
+    writes its best iterate, best norm and test row straight into its
+    slot of the results; ``state`` is only read."""
+    x, r, p, rz, nb, xb = (state[k] for k in ("x", "r", "p", "rz", "nb", "xb"))
+    xo, ro, po = (torch.empty_like(r) for _ in range(3))
+    xbs = r.new_empty((n, r.shape[0]))
+    tests, nbs = r.new_empty((n, 3)), r.new_empty(n)
+    for j in range(n):
+        Ap = mv32(p)
+        pAp = torch.dot(p, Ap)
+        xr(pAp, rz, x, r, p, Ap, xo, ro)
+        x, r = xo, ro
+        z = M32(r)
+        rz2 = torch.dot(r, z)
+        nn = torch.linalg.vector_norm(r)
+        pz(pAp, rz, rz2, nn, nb, z, p, x, xb, po, xbs[j], nbs[j], tests[j])
+        p, xb, nb, rz = po, xbs[j], nbs[j], rz2
+    return {"x": x, "r": r, "p": p, "rz": rz, "nb": nb, "xb": xb}, tests, xbs
+
+
+def _pcg_iterations_reference(mv32, M32, state, n):
+    """``_pcg_iterations`` as torch ops, some thirty launches an iteration
+    besides the matvec and the cycle on the card."""
     x, r, p, rz, nb, xb = (state[k] for k in ("x", "r", "p", "rz", "nb", "xb"))
     tests, xbs = [], []
     for _ in range(n):

@@ -3,6 +3,7 @@ to the same bits: two processes of one version, or two versions on one card.
 
     python3 -m dolfinx_external_operator_torch.tools.schedule_bits [--device cpu]
         [--solvers dense,bcr,mg,elastic,general] [--n 25] [--loads 0,25,45] [--poison]
+        [--time]
     PYTHONPATH=DIR python3 dolfinx_external_operator_torch/tools/schedule_bits.py
 
 The second form runs this file against the version of the package in
@@ -30,7 +31,10 @@ warn_only=True)`` with ``torch.utils.deterministic.
 fill_uninitialized_memory``: every ``torch.empty`` then starts as NaN
 (integers at their maximum), so an output that reads memory it never
 wrote moves the bits; each line adds the ops that deterministic mode
-warned about.  The CPU's reductions round by thread count: compare CPU
+warned about.  ``--time`` adds ``s_per_step``, the schedule's wall
+seconds over its steps (each step's fingerprint reads Du back, so the
+device is synchronised at every step), for timing two versions in turns.
+The CPU's reductions round by thread count: compare CPU
 runs made with the same ``torch.get_num_threads()`` (the first line).
 """
 
@@ -42,6 +46,7 @@ import json
 import os
 import re
 import sys
+import time
 import warnings
 
 import torch
@@ -97,21 +102,24 @@ def u_fingerprints(run):
 
 def fused_schedule(fp, loads):
     """The schedule from the zero state: per-step Newton updates, inner
-    iterations and Du fingerprints."""
+    iterations and Du fingerprints, and its wall seconds a step."""
     Du, sig = fp.zero_state()
     newton, inner, du = [], [], []
+    t0 = time.perf_counter()
     for load in loads:
         Du, sig, _, it, cg = fp.run_step(Du, sig, float(load))
         newton.append(int(it))
         inner.append(int(cg))
         du.append(fingerprint(Du))
-    return {"newton": newton, "inner": inner, "du": du}
+    return {"newton": newton, "inner": inner, "du": du,
+            "s_per_step": (time.perf_counter() - t0) / len(loads)}
 
 
-def schedule(solver, device, n=25, loads=problems.SLOPE_LOADS):
+def schedule(solver, device, n=25, loads=problems.SLOPE_LOADS, timed=False):
     """One solver's reading (a dict with the per-step lists ``newton``,
     ``inner`` and ``du``; BCR's also with its factorizations and the levels
-    that fell back to the LU inverse), after one warm-up."""
+    that fell back to the LU inverse; where ``timed``, the fused step's
+    ``s_per_step``), after one warm-up."""
     route = "cuda" if device.type == "cuda" else "plain"
     if solver == "general":
         from dolfinx_external_operator_torch.models import mohr_coulomb as mc
@@ -132,6 +140,8 @@ def schedule(solver, device, n=25, loads=problems.SLOPE_LOADS):
         fp._el_precond = first
     profiling.reset_counters()
     out = fused_schedule(fp, loads)
+    if not timed:
+        del out["s_per_step"]
     if solver == "bcr":
         c = profiling.counters()
         out.update(factorizations=c.get("bcr.factorizations", 0),
@@ -149,6 +159,8 @@ def main(argv=None):
                     help="comma-separated indices into SLOPE_LOADS (default: all)")
     ap.add_argument("--poison", action="store_true",
                     help="deterministic mode, uninitialized memory filled")
+    ap.add_argument("--time", action="store_true",
+                    help="add the fused step's wall seconds a step")
     args = ap.parse_args(argv)
     dev = torch.device(args.device or "cuda")
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -178,7 +190,7 @@ def main(argv=None):
         head.update(empty_is_nan=bool(torch.isnan(probe).all()), probe_warned=probe_warned)
     print(json.dumps(head), flush=True)
     for solver in solvers:
-        reading, warned = alerts(lambda: schedule(solver, dev, args.n, loads))
+        reading, warned = alerts(lambda: schedule(solver, dev, args.n, loads, args.time))
         line = {"solver": solver, **reading}
         if args.poison:
             line["warned"] = warned

@@ -107,9 +107,10 @@ def host_read(t, kind=float):
 
 def _launches():
     from ..ops import element_chain as ec
-    from ..ops import mohr_coulomb, vonmises
+    from ..ops import mg_cycle, mohr_coulomb, vonmises
 
     out = dict(ec.launch_counts())
+    out.update(mg_cycle.launch_counts())
     out["mc_return_map"] = mohr_coulomb.mc_return_map.launches
     out["vonmises_return_map"] = vonmises.vonmises_return_map.launches
     out["vonmises_return_map_f64"] = vonmises.vonmises_return_map_f64.launches

@@ -1010,3 +1010,166 @@ def test_cuda_e5_staging_edges(cuda, kernel, cells):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(replayed, out)
+
+
+# ----------------------------------------------------------------------
+# AMG-CG's f32 iteration through the fused kernels (ops/mg_cycle.py)
+
+MG_OPTS = {"ksp_type": "cg", "pc_type": "mg"}
+CYLINDER_RECORD = Path(__file__).resolve().parent.parent / "fembench/configs/vm-cylinder-fine.json"
+
+
+def _same_bits(a, b):
+    """Equal bit for bit where not NaN, NaN at the same places."""
+    nan = torch.isnan(a)
+    return (a.shape == b.shape and torch.equal(nan, torch.isnan(b))
+            and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32)))
+
+
+def _torch_chains(monkeypatch):
+    """``vcycle`` and ``ir_pcg`` through the torch chains, as before the
+    kernels."""
+    from dolfinx_external_operator_torch.parallel import mg
+
+    monkeypatch.setattr(mg, "_chebyshev", mg._chebyshev_reference)
+    monkeypatch.setattr(mg, "_pcg_iterations", mg._pcg_iterations_reference)
+
+
+@pytest.fixture(scope="module")
+def cylinder_mg():
+    """The lc = 0.02 cylinder with cg + mg on the card after two load
+    steps (the second plastic): the solver's plan and workspace, the f32
+    operator and the cycle as ``_mg_solve`` builds them, and a seeded
+    residual zero on the masked rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (see README: the port's card-only tests)")
+    from dolfinx_external_operator_torch.parallel import mg
+
+    P = vm.build_cylinder_problem(0.02, snes_opts=MG_OPTS)
+    for load in (0.5, 0.85):
+        P["loading"].value = load * P["q_lim"]
+        P["Du"].x.array[:] = torch.full_like(P["Du"].data, np.finfo(np.float64).eps)
+        P["problem"].solve()
+        P["p"].x.axpy(1.0, P["dp"].x)
+        P["sigma_n"].x.array[:] = P["sigma"].ref_coefficient.data
+    st = P["problem"].solver._mg
+    plan, ws = st["plan"], st["ws"]
+    mask = ws["mask"]
+
+    def M32(r):
+        return torch.where(mask, r, mg.vcycle(plan, ws["rt"], torch.where(mask, 0.0, r)))
+
+    rng = np.random.default_rng(23)
+    r = torch.as_tensor(rng.standard_normal(mask.shape[0]), dtype=torch.float32, device="cuda")
+    return plan, ws, ws["rt"]["mv0"], M32, torch.where(mask, 0.0, r)
+
+
+def _pcg_state(M32, r):
+    from dolfinx_external_operator_torch.parallel import mg
+
+    z, rz, nb, _ = mg._pcg_start(M32, r)
+    x = torch.zeros_like(r)
+    return {"x": x, "r": r, "p": z, "rz": rz, "nb": nb, "xb": x}
+
+
+def _same_batch(a, b):
+    (s_a, t_a, xb_a), (s_b, t_b, xb_b) = a, b
+    return (_same_bits(t_a, t_b) and _same_bits(xb_a, xb_b)
+            and all(_same_bits(s_a[k], s_b[k].reshape(s_a[k].shape)) for k in s_a))
+
+
+def test_cuda_mg_cycle_kernels_match_the_torch_chains(cylinder_mg, monkeypatch):
+    """On the cylinder's own hierarchy (11,222 / 2,912 / 558 dofs smoothed,
+    63 inverted): a cycle (18 Chebyshev launches) and a batch of 8 f32 PCG
+    iterations (8 launches of each PCG kernel) through the kernels give
+    the torch chains' bits on the same CUDA tensors."""
+    from dolfinx_external_operator_torch.ops import mg_cycle as mgc
+    from dolfinx_external_operator_torch.parallel import mg
+
+    plan, ws, mv32, M32, r = cylinder_mg
+    assert [lv["n"] for lv in plan["levels"]][:2] == [2912, 558] and r.shape[0] == 11222
+    mgc.reset_launches()
+    z = mg.vcycle(plan, ws["rt"], r)
+    assert mgc.launch_counts() == {"chebyshev_step": 18, "pcg_xr": 0, "pcg_p": 0}
+    state = _pcg_state(M32, r)
+    mgc.reset_launches()
+    fused = mg._pcg_iterations(mv32, M32, state, 8)
+    torch.cuda.synchronize()
+    assert mgc.launch_counts() == {"chebyshev_step": 8 * 18, "pcg_xr": 8, "pcg_p": 8}
+    _torch_chains(monkeypatch)
+    assert _same_bits(z, mg.vcycle(plan, ws["rt"], r))
+    assert _same_batch(fused, mg._pcg_iterations(mv32, M32, _pcg_state(M32, r), 8))
+
+
+def test_cuda_graphs_replayed_after_mg_setup_read_the_new_hierarchy(cylinder_mg, monkeypatch):
+    """A cycle and a PCG batch captured in CUDA graphs, then the workspace's
+    element blocks scaled cell by cell and ``mg_setup(..., out=)`` run
+    again: the replays read the new hierarchy (its Chebyshev bounds
+    moved) and give the torch chains' bits on it."""
+    from dolfinx_external_operator_torch.parallel import mg
+
+    plan, ws, mv32, M32, r = cylinder_mg
+    K32, rt = ws["K32"], ws["rt"]
+    held = K32.clone()
+    cycle = mg.cuda_graphed(M32, r)
+    batch = mg._graphed(mg._pcg_iterations, mv32, M32, _pcg_state(M32, r), 8)
+    theta = rt["cheb0"][0].clone()
+    rng = np.random.default_rng(5)
+    scale = torch.as_tensor(1.0 + 0.5 * rng.random(K32.shape[0]), dtype=torch.float32,
+                            device=K32.device)
+    try:
+        K32.mul_(scale[:, None, None])
+        assert mg.mg_setup(plan, K32, ws["free"], out=rt) is rt
+        assert not torch.equal(rt["cheb0"][0], theta)
+        z = cycle(r)
+        state = _pcg_state(M32, r)
+        replayed = batch(mv32, M32, state, 8)
+        torch.cuda.synchronize()
+        with monkeypatch.context() as m:
+            _torch_chains(m)
+            assert _same_bits(z, M32(r))
+            assert _same_batch(replayed, mg._pcg_iterations(mv32, M32, _pcg_state(M32, r), 8))
+    finally:
+        K32.copy_(held)
+        mg.mg_setup(plan, K32, ws["free"], out=rt)
+
+
+# the last step's Du of that schedule before the kernels (the first 16 hex
+# digits of the SHA-256 of its bytes; an H100)
+CYLINDER_DU = "f5aac105293c2f28"
+
+
+def _du_fingerprint(Du):
+    import hashlib
+
+    return hashlib.sha256(Du.detach().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def test_cuda_cylinder_schedule_through_the_kernels_keeps_the_record(cuda, monkeypatch):
+    """The lc = 0.02 cylinder's 20 steps with cg + mg (the default yield
+    stress, the benchmark's seed 0): the record's Newton list, 8,885 PCG
+    iterations through the kernels (launched at the batches' captures,
+    replayed after), and the torch chains' ``Du`` bit for bit, which is
+    the schedule's ``Du`` before the kernels."""
+    import json
+
+    from dolfinx_external_operator_torch.ops import mg_cycle as mgc
+    from dolfinx_external_operator_torch.utils import profiling
+
+    record = json.loads(CYLINDER_RECORD.read_text())["record"]
+    profiling.reset_counters()
+    mgc.reset_launches()
+    run = vm.solve_von_mises(lc=0.02, num_increments=20, snes_opts=MG_OPTS)
+    counted = profiling.counters()
+    assert run["iterations"] == record["newton_per_step"]
+    assert sum(run["ksp_iterations"]) == record["inner_total"] == 8885
+    assert counted["solve.inner"] == 8885
+    assert counted["launches.pcg_xr"] == counted["launches.pcg_p"] > 0
+    assert counted["launches.chebyshev_step"] > 0
+    Du = run["problem"].u.data.clone()
+    _torch_chains(monkeypatch)
+    plain = vm.solve_von_mises(lc=0.02, num_increments=20, snes_opts=MG_OPTS)
+    assert plain["iterations"] == run["iterations"]
+    assert plain["ksp_iterations"] == run["ksp_iterations"]
+    assert torch.equal(plain["problem"].u.data, Du)
+    assert _du_fingerprint(Du) == CYLINDER_DU

@@ -188,3 +188,17 @@ def test_fresh_process_phase_fails_on_a_difference(tmp_path, monkeypatch):
                                        ("--device", "cpu", "--n", "2", "--loads", "0,45"))
     with pytest.raises(chip_smoke.SmokeFailure, match=r"schedule_bits \(plain\) exited 2"):
         chip_smoke.fresh_process_phase({}, ("--device", "cpu", "--solvers", "nothing"))
+
+
+def test_schedule_bits_times_a_schedule_only_when_asked(capsys):
+    """``schedule_bits --time`` adds the fused step's wall seconds a step to
+    its line and leaves the reading as it was; without it the line holds
+    the reading alone (what phase 26 compares)."""
+    args = ["--device", "cpu", "--n", "2", "--loads", "0,25", "--solvers", "mg"]
+    lines = {}
+    for flag in ([], ["--time"]):
+        assert schedule_bits.main(args + flag) == 0
+        lines[bool(flag)] = json.loads(capsys.readouterr().out.splitlines()[-1])
+    timed = lines[True].pop("s_per_step")
+    assert timed > 0 and lines[True] == lines[False]
+    assert set(lines[False]) == {"solver", "newton", "inner", "du"}
