@@ -83,17 +83,19 @@ Phases, in order; any failed check exits non-zero without the ``ok`` line:
    steps run again, Du bitwise equal; the roofline entry of its level-0
    DIA matvec (``utils/roofline.py::dia_roofline_from_fp``: one matvec per
    dispatch, and a chain of them in one CUDA graph, against HBM); M1's
-   launches over the schedule: one ``pcg_xr`` and one ``pcg_p`` an inner
-   iteration (read once an iteration), ``chebyshev_step`` in each update's
-   captured cycle;
+   launches at the CUDA graphs' captures only (``m1_check``): over the
+   warm-up step, which captures the PCG batches, ``pcg_xr``, ``pcg_p`` and
+   ``chebyshev_step`` each launched and the graphs replayed; over the
+   schedule, replays and no launch unless something new was captured;
 12. the same slope with ``linear_solver="elastic"`` (the lagged f32
    inverse as the preconditioner): 171 updates, 223 kernel calls, inner
-   iterations, s/step; M1's PCG kernels once an inner iteration, no
-   Chebyshev launch;
+   iterations, s/step; M1's PCG kernels at least once an inner iteration
+   (eager batches), no Chebyshev launch;
 13. the 100x100 slope with AMG-CG through ``run_step_host(forcing=False)``,
    the protocol of ``docs/records/scaling_100x100_full_tpu.json``, over its
-   first ``MG_100_STEPS`` loads: that record's Newton counts, M1's PCG
-   kernels once an inner iteration, the host
+   first ``MG_100_STEPS`` loads: that record's Newton counts, M1's
+   kernels launched at the PCG batches' captures only and the graphs
+   replayed, the host
    build's time, inner iterations per update beside the record's, peak
    memory, one solve beside a BCR solve of the same system (in turns), the
    layers of that update, and the roofline entry of its level-0 DIA matvec;
@@ -261,6 +263,7 @@ from dolfinx_external_operator_torch.parallel import bcr, dist, mg
 from dolfinx_external_operator_torch.tools import schedule_bits, slice_bits
 from dolfinx_external_operator_torch.tools.ec_compare import operand_inputs
 from dolfinx_external_operator_torch.utils import profiling, roofline
+from dolfinx_external_operator_torch.utils.graphs import capture
 
 # kernel vs plain on the card: the f64 polish stops once |r| <= 1e-8 of the
 # lane's scale, so a lane whose last step lands on the other side of that
@@ -640,11 +643,13 @@ def vm_call_launches(fp, Du, sig_n, floor_ms, reps=20):
 
 
 def warm_up(fp, load):
-    """One step from the zero state: first-call allocations and library
-    handles, kept out of the timed schedule."""
+    """One step from the zero state: first-call allocations, library
+    handles and CUDA graphs, kept out of the timed schedule.  Returns the
+    step's inner iterations."""
     Du, sig = fp.zero_state()
-    fp.run_step(Du, sig, load)
+    *_, inner = fp.run_step(Du, sig, load)
     torch.cuda.synchronize()
+    return int(inner)
 
 
 def run_loads(fp, loads, capture=()):
@@ -1097,8 +1102,8 @@ def mg_layers(fp, Du, sig_n, load):
     events around the eager calls (``mg_setup``, one cycle, the f32
     level-0 matvec and the f64 refinement matvec), and the cycle and the
     level-0 matvec replayed from a CUDA graph (device time without the
-    host's launches); one ``mg.cuda_graphed`` call on the host's clock (its
-    eager warm-up cycle and the capture, as every mg solve makes them); one
+    host's launches); one capture of the cycle on the host's clock
+    (``utils.graphs.capture``: its eager warm-up cycle and the capture); one
     whole solve and its inner iterations; bounds from ``roofline.mg_counts``, and for the level-0
     matvec its bands and x read once, its result written once, or its
     multiply-adds at the f32 peak."""
@@ -1133,7 +1138,7 @@ def mg_layers(fp, Du, sig_n, load):
         "mv0_f32_ms": cuda_time_ms(lambda: rt["mv0"](r), 50, warmup=5),
         "mv0_f32_graph_ms": graph_time_ms(lambda: rt["mv0"](r), 50),
         "refine_mv64_ms": cuda_time_ms(lambda: mv64(b), 50, warmup=5),
-        "capture_ms": wall_time_ms(lambda: mg.cuda_graphed(M32, r), 3),
+        "capture_ms": wall_time_ms(lambda: capture(M32, r), 3),
         "solve_ms": cuda_time_ms(lambda: fp._mg_solve(C_tang, b, fp.cg_rtol), 3, warmup=1),
         "solve_inner": fp._mg_solve(C_tang, b, fp.cg_rtol)[1],
         "mv0_bands": nb, "counts": counts,
@@ -1177,12 +1182,18 @@ def mg_25x25_phase(report, fp_dense, state):
     fp = pt.mohr_coulomb_slope_step(25, 25, route="cuda", linear_solver="mg")
     check(fp.linear_solver == "mg" and fp._mg_mv0_mode == "dia" and fp.mg_sizes[0] == 5202,
           f"25x25 mg: {fp.linear_solver}, {fp._mg_mv0_mode}, {fp.mg_sizes}")
-    warm_up(fp, loads[0])
+    mgc.reset_launches()
+    since = profiling.counters()
+    inner_w = warm_up(fp, loads[0])
+    m1_check("25x25 mg warm-up", mgc.launch_counts(), inner_w, cycle=True,
+             graphs=graph_counts(since))
     torch.cuda.reset_peak_memory_stats()
     mc_ops.mc_return_map.launches = 0
     ec.reset_launches()
     mgc.reset_launches()
+    since = profiling.counters()
     Du_end, its, inner, walls, states = run_loads(fp, loads, capture=(10, 49, 50))
+    graphs = graph_counts(since)
     launches = mc_ops.mc_return_map.launches
     ec_launches = ec.launch_counts()
     m1_launches = mgc.launch_counts()
@@ -1210,7 +1221,7 @@ def mg_25x25_phase(report, fp_dense, state):
           f"CPU: {gap:+.1%} (bound {MG_INNER_TOL:.0%})", flush=True)
     check(abs(gap) <= MG_INNER_TOL, f"25x25 mg inner iterations {sum(inner)} beyond "
           f"{MG_INNER_TOL:.0%} of {MG_25_INNER_JAX}")
-    m1_check("25x25 mg", m1_launches, pcg=sum(inner), cycle=True)
+    m1_check("25x25 mg", m1_launches, sum(inner), cycle=True, graphs=graphs)
     out = {"newton": its, "inner": inner, "launches": launches, "ec_launches": ec_launches,
            "m1_launches": m1_launches,
            "du": schedule_bits.fingerprint(Du_end), "reading": reading(its, inner, states["du"]),
@@ -1288,7 +1299,7 @@ def elastic_25x25_phase(report):
     check(ec_launches["ebe_cell_matvec"] > 0 and ec_launches["cell_product"]
           == ec_launches["cell_values_grads"] == ec_launches["cell_triple"] == 0,
           f"element-chain launches {ec_launches}")
-    m1_check("25x25 elastic", m1_launches, pcg=sum(inner), cycle=False)
+    m1_check("25x25 elastic", m1_launches, sum(inner), cycle=False)
     # the end-of-step refresh at step 50's first tangent: the SPD inverse
     # does n^3 operations (Cholesky, triangular inverse and the product,
     # n^3 / 3 each); it reads the f32 element blocks and writes the inverse
@@ -1323,6 +1334,7 @@ def mg_100x100_phase(report, steps=MG_100_STEPS):
     torch.cuda.reset_peak_memory_stats()
     mc_ops.mc_return_map.launches = 0
     mgc.reset_launches()
+    since = profiling.counters()
     Du, sig = fp.zero_state()
     its, inner, walls = [], [], []
     for k, load in enumerate(loads):
@@ -1337,6 +1349,7 @@ def mg_100x100_phase(report, steps=MG_100_STEPS):
         inner.append(int(cg))
     launches = mc_ops.mc_return_map.launches
     m1_launches = mgc.launch_counts()
+    graphs = graph_counts(since)
     peak = torch.cuda.max_memory_allocated()
     ref = rec["newton_per_step"][:steps]
     print(f"100x100 slope, mg (dia) + kernel, host-driven, {steps} steps: host build "
@@ -1349,7 +1362,7 @@ def mg_100x100_phase(report, steps=MG_100_STEPS):
     print(f"  s/step {[round(w, 3) for w in walls]}", flush=True)
     check(its == ref, f"100x100 mg Newton list {its} != the record's first {steps} {ref}")
     check(launches == sum(its) + len(its), f"{launches} launches for Newton {its}")
-    m1_check("100x100 mg", m1_launches, pcg=sum(inner), cycle=True)
+    m1_check("100x100 mg", m1_launches, sum(inner), cycle=True, graphs=graphs)
     out = {"newton": its, "inner": inner, "launches": launches, "wall_s": walls,
            "build_s": build_s, "peak_bytes": peak, "levels": fp.mg_sizes, "steps": steps,
            "m1_launches": m1_launches}
@@ -1780,11 +1793,13 @@ def vm_fine_phase(report, lc=0.02, device="cuda", gmres_steps=5):
             torch.cuda.reset_peak_memory_stats()
         sync(device)
         mgc.reset_launches()
+        since = profiling.counters()
         t0 = time.perf_counter()
         r = vmm.solve_von_mises(lc=lc, num_increments=20, snes_opts=opts, device=device,
                                 steps=steps)
         sync(device)
         r["wall_s"] = time.perf_counter() - t0
+        r["graphs"] = graph_counts(since)
         r["peak_bytes"] = torch.cuda.max_memory_allocated() if device == "cuda" else None
         r["m1_launches"] = mgc.launch_counts()
         runs[name] = r
@@ -1835,15 +1850,10 @@ def vm_fine_phase(report, lc=0.02, device="cuda", gmres_steps=5):
     if device == "cuda":
         print("  M1 launches: " + ", ".join(f"{k} {r['m1_launches']}" for k, r in runs.items()),
               flush=True)
-        m1_check("cylinder direct", d["m1_launches"], pcg=0, cycle=False)
-        # cg + mg: the wrappers run at each PCG batch's and each round's
-        # first cycle's capture (and its eager call before), not at the
-        # replays; gmres + mg: the cycle alone
-        check(m["m1_launches"]["pcg_xr"] == m["m1_launches"]["pcg_p"] > 0
-              and 0 < m["m1_launches"]["pcg_xr"] < sum(m["ksp_iterations"])
-              and m["m1_launches"]["chebyshev_step"] > 0,
-              f"cylinder cg + mg: M1 launches {m['m1_launches']}")
-        m1_check("cylinder gmres + mg", g["m1_launches"], pcg=0, cycle=True)
+        m1_check("cylinder direct", d["m1_launches"], 0, cycle=False)
+        m1_check("cylinder cg + mg", m["m1_launches"], sum(m["ksp_iterations"]), cycle=True,
+                 graphs=m["graphs"])
+        m1_check("cylinder gmres + mg", g["m1_launches"], 0, cycle=True, graphs=g["graphs"])
     report["vm_fine"] = {
         "lc": lc, "dofs": n_dofs, "gauss_points": n_pts,
         **{f"newton_{k}": r["iterations"] for k, r in runs.items()},
@@ -2319,16 +2329,38 @@ CYLINDER_MG = {"ksp_type": "cg", "pc_type": "mg"}
 M1_LEVELS = {"cylinder": (11222, 2912, 558), "slope_25x25": (5202, 1352, 246)}
 
 
-def m1_check(label, counts, pcg, cycle):
-    """M1's launches on a path (``mgc.launch_counts()`` since its reset):
-    ``pcg_xr`` and ``pcg_p`` ``pcg`` times each (an inner iteration each
-    where the path reads once an iteration), ``chebyshev_step`` launched
-    where ``cycle``, else never."""
-    check(counts["pcg_xr"] == counts["pcg_p"] == pcg
-          and (counts["chebyshev_step"] > 0) == cycle,
-          f"{label}: M1 launches {counts}, expected {pcg} of each PCG kernel and "
-          f"{'some' if cycle else 'no'} Chebyshev launches")
-    print(f"  M1 launches ({label}): {counts}", flush=True)
+def graph_counts(since):
+    """(captures, replays) that ``utils.graphs.capture`` counted after the
+    counters snapshot ``since`` (``profiling.counters()``)."""
+    now = profiling.counters()
+    return tuple(now.get(k, 0) - since.get(k, 0) for k in ("graphs.captures", "graphs.replays"))
+
+
+def m1_check(label, counts, inner, cycle, graphs=None):
+    """M1's launches on a path (``mgc.launch_counts()`` since its reset)
+    over ``inner`` f32 PCG iterations: ``pcg_xr`` and ``pcg_p`` as often as
+    each other, ``chebyshev_step`` only where the path has a ``cycle``.
+    Eager (``graphs`` None): the PCG kernels at least ``inner`` times (an
+    eager batch launches the iterations after the one that ends the loop)
+    and none where ``inner`` is 0, the Chebyshev kernel where ``cycle``.
+    Where the path replays its f32 work from CUDA graphs, ``graphs`` is
+    the (captures, replays) of ``graph_counts`` over the same run: at
+    least one replay, and M1 launches at the captures only (their eager
+    call and the capture), so each kernel of the path launches where
+    something was captured and none launches where nothing was."""
+    xr, cheb = counts["pcg_xr"], counts["chebyshev_step"]
+    if graphs is None:
+        ok = xr >= inner and (xr > 0) == (inner > 0) and (cheb > 0) == cycle
+    else:
+        captures, replays = graphs
+        ok = (replays > 0 and (xr > 0) == (captures > 0 and inner > 0)
+              and (cheb > 0) == (captures > 0 and cycle))
+    check(xr == counts["pcg_p"] and ok,
+          f"{label}: M1 launches {counts} for {inner} PCG iterations, "
+          f"{'eager' if graphs is None else '(captures, replays) %s' % (graphs,)}, "
+          f"Chebyshev launches {'expected' if cycle else 'none'}")
+    print(f"  M1 launches ({label}): {counts}"
+          + ("" if graphs is None else f", graphs (captured, replayed) {graphs}"), flush=True)
 
 
 @contextlib.contextmanager
@@ -2449,7 +2481,7 @@ def m1_cylinder(st, reps=20):
     launches of each kernel a cycle and a PCG iteration, and one
     iteration's device time in a CUDA graph (``reps`` iterations), kernels
     and chains."""
-    plan, ws = st["plan"], st["ws"]
+    plan, ws = st["amg"].plan, st["amg"].ws
     mask, rt = ws["mask"], ws["rt"]
     mv32 = rt["mv0"]
 

@@ -16,7 +16,7 @@ consistent tangent dP/dF is ``torch.func.vmap(torch.func.jacfwd(...))``
 over the energy's ``torch.func.grad``, as the reference demo computes it
 (``demo_hyperelasticity.py:448``).  Eagerly that is a few thousand small
 launches per call; on the card each batch size's call is captured once in
-a CUDA graph and replayed (``parallel.mg.cuda_graphed``), where the JAX
+a CUDA graph and replayed (``utils.graphs.capture``), where the JAX
 package jits it.
 """
 
@@ -27,6 +27,8 @@ import os
 import numpy as np
 import torch
 from torch import nn
+
+from ..utils.graphs import capture
 
 __all__ = ["ICNN", "load_isihara_weights", "DEFAULT_WEIGHTS_PATH"]
 
@@ -115,7 +117,7 @@ class ICNN(nn.Module):
         ]), persistent=False)
         self._stress_and_tangent = torch.func.vmap(
             torch.func.jacfwd(self._stress_point, has_aux=True))
-        self._graphs = {}  # batch size -> the call replayed from a CUDA graph
+        self._graphs = {}  # batch size -> its call (``capture``'s: a replay on the card)
 
     # -- energy ---------------------------------------------------------
     @staticmethod
@@ -156,15 +158,10 @@ class ICNN(nn.Module):
         ``demo_hyperelasticity.py:445-456``)."""
         F = torch.as_tensor(F_batch_flat, dtype=_F64).reshape(-1, 4)
         n = F.shape[0]
-        if F.device.type != "cuda":
-            dP, P = self._stress_and_tangent(F)
-            return dP.reshape(-1), P.reshape(-1)
-        graphed = self._graphs.get(n)
-        if graphed is None:
-            from ..parallel.mg import cuda_graphed
-
-            graphed = self._graphs[n] = cuda_graphed(
+        run = self._graphs.get(n)
+        if run is None:
+            run = self._graphs[n] = capture(
                 lambda x: torch.cat([t.reshape(-1) for t in self._stress_and_tangent(x)]),
                 F.contiguous())
-        out = graphed(F)
+        out = run(F).clone()  # the next replay overwrites the graph's output
         return out[:16 * n], out[16 * n:]

@@ -28,6 +28,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils.graphs import capture, replayable
 from ..utils.profiling import count, host_read, span
 
 __all__ = ["bcr_apply", "bcr_factor", "bcr_workspace", "build_bcr_statics", "equilibrate",
@@ -325,7 +326,7 @@ def ir_direct(mv64, solve32, b, rtol, round_fn=None):
     return xb, (k if nb <= target else -k)
 
 
-def fixed_round(solve32, mv64, b):
+def fixed_round(solve32, mv64, b, device_mesh=None):
     """``ir_direct``'s round over fixed buffers, for ``ir_direct(...,
     round_fn=)``: ``x' = x + solve32(r)``, ``r' = b - mv64(x')`` and
     ``|r'|`` by the eager round's operations, written into one of two
@@ -334,11 +335,11 @@ def fixed_round(solve32, mv64, b):
     and ``b`` read tensors that stay put: the caller refreshes their
     values in place between solves.
 
-    Where ``b`` is on the card each direction is captured once as a CUDA
-    graph, after one eager round on the current stream (first-use work
-    stays out of the graphs, and cuBLAS keeps the current stream's
-    workspace), and a round is one replay where the eager round launches
-    about 150 kernels.  Counts ``bcr.round_captures`` once and
+    Where ``utils.graphs.replayable`` allows it for ``b``'s device and
+    ``device_mesh`` (the ranks that ``mv64`` sums over; ``None``: one
+    device), each direction is captured once as a CUDA graph
+    (``utils.graphs.capture``), the two on one memory pool, and a round is
+    one replay where the eager round launches about 150 kernels; counts
     ``bcr.round_replays`` a round."""
     pairs = ((torch.zeros_like(b), b.clone()), (torch.empty_like(b), torch.empty_like(b)))
     nn = b.new_empty(())
@@ -350,17 +351,12 @@ def fixed_round(solve32, mv64, b):
         torch.sqrt(torch.dot(r2, r2), out=nn)
 
     run = body
-    if b.is_cuda:
-        body(0)
-        g = (torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph())
-        with torch.cuda.graph(g[0]):
-            body(0)
-        with torch.cuda.graph(g[1], pool=g[0].pool()):
-            body(1)
-        count("bcr.round_captures")
+    if replayable(b.device, device_mesh):
+        first = capture(body, 0)
+        graphs = (first, capture(body, 1, pool=first.pool))
 
         def run(i):
-            g[i].replay()
+            graphs[i](i)
             count("bcr.round_replays")
 
     def round_fn(x, r):

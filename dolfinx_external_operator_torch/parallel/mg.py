@@ -40,14 +40,16 @@ package loops in Python over bands and stencil taps (and XLA fuses the
 loop), this module gathers through a table built once and sums over the
 table's axis, a few launches per operator.  Every scatter-add is a padded
 gather table (``scatter.py``), never ``index_add_``.  The JAX
-``while_loop``s are Python loops with one host read per inner iteration,
-or per batch of them (``ir_pcg``'s ``graphs``), and one per refinement
-round.  Inside them, on the card, each Chebyshev step's vector updates and
-each f32 PCG iteration's vector and scalar work run as hand-written
-kernels (``ops/mg_cycle.py``) where XLA fused the chains: the torch
-chains' operations and bits, a launch where they made tens.  On the CPU
-the torch chains run (``_chebyshev_reference``,
-``_pcg_iterations_reference``).
+``while_loop``s are Python loops with one host read per batch of inner
+iterations and one per refinement round (``ir_pcg``).  ``AMGCG``, the
+AMG-CG solver of both Newton loops, keeps its hierarchy's values in a
+workspace and replays its batches from CUDA graphs where
+``utils.graphs.replayable`` allows.  Inside the loops, on the card, each
+Chebyshev step's vector updates and each f32 PCG iteration's vector and
+scalar work run as hand-written kernels (``ops/mg_cycle.py``) where XLA
+fused the chains: the torch chains' operations and bits, a launch where
+they made tens.  On the CPU the torch chains run
+(``_chebyshev_reference``, ``_pcg_iterations_reference``).
 """
 
 from __future__ import annotations
@@ -59,11 +61,12 @@ import torch.nn.functional as F
 
 from ..ops import element_chain as ec
 from ..ops import mg_cycle as mgc
+from ..utils.graphs import capture, replayable
 from ..utils.profiling import count, host_read, span
 from .bcr import _lattice_node_perm
 from .scatter import dedup_table, dedup_write, segment_sum, segment_table
 
-__all__ = ["build_mg_statics", "cuda_graphed", "ebe_matvec", "ebe_plan", "ir_pcg", "mg_plan",
+__all__ = ["AMGCG", "build_mg_statics", "ebe_matvec", "ebe_plan", "ir_pcg", "mg_plan",
            "mg_setup", "vcycle"]
 
 _F32 = torch.float32
@@ -1116,49 +1119,6 @@ def _prolong(t, x_c):
     return (t["P_w"] * x_c[t["P_idx"]]).sum(1)
 
 
-def _graphed(fn, *args):
-    """``fn(*args)`` captured once in a CUDA graph over copies of its
-    tensor arguments (a dict of them, or tensors): each call copies its
-    arguments in, replays, and returns the graph's outputs, which the next
-    replay overwrites."""
-    def copies(a):
-        return {k: v.clone() for k, v in a.items()} if isinstance(a, dict) else a.clone()
-
-    inputs = [copies(a) if isinstance(a, (dict, torch.Tensor)) else a for a in args]
-    # one eager call first: first-use work (library handles, workspaces)
-    # stays out of the graph.  On the current stream: a new stream per
-    # capture would give cuBLAS a new workspace each time, which it keeps
-    fn(*inputs)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = fn(*inputs)
-
-    def run(*args):
-        for dst, src in zip(inputs, args):
-            if isinstance(dst, dict):
-                for k, v in src.items():
-                    dst[k].copy_(v)
-            elif isinstance(dst, torch.Tensor):
-                dst.copy_(src)
-        graph.replay()
-        return out
-
-    return run
-
-
-def cuda_graphed(fn, like):
-    """``fn``, a map of one tensor to one tensor that reads nothing back to
-    the host, captured once in a CUDA graph; each call of the returned
-    function copies its argument in, replays the graph (one launch where
-    ``fn`` makes hundreds) and returns a copy of the result, which the
-    caller may keep across calls.  Where ``like`` (an input of the right
-    shape and dtype) is not on the card, ``fn`` itself."""
-    if like.device.type != "cuda":
-        return fn
-    run = _graphed(fn, like)
-    return lambda r: run(r).clone()
-
-
 def _pcg_iterations(mv32, M32, state, n):
     """``n`` iterations of ``ir_pcg``'s f32 PCG from ``state`` (``x``,
     ``r``, ``p``, ``rz``, ``nb``, ``xb``), reading nothing back: the state
@@ -1222,8 +1182,6 @@ def _pcg_iterations_reference(mv32, M32, state, n):
         tests.append(torch.stack([good.to(_F32), nn, better.to(_F32)]))
         xbs.append(xb)
     state = {"x": x, "r": r, "p": p, "rz": rz, "nb": nb, "xb": xb}
-    if n == 1:  # views: a read an iteration launches what it always did
-        return state, tests[0][None], xb[None]
     return state, torch.stack(tests), torch.stack(xbs)
 
 
@@ -1249,56 +1207,51 @@ def ir_pcg(mv64, mv32, M32, b, rtol, maxiter, *, atol=0.0, to_inner=None, from_i
     the f32 iteration then runs in the inner layout (the DIA lattice
     numbering) while ``mv64`` and the result stay in the caller's.
 
-    ``graphs``: a dict the caller keeps, where ``mv32`` and ``M32`` read
-    nothing but tensors that outlive it.  Given it, the f32 iterations run
-    in batches of 1, 2, 4, then ``_READ_BATCH``, each batch's loop tests
-    read in one host read (where a test ends the loop inside a batch, the
-    best iterate of that iteration is the result: the iterations after it
-    change nothing returned), and on the card each batch, and each round's
-    first cycle, is replayed from a CUDA graph stored there (by the batch's
-    size, and as ``"start"``), captured at its first use (counted as
-    ``mg.captures``).  Without it, one host read per iteration.  One more
-    per round; counts ``solve.rounds`` and the f32 iterations as
+    The f32 iterations run in batches of 1, 2, 4, then ``_READ_BATCH``,
+    each batch's loop tests read in one host read (where a test ends the
+    loop inside a batch, the best iterate of that iteration is the result:
+    the iterations after it change nothing returned), and one more read
+    per round.  ``graphs``: a dict the caller keeps, where ``mv32`` and
+    ``M32`` read nothing but tensors that outlive it; each batch, and each
+    round's first cycle, is then captured there at its first use (by the
+    batch's size, and as ``"start"``; ``utils.graphs.capture``) and
+    replayed after.  Counts ``solve.rounds`` and the f32 iterations as
     ``solve.inner``.  Returns (x_best, total_inner_iterations)."""
     to_inner = to_inner or (lambda v: v)
     from_inner = from_inner or (lambda v: v)
     bnorm = host_read(torch.linalg.vector_norm(b))
     target = max(rtol * bnorm, atol)
 
+    def call(key, fn, *args):
+        """``fn(*args)``, replayed from ``graphs[key]`` where given."""
+        if graphs is None:
+            return fn(*args)
+        if key not in graphs:
+            graphs[key] = capture(fn, *args)
+        return graphs[key](*args)
+
     def pcg32(r32, tgt, budget):
         """Safeguarded f32 PCG on A dx = r32 down to |r| <= tgt.  Exits on
         the target, the budget, SPD breakdown, divergence past 100x the
         best residual, or stagnation (no new best iterate within
-        ``_STALL_WINDOW`` iterations)."""
-        graphed = graphs is not None and r32.is_cuda
-        if graphed:
-            if "start" not in graphs:
-                graphs["start"] = _graphed(_pcg_start, M32, r32)
-                count("mg.captures")
-            z, rz, nb, test = graphs["start"](M32, r32)
-        else:
-            z, rz, nb, test = _pcg_start(M32, r32)
+        ``_STALL_WINDOW`` iterations).  The iterate returned is a copy: a
+        graph's outputs are overwritten by its next replay."""
+        z, rz, nb, test = call("start", _pcg_start, M32, r32)
         ok, ncur = host_read(test, torch.Tensor.tolist)
         x = torch.zeros_like(r32)
         state = {"x": x, "r": r32, "p": z, "rz": rz, "nb": nb, "xb": x}
         k, k_best, batch = 0, 0, 1
         while ok and ncur > tgt and k < budget and k - k_best < _STALL_WINDOW:
             n = min(batch, budget - k)
-            if graphed:
-                if n not in graphs:
-                    graphs[n] = _graphed(_pcg_iterations, mv32, M32, state, n)
-                    count("mg.captures")
-                state, tests, xbs = graphs[n](mv32, M32, state, n)
-            else:
-                state, tests, xbs = _pcg_iterations(mv32, M32, state, n)
+            state, tests, xbs = call(n, _pcg_iterations, mv32, M32, state, n)
             for j, (ok, ncur, is_better) in enumerate(host_read(tests, torch.Tensor.tolist)):
                 k += 1
                 if is_better:
                     k_best = k
                 if not (ok and ncur > tgt and k < budget and k - k_best < _STALL_WINDOW):
-                    return xbs[j].clone() if graphed else xbs[j], k
-            batch = min(2 * batch, _READ_BATCH) if graphs is not None else 1
-        return state["xb"].clone() if graphed else state["xb"], k
+                    return xbs[j].clone(), k
+            batch = min(2 * batch, _READ_BATCH)
+        return state["xb"].clone(), k
 
     x = torch.zeros_like(b)
     r64, rnorm, k_tot, rounds, ok = b, bnorm, 0, 0, True
@@ -1356,3 +1309,99 @@ def vcycle(plan, rt, r0, *, gamma_coarse=(1, 2)):
     x1 = level_solve(1, r1) if L > 1 else rt["coarse_inv"] @ r1
     x0 = x0 + (_prolong(transfers[0], x1) if st is None else _stencil_prolong(st, x1))
     return _chebyshev(mv0, dinv0, r0, x0, cheb0)
+
+
+class AMGCG:
+    """The AMG-CG solve of both Newton loops: ``ir_pcg`` with one cycle
+    (``vcycle``) per f32 iteration, over a workspace kept for the solver's
+    life.
+
+    ``plan``: ``mg_plan``'s.  ``device_mesh``: the ranks whose cells the
+    plan's sums make whole (``None``: one device).  ``secondary``: the
+    ``ebe_plan``s of further cell batches of the operator (the general
+    path's), whose f32 matvecs add to level 0's, each less the identity it
+    puts on the masked rows.  ``gamma_coarse``: the cycle's.
+
+    ``setup`` writes an update's f32 element blocks and mask into the
+    workspace and the hierarchy's values over them (``mg_setup(...,
+    out=)``); ``solve`` runs ``ir_pcg`` on them, in dia mode with the f32
+    iteration in the lattice numbering.  Whether the f32 work replays from
+    CUDA graphs is decided once, by ``utils.graphs.replayable``: sharded,
+    the element-blocked matvecs all-reduce, while dia mode's banded level 0
+    and the levels below it are whole on every rank.  The graphs are
+    captured at the first solve, over the workspace."""
+
+    def __init__(self, plan, device_mesh=None, secondary=(), gamma_coarse=(1, 2)):
+        self.plan, self.secondary, self.gamma = plan, tuple(secondary), gamma_coarse
+        dia = plan["mode"] == "dia"
+        self.graphs = ({} if replayable(plan["ebe"]["free"].device, device_mesh,
+                                        collective=not dia or bool(self.secondary)) else None)
+        self.inner = ({"to_inner": lambda v: v[plan["perm0_l2o"]],
+                       "from_inner": lambda v: v[plan["perm0_o2l"]]} if dia else {})
+        self.ws = None
+
+    def setup(self, K32, mask=None, secondary=()):
+        """This update's operator: ``K32`` the bc-masked element blocks of
+        the plan's cells and ``secondary`` those of the further batches
+        (any float dtype; the workspace holds them in f32), ``mask`` the
+        rows eliminated in this call (the element-blocked level 0 only;
+        default: the plan's Dirichlet rows, in dia mode in the lattice
+        numbering).  Then the hierarchy's values.  In a ``deo.solve.setup``
+        span; counts ``mg.setups``."""
+        with span("deo.solve.setup"):
+            ws = self.ws
+            if ws is None:
+                plan = self.plan
+                ws = self.ws = {"K32": K32.to(_F32, copy=True),
+                                "K32s": [K.to(_F32, copy=True) for K in secondary]}
+                if mask is None:
+                    ws["free"] = None
+                    ws["mask"] = (plan["mask0_lat"] if plan["mode"] == "dia"
+                                  else ~plan["ebe"]["free"])
+                else:
+                    ws["mask"], ws["free"] = mask.clone(), ~mask
+                ws["sec32"] = [ebe_matvec(K, e, ws["free"])
+                               for K, e in zip(ws["K32s"], self.secondary)]
+            else:
+                ws["K32"].copy_(K32)
+                for K, new in zip(ws["K32s"], secondary):
+                    K.copy_(new)
+                if mask is not None:
+                    ws["mask"].copy_(mask)
+                    torch.logical_not(mask, out=ws["free"])
+            # through the module's name: a wrapper put there runs
+            ws["rt"] = mg_setup(self.plan, ws["K32"], ws["free"], out=ws.get("rt"))
+            count("mg.setups")
+
+    def mv32(self, x):
+        """The f32 operator: level 0's matvec and the further batches'."""
+        ws = self.ws
+        out = ws["rt"]["mv0"](x)
+        for mv in ws["sec32"]:
+            out = out + mv(x) - torch.where(ws["mask"], x, 0.0)
+        return out
+
+    def cycle(self, r):
+        """The preconditioner: a cycle on ``r`` in f32 with the masked rows
+        zeroed, in ``r``'s dtype, and ``r`` itself on those rows."""
+        mask = self.ws["mask"]
+        z = vcycle(self.plan, self.ws["rt"], torch.where(mask, 0.0, r.to(_F32)),
+                   gamma_coarse=self.gamma)
+        return torch.where(mask, r, z.to(r.dtype))
+
+    def solve(self, mv64, b, rtol, maxiter, atol=0.0):
+        """``ir_pcg`` on the last ``setup``'s operator, ``mv64`` the exact
+        one: (x, inner iterations)."""
+        return ir_pcg(mv64, self.mv32, self.cycle, b, rtol, maxiter, atol=atol,
+                      graphs=self.graphs, **self.inner)
+
+    def preconditioner(self, like):
+        """The cycle for an outer Krylov method on vectors such as
+        ``like``: where the solver replays, from a CUDA graph captured at
+        the first call, each call returning a new tensor."""
+        if self.graphs is None:
+            return self.cycle
+        if "cycle" not in self.graphs:
+            self.graphs["cycle"] = capture(self.cycle, like)
+        run = self.graphs["cycle"]
+        return lambda r: run(r).clone()

@@ -16,9 +16,10 @@ Per Newton pass:
                                         refinement)
 
 PyTorch runs eagerly, so the JAX package's ``lax.while_loop``s are Python
-loops: the Newton loop reads the residual norm on the host once per pass
-and the Krylov loops once per iteration.  They keep the JAX semantics
-exactly (see ``_newton``).
+loops: the Newton loop reads the residual norm on the host once per pass,
+the Jacobi-CG loop once per iteration and the mixed-precision PCG
+(``mg.ir_pcg``) once per batch of iterations.  They keep the JAX
+semantics exactly (see ``_newton``).
 
 Scatter-adds never use ``index_add_``, whose CUDA form uses atomics: each
 destination sums a fixed, padded table of its contributions in increasing
@@ -338,16 +339,10 @@ class FusedPlasticityStep:
             "diag_slot": t(info["diag_slot"]),
             "perm_l2o": t(info["perm_l2o"]),
             "perm_o2l": t(info["perm_o2l"]),
-            # the factor's tensors, refactored in place (first solve on)
-            "ws": None,
-            # the refinement round over fixed buffers, replayed from CUDA
-            # graphs, on the card as ``_mg_solve`` decides: a graph can hold
-            # an NCCL all-reduce (the matvec's sum), not gloo's, which
-            # stages through the host.  Else the eager round
-            "replay": dev.type == "cuda" and (self.device_mesh is None
-                                              or self.device_mesh.backend == "nccl"),
-            "round": None,   # the round and its inputs C_tang, d, b
-            "held": None,
+            # from the first solve on: the factor's tensors, refactored in
+            # place, the tensors C_tang, d and b that the refinement round
+            # reads, refreshed in place, and the round over them
+            "ws": None, "held": None, "round": None,
         }
         return True
 
@@ -418,6 +413,7 @@ class FusedPlasticityStep:
             dia1_offsets=static["dia1_offsets"] if dia else None,
             t0_stencil=static["t0_stencil"] if dia else None,
             lat_shapes=static["lat_shapes"], cheb_degree=static["cheb_degree"])
+        self._amg = _mg.AMGCG(self._mg, self.device_mesh, gamma_coarse=gamma)
         # dofs per level: level 0, then the P1 level and the aggregates
         self.mg_sizes = [self.n_dofs] + [lvl["n"] for lvl in self._mg["levels"]]
 
@@ -615,27 +611,25 @@ class FusedPlasticityStep:
         """Block-cyclic-reduction direct solve (spmd.py:724-775): the f32
         factorization of the lattice block-tridiagonal tangent inside f64
         iterative refinement on the exact element-by-element operator.
-        The factor is written into the solver's own tensors.  On the card
-        each refinement round is replayed from a CUDA graph captured at the
-        first solve (``bcr.fixed_round``) over copies of ``C_tang``, ``d``
-        and ``b`` refreshed every solve: the same kernels on the same
-        inputs, so the same bits.  Returns (dx, signed refinement rounds)."""
+        The factor is written into the solver's own tensors, and each
+        refinement round (``bcr.fixed_round``) reads them and copies of
+        ``C_tang``, ``d`` and ``b`` refreshed every solve: on the card,
+        where ``utils.graphs.replayable`` allows, replayed from CUDA graphs
+        captured at the first solve, the same kernels on the same inputs,
+        so the same bits.  Returns (dx, signed refinement rounds)."""
         plan = self._bcr
         m, B = plan["m"], plan["B"]
         T, d = _bcr.equilibrate(self._bcr_bands(C_tang), plan["diag_slot"], m, B)
         if plan["ws"] is None:
             plan["ws"] = _bcr.bcr_workspace(m, B, T.dtype, T.device)
         with span("deo.solve.factor"):
-            fact = _bcr.bcr_factor(T, m, B, workspace=plan["ws"])
-        if not plan["replay"]:
-            return _bcr.ir_direct(lambda x: self._bc_matvec(C_tang, x),
-                                  lambda rr: self._bcr_apply(fact, d, rr), b, rtol)
+            _bcr.bcr_factor(T, m, B, workspace=plan["ws"])
         held = plan["held"]
         if held is None:
             held = plan["held"] = {"C": C_tang.clone(), "d": d.clone(), "b": b.clone()}
             plan["round"] = _bcr.fixed_round(
                 lambda rr: self._bcr_apply(plan["ws"], held["d"], rr),
-                lambda x: self._bc_matvec(held["C"], x), held["b"])
+                lambda x: self._bc_matvec(held["C"], x), held["b"], self.device_mesh)
         else:
             for k, v in (("C", C_tang), ("d", d), ("b", b)):
                 held[k].copy_(v)
@@ -644,39 +638,15 @@ class FusedPlasticityStep:
 
     def _mg_solve(self, C_tang, b, rtol):
         """AMG-preconditioned mixed-precision CG (spmd.py:639-722): the
-        hierarchy's f32 values from the current tangent (``mg.mg_setup``),
-        f32 PCG with one cycle per iteration inside f64 refinement on the
-        exact element-blocked operator (node layout; scalar in scalar
-        mode).  In dia mode the f32 iteration runs in the lattice
-        numbering, permuted at the refinement-round boundary.  On the card
-        the cycle is replayed from a CUDA graph (``mg.cuda_graphed``).
+        hierarchy's f32 values from the current tangent, f32 PCG with one
+        cycle per iteration inside f64 refinement on the exact
+        element-blocked operator (node layout; scalar in scalar mode), by
+        the step's ``mg.AMGCG``.  In dia mode the f32 iteration runs in the
+        lattice numbering, permuted at the refinement-round boundary.
         Returns (dx, inner iterations)."""
-        plan = self._mg
         K_cell = self._k_cell_masked(C_tang)
-        with span("deo.solve.factor"):
-            rt = _mg.mg_setup(plan, K_cell.to(torch.float32))
-        mv64 = _mg.ebe_matvec(K_cell, plan["ebe"])
-        if self._mg_mv0_mode == "dia":
-            mask, l2o, o2l = plan["mask0_lat"], plan["perm0_l2o"], plan["perm0_o2l"]
-            inner = {"to_inner": lambda v: v[l2o], "from_inner": lambda v: v[o2l]}
-        else:
-            mask, inner = self.statics["bc_mask"], {}
-
-        def M32(r):
-            z = _mg.vcycle(plan, rt, torch.where(mask, 0.0, r), gamma_coarse=self._mg_gamma)
-            return torch.where(mask, r, z)
-
-        # on the card one cycle is hundreds of small launches: replay them
-        # from a CUDA graph captured once per update.  Sharded, the cycle
-        # of node and scalar mode all-reduces in its level-0 matvec (dia
-        # mode's is banded and whole on every rank): a graph can hold an
-        # NCCL all-reduce, not gloo's, which stages through the host, so
-        # over gloo that cycle runs eager
-        mesh = self.device_mesh
-        if mesh is None or self._mg_mv0_mode == "dia" or mesh.backend == "nccl":
-            M32 = _mg.cuda_graphed(M32, torch.zeros(self.n_dofs, dtype=torch.float32,
-                                                    device=self.device))
-        return _mg.ir_pcg(mv64, rt["mv0"], M32, b, rtol, self.cg_maxiter, **inner)
+        self._amg.setup(K_cell)
+        return self._amg.solve(_mg.ebe_matvec(K_cell, self._mg["ebe"]), b, rtol, self.cg_maxiter)
 
     def _elastic_solve(self, C_tang, b, rtol):
         """Mixed-precision CG preconditioned by the lagged inverse

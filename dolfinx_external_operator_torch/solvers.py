@@ -311,13 +311,14 @@ class NewtonSolver:
             t0["blk_dst"] = padded(t0["blk_dst"], np.asarray(mgs["levels"][0]["cols"]).size)
             mgs["transfers"] = [t0] + list(mgs["transfers"][1:])
         dev = elems[dom][0].device
-        return {"dom": dom, "gmres": gmres, "n": n,
-                "plan": mgmod.mg_plan(mgs, elems[dom][1].cpu().numpy(), bc_only, dev, whole=whole,
-                                      dofmap_all=dofs_all[dom], mv0_mode="scalar",
-                                      cheb_degree=mgs["cheb_degree"]),
-                "ebe": [mgmod.ebe_plan(td.cpu().numpy(), bc_only, n, dev, whole=whole,
-                                       dofmap_all=d_all)
-                        for (_, td, _), d_all in zip(elems, dofs_all)]}
+        plan = mgmod.mg_plan(mgs, elems[dom][1].cpu().numpy(), bc_only, dev, whole=whole,
+                             dofmap_all=dofs_all[dom], mv0_mode="scalar",
+                             cheb_degree=mgs["cheb_degree"])
+        ebe = [mgmod.ebe_plan(td.cpu().numpy(), bc_only, n, dev, whole=whole, dofmap_all=d_all)
+               for (_, td, _), d_all in zip(elems, dofs_all)]
+        return {"dom": dom, "gmres": gmres, "n": n, "ebe": ebe,
+                "amg": mgmod.AMGCG(plan, dmesh, secondary=[e for i, e in enumerate(ebe)
+                                                           if i != dom])}
 
     def _mg_solve(self, problem, elems, mask, b, maxiter):
         """AMG-preconditioned Krylov on the element-blocked Jacobian
@@ -329,26 +330,22 @@ class NewtonSolver:
         operator sums every batch (each contributes the identity on masked
         rows, so ``k`` batches subtract ``k - 1`` of them).
 
-        cg: the mixed-precision ``ir_pcg`` (f32 PCG with one cycle per
-        iteration inside f64 refinement), honouring ``ksp_atol``.  gmres:
-        f64 GMRES on the true operator with the cycle (symmetrized values)
-        as its preconditioner; it reports 0 iterations.  A workspace kept
-        for the solver's life holds every batch's f32 element blocks, the
-        masks and the hierarchy's values, which ``mg_setup(..., out=)``
-        refreshes in place each call; on the card cg replays the f32 PCG's
-        batches of iterations (``ir_pcg``'s ``graphs``) and gmres the cycle
-        (``mg.cuda_graphed``) from CUDA graphs over it, captured at the
-        first call.  The set-up lies in a ``deo.solve.setup`` span and
-        counts ``mg.setups``; each graph counts ``mg.captures``.  Returns
-        (delta, inner iterations)."""
+        The solver's ``mg.AMGCG``, kept for the problem's life, holds every
+        batch's f32 element blocks, the mask and the hierarchy's values,
+        refreshed in place each call.  cg: its mixed-precision ``ir_pcg``
+        (f32 PCG with one cycle per iteration inside f64 refinement),
+        honouring ``ksp_atol``.  gmres: f64 GMRES on the true operator with
+        the cycle (symmetrized values) as its preconditioner; it reports 0
+        iterations.  On the card the f32 PCG's batches (cg) or the cycle
+        (gmres) replay from CUDA graphs over the workspace, captured at the
+        first call.  Returns (delta, inner iterations)."""
         from .parallel import mg as mgmod
 
         if self._mg is None:
             self._mg = self._mg_plan(problem, elems)
         st = self._mg
-        plan, dom, gmres = st["plan"], st["dom"], st["gmres"]
+        dom, gmres, amg = st["dom"], st["gmres"], st["amg"]
         free = ~mask
-        f32 = torch.float32
         Kbs = []
         for K_cell, tdofs, _ in elems:
             km = free.to(K_cell.dtype)[tdofs]
@@ -364,47 +361,12 @@ class NewtonSolver:
                 out = out + m(x) - torch.where(mask, x, 0.0)
             return out
 
-        def mv32(x):
-            out = ws["rt"]["mv0"](x)
-            for m in ws["sec32"]:
-                out = out + m(x) - torch.where(ws["mask"], x, 0.0)
-            return out
-
-        def M(r):
-            z = mgmod.vcycle(plan, ws["rt"], torch.where(ws["mask"], 0.0, r.to(f32)))
-            return torch.where(ws["mask"], r, z.to(r.dtype))
-
-        # on the card, graphs over the workspace: cg's batches of f32 PCG
-        # iterations, gmres's cycle, captured at the first call; sharded,
-        # the level-0 matvec all-reduces, and a graph holds an NCCL
-        # all-reduce, not gloo's, which stages through the host
-        dmesh = problem.J.device_mesh
-        graphable = dmesh is None or dmesh.backend == "nccl"
-        with span("deo.solve.setup"):
-            ws = st.get("ws")
-            sec = [i for i in range(len(Kbs)) if i != dom]
-            if ws is None:
-                ws = st["ws"] = {"K32": K_dom.to(f32), "free": free.clone(),
-                                 "mask": mask.clone(), "pcg": {},
-                                 "K32s": [Kbs[i].to(f32) for i in sec]}
-                ws["sec32"] = [mgmod.ebe_matvec(K, st["ebe"][i], ws["free"])
-                               for K, i in zip(ws["K32s"], sec)]
-            else:
-                for key, val in (("K32", K_dom), ("free", free), ("mask", mask)):
-                    ws[key].copy_(val)
-                for K, i in zip(ws["K32s"], sec):
-                    K.copy_(Kbs[i])
-            ws["rt"] = mgmod.mg_setup(plan, ws["K32"], ws["free"], out=ws.get("rt"))
-            count("mg.setups")
-            if gmres and graphable and b.is_cuda and "M" not in ws:
-                ws["M"] = mgmod.cuda_graphed(M, torch.zeros_like(b))
-                count("mg.captures")
+        amg.setup(K_dom, mask, [K for i, K in enumerate(Kbs) if i != dom])
         if gmres:
-            delta = krylov.gmres(mv, b, M=ws.get("M", M), tol=self.ksp_rtol, atol=self.ksp_atol,
-                                 maxiter=maxiter, restart=min(st["n"], 50))
+            delta = krylov.gmres(mv, b, M=amg.preconditioner(b), tol=self.ksp_rtol,
+                                 atol=self.ksp_atol, maxiter=maxiter, restart=min(st["n"], 50))
             return delta, 0
-        return mgmod.ir_pcg(mv, mv32, M, b, self.ksp_rtol, maxiter, atol=self.ksp_atol,
-                            graphs=ws["pcg"] if graphable else None)
+        return amg.solve(mv, b, self.ksp_rtol, maxiter, atol=self.ksp_atol)
 
     def solve(self, problem) -> tuple[int, bool]:
         """Newton on ``problem`` from its current iterate: (updates,

@@ -18,11 +18,9 @@
   ``deo.residual``       the fused step's residual (E2)
   ``deo.solve``          one Newton update's linear solve
   ``deo.solve.factor``   its factorization (Cholesky, LU, block-cyclic
-                         reduction) or the fused step's AMG hierarchy's
-                         values
-  ``deo.solve.setup``    the general path's AMG hierarchy's values and,
-                         under gmres, the capture of its cycle
-                         (``_mg_solve``)
+                         reduction)
+  ``deo.solve.setup``    the AMG hierarchy's values (``mg.AMGCG.setup``,
+                         both Newton loops)
   ``deo.solve.round``    each refinement round (dense, ``ir_direct``,
                          ``lu_refine``, ``ir_pcg``)
   ``deo.operands``       ``evaluate_operands``
@@ -34,14 +32,14 @@
 * ``count(name, n=1)``: always-on Python counters: ``newton.passes``,
   ``newton.updates``, ``solve.rounds``, ``solve.short`` (solves that
   ``ir_direct`` ended above their target), ``host.reads``,
-  ``bcr.factorizations``, ``bcr.inv_levels``, ``bcr.round_captures``
-  (BCR's refinement round captured as CUDA graphs: once a solver, on the
-  card), ``bcr.round_replays`` (rounds replayed from them: all of that
-  solver's rounds after the capture), ``solve.inner`` (f32 PCG
-  iterations in ``mg.ir_pcg``, from its host-side count), ``mg.setups``
-  and ``mg.captures`` (the general path's AMG hierarchy values set, and
-  its CUDA graphs captured: cg's PCG batches in ``ir_pcg``, gmres's
-  cycle in ``_mg_solve``).  ``counters()`` is a
+  ``bcr.factorizations``, ``bcr.inv_levels``, ``bcr.round_replays``
+  (BCR's refinement rounds replayed from CUDA graphs: all of a solver's
+  rounds on the card), ``solve.inner`` (f32 PCG iterations in
+  ``mg.ir_pcg``, from its host-side count), ``mg.setups`` (AMG
+  hierarchy values set) and ``graphs.captures`` (CUDA graphs captured,
+  ``utils.graphs.capture``: BCR's two round graphs, AMG-CG's PCG batches
+  and round starts or gmres's cycle, the ICNN map's batch sizes) and
+  ``graphs.replays`` (their replays).  ``counters()`` is a
   snapshot of them and of the kernel wrappers' own launch counts
   (``launches.<wrapper>``, read where they live); ``reset_counters()``
   zeroes the registry (not the wrappers' counts).

@@ -13,8 +13,9 @@
   slope over ``linspace(2, 22.9, 50)[:8]`` (the protocol of
   ``tests/test_bcr.py``) gives the JAX BCR step's Newton list with Du
   within 1e-10, the port's dense step's (two refinement rounds) likewise,
-  repeats bitwise, gives the same bits with its rounds through
-  ``fixed_round``, and refines at most 6 rounds per update.
+  repeats bitwise, gives the bits of ``ir_direct``'s eager round with its
+  rounds through ``fixed_round``, and refines at most 6 rounds per
+  update.
 - ``auto`` resolves to BCR above 10k dofs, and to AMG-CG on a mesh that is
   not a lattice, where ``"bcr"`` raises; a step built from a JAX step's
   statics (``convert.py``) runs BCR without a mesh.
@@ -38,6 +39,7 @@ from dolfinx_external_operator_torch.ops import element_chain as ec
 from dolfinx_external_operator_torch.parallel import bcr as bcr_t
 from dolfinx_external_operator_torch.utils import profiling
 from test_bcr import _random_block_tridiag
+from test_torch_cuda import eager_bcr_solve
 from test_torch_slope_step import RECORD_25X25
 
 jax.config.update("jax_enable_x64", True)
@@ -102,7 +104,7 @@ def test_ir_direct_signed_rounds():
 
 def _solve_counts():
     c = profiling.counters()
-    return (c.get("solve.rounds", 0), c.get("solve.short", 0), c.get("bcr.round_captures", 0),
+    return (c.get("solve.rounds", 0), c.get("solve.short", 0), c.get("graphs.captures", 0),
             c.get("bcr.round_replays", 0))
 
 
@@ -266,21 +268,26 @@ def test_bcr_step_repeats_bitwise(port_bcr):
 
 
 def test_bcr_step_fixed_rounds_match_eager(port_bcr):
-    """The fused step with its refinement rounds through ``fixed_round``
-    (the card's path, here without graphs) over the schedule: the eager
-    step's Du bit for bit, its Newton list and signed rounds; nothing
-    captured or replayed off the card."""
+    """The fused step, its refinement rounds through ``fixed_round`` (the
+    card's path, here without graphs), over the schedule: the Du bit for
+    bit, the Newton list and the signed rounds of the step refined by
+    ``ir_direct``'s eager round; nothing captured or replayed off the
+    card over the whole schedule."""
     _, (du, its, rounds), _ = port_bcr
     fp = pt.mohr_coulomb_slope_step(12, 12, route="plain", device="cpu", linear_solver="bcr")
-    assert fp._bcr["replay"] is False
-    fp._bcr["replay"] = True
+    fp._bcr_solve = eager_bcr_solve(fp)
+    du_e, its_e, rounds_e = _schedule(fp)
+    assert (its, rounds) == (its_e, rounds_e)
+    assert all(np.array_equal(a, b) for a, b in zip(du, du_e))
+    fp = pt.mohr_coulomb_slope_step(12, 12, route="plain", device="cpu", linear_solver="bcr")
     profiling.reset_counters()
     du2, its2, rounds2 = _schedule(fp)
-    assert (its2, rounds2) == (its, rounds)
-    assert all(np.array_equal(a, b) for a, b in zip(du2, du))
     c = profiling.counters()
-    assert (c.get("bcr.round_captures", 0), c.get("bcr.round_replays", 0)) == (0, 0)
-    assert c["solve.rounds"] == sum(abs(r) for r in rounds) > 0
+    assert (its2, rounds2) == (its_e, rounds_e)
+    assert all(np.array_equal(a, b) for a, b in zip(du2, du_e))
+    assert (c.get("graphs.captures", 0), c.get("graphs.replays", 0),
+            c.get("bcr.round_replays", 0)) == (0, 0, 0)
+    assert c["solve.rounds"] == sum(abs(r) for r in rounds_e) > 0
 
 
 def test_bcr_rounds_bounded(port_bcr):

@@ -360,21 +360,39 @@ def test_cuda_bcr_step_matches_cpu(cuda):
     assert its_c2 == its_c and torch.equal(Du_c2, Du_c)
 
 
+def eager_bcr_solve(fp):
+    """``fp._bcr_solve`` refined by ``ir_direct``'s own eager round over the
+    same equilibration, factor and operators: the reference that the
+    step's rounds through ``fixed_round`` are held to."""
+    from dolfinx_external_operator_torch.parallel import bcr as bcr_t
+
+    plan = fp._bcr
+    m, B = plan["m"], plan["B"]
+    ws = bcr_t.bcr_workspace(m, B, torch.float32, fp.device)
+
+    def solve(C_tang, b, rtol):
+        T, d = bcr_t.equilibrate(fp._bcr_bands(C_tang), plan["diag_slot"], m, B)
+        fact = bcr_t.bcr_factor(T, m, B, workspace=ws)
+        return bcr_t.ir_direct(lambda x: fp._bc_matvec(C_tang, x),
+                               lambda rr: fp._bcr_apply(fact, d, rr), b, rtol)
+
+    return solve
+
+
 def test_cuda_bcr_graphed_rounds_match_eager(cuda):
     """The 8x8 slope with linear_solver="bcr" over linspace(2, 22.9,
-    50)[:8], its refinement rounds replayed from CUDA graphs and run eagerly
-    (``_bcr["replay"]`` off): every update's dx bit for bit and its signed
-    rounds, each update on another tangent; the solver captured once, and
-    a replay for every round."""
+    50)[:8], its refinement rounds replayed from CUDA graphs, against the
+    step refined by ``ir_direct``'s eager round (``eager_bcr_solve``):
+    every update's dx bit for bit and its signed rounds, each update on
+    another tangent; the solver captured its two graphs once, and a replay
+    for every round."""
     from dolfinx_external_operator_torch.utils import profiling
 
     loads = np.linspace(2, 22.9, 50)[:8]
 
-    def run(replay):
+    def run(eager):
         fp = pt.mohr_coulomb_slope_step(8, 8, route="plain", device=cuda, linear_solver="bcr")
-        assert fp._bcr["replay"] is True
-        fp._bcr["replay"] = replay
-        solves, solve = [], fp._bcr_solve
+        solves, solve = [], eager_bcr_solve(fp) if eager else fp._bcr_solve
 
         def logged(C_tang, b, rtol):
             dx, k = solve(C_tang, b, rtol)
@@ -388,14 +406,14 @@ def test_cuda_bcr_graphed_rounds_match_eager(cuda):
             Du, sig, *_ = fp.run_step(Du, sig, load)
         return solves, profiling.counters()
 
-    eager, c_e = run(False)
-    graphed, c_g = run(True)
+    eager, c_e = run(True)
+    graphed, c_g = run(False)
     assert len(graphed) == len(eager) > 1
     assert [k for _, k in graphed] == [k for _, k in eager]
     assert all(torch.equal(a, b) for (a, _), (b, _) in zip(graphed, eager))
-    assert c_g["bcr.round_captures"] == 1
+    assert c_g["graphs.captures"] == 2
     assert c_g["bcr.round_replays"] == c_g["solve.rounds"] == c_e["solve.rounds"] > 0
-    assert c_e.get("bcr.round_captures", 0) == c_e.get("bcr.round_replays", 0) == 0
+    assert c_e.get("graphs.captures", 0) == c_e.get("bcr.round_replays", 0) == 0
 
 
 def _slope_run(solver, device, N=12, loads=(2.0, 6.0, 10.0, 14.0)):
@@ -1053,7 +1071,7 @@ def cylinder_mg():
         P["p"].x.axpy(1.0, P["dp"].x)
         P["sigma_n"].x.array[:] = P["sigma"].ref_coefficient.data
     st = P["problem"].solver._mg
-    plan, ws = st["plan"], st["ws"]
+    plan, ws = st["amg"].plan, st["amg"].ws
     mask = ws["mask"]
 
     def M32(r):
@@ -1107,12 +1125,13 @@ def test_cuda_graphs_replayed_after_mg_setup_read_the_new_hierarchy(cylinder_mg,
     again: the replays read the new hierarchy (its Chebyshev bounds
     moved) and give the torch chains' bits on it."""
     from dolfinx_external_operator_torch.parallel import mg
+    from dolfinx_external_operator_torch.utils.graphs import capture
 
     plan, ws, mv32, M32, r = cylinder_mg
     K32, rt = ws["K32"], ws["rt"]
     held = K32.clone()
-    cycle = mg.cuda_graphed(M32, r)
-    batch = mg._graphed(mg._pcg_iterations, mv32, M32, _pcg_state(M32, r), 8)
+    cycle = capture(M32, r)
+    batch = capture(mg._pcg_iterations, mv32, M32, _pcg_state(M32, r), 8)
     theta = rt["cheb0"][0].clone()
     rng = np.random.default_rng(5)
     scale = torch.as_tensor(1.0 + 0.5 * rng.random(K32.shape[0]), dtype=torch.float32,
@@ -1132,6 +1151,31 @@ def test_cuda_graphs_replayed_after_mg_setup_read_the_new_hierarchy(cylinder_mg,
     finally:
         K32.copy_(held)
         mg.mg_setup(plan, K32, ws["free"], out=rt)
+
+
+def test_cuda_capture_outlives_a_graph_collected_meanwhile(cuda):
+    """A graph left in a dead reference cycle (as a discarded solver leaves
+    its graphs) while another is captured: the collector does not free it
+    during the capture, which would invalidate the capture, and the new
+    graph replays."""
+    from dolfinx_external_operator_torch.utils.graphs import capture
+
+    x = torch.arange(8.0, device=cuda)
+    spare = [capture(lambda v: 2.0 * v, x)]
+    calls = []
+
+    def fn(v):
+        if not calls:  # the eager call: the spare graph into a dead cycle
+            cycle = [spare.pop()]
+            cycle.append(cycle)
+        else:  # the capture: enough new objects for the collector to run
+            [[] for _ in range(100_000)]
+        calls.append(v.shape)
+        return v + 1.0
+
+    run = capture(fn, x)
+    assert len(calls) == 2 and not spare
+    assert torch.equal(run(x + 1.0), x + 2.0)
 
 
 # the last step's Du of that schedule before the kernels (the first 16 hex

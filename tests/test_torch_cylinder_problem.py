@@ -225,7 +225,7 @@ def test_steps_count_their_mg_setups_and_pcg_iterations():
     its, inner, last_inner, counters, recorded, spans = _counted_steps("cpu")
     assert its[0] == 1 and its[2] > 1 and last_inner > its[2]
     assert counters["mg.setups"] == sum(its)
-    assert counters.get("mg.captures", 0) == 0  # no graph off the card
+    assert counters.get("graphs.captures", 0) == 0  # no graph off the card
     assert counters["solve.inner"] == inner
     assert recorded["solve.inner"] == last_inner and recorded["newton.updates"] == its[2]
     assert spans["deo.solve.setup"] == spans["deo.solve"] == its[2]
@@ -238,8 +238,8 @@ def test_the_card_captures_its_graphs_at_the_first_solve_only():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (see README: the port's card-only tests)")
     its, inner, last_inner, counters, recorded, spans = _counted_steps("cuda")
-    assert counters["mg.setups"] == sum(its) and counters["mg.captures"] >= 3
-    assert recorded.get("mg.captures", 0) == 0
+    assert counters["mg.setups"] == sum(its) and counters["graphs.captures"] >= 3
+    assert recorded.get("graphs.captures", 0) == 0
     assert counters["solve.inner"] == inner and recorded["solve.inner"] == last_inner
 
 
@@ -315,8 +315,8 @@ def test_batched_reads_keep_the_per_iteration_bits(maxiter, precond):
     """A 1D Laplacian plus a random SPD part, solved to 1e-12 with the f32
     PCG's tests read once a batch: the same iterate and iteration count as
     a read after every iteration, where the loop ends inside a batch on
-    the target, on stagnation and on the budget; without ``graphs``, a read
-    every iteration."""
+    the target, on stagnation and on the budget; with ``graphs`` and
+    without (off the card a given dict captures nothing)."""
     from dolfinx_external_operator_torch.parallel import mg
 
     n = 300
@@ -331,6 +331,6 @@ def test_batched_reads_keep_the_per_iteration_bits(maxiter, precond):
     b = torch.randn(n, dtype=torch.float64, generator=gen)
     args = (lambda x: A @ x, lambda x: A32 @ x, M32, b, 1e-12, maxiter)
     x_old, k_old = _ir_pcg_read_each_iteration(*args)
-    for graphs in (None, {}):  # a read each iteration, then once a batch
+    for graphs in (None, {}):
         x_new, k_new = mg.ir_pcg(*args, graphs=graphs)
         assert k_new == k_old > 0 and torch.equal(x_new, x_old)

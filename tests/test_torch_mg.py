@@ -18,6 +18,9 @@
 - Frozen Galerkin levels equal full ones; ``fused_forcing`` lowers the
   inner count; a step built from a JAX step's statics
   (``convert.mg_statics_from_numpy``) gives the mesh-built step's bits.
+- The 8x8 slope over ``LOADS``, dia and node mode: the step's AMG-CG
+  through its kept workspace gives a fresh hierarchy's bits at every
+  update.
 """
 import warnings
 
@@ -430,6 +433,56 @@ def test_from_statics_runs_without_mesh(solver, jax_runs, port_runs):
         del statics["mg"]
         with pytest.raises(ValueError, match="statics\\['mg'\\]"):
             pt.FusedPlasticityStep.from_statics(statics, kernel, device="cpu", linear_solver="mg")
+
+
+def _fresh_mg_solve(fp):
+    """The fused step's AMG-CG with a fresh hierarchy each update: ``mg_setup``
+    on the update's f32 blocks, and ``ir_pcg`` with the cycle on it."""
+    plan = fp._mg
+    dia = fp._mg_mv0_mode == "dia"
+    mask = plan["mask0_lat"] if dia else fp.statics["bc_mask"]
+    inner = ({"to_inner": lambda v: v[plan["perm0_l2o"]],
+              "from_inner": lambda v: v[plan["perm0_o2l"]]} if dia else {})
+
+    def solve(C_tang, b, rtol):
+        K_cell = fp._k_cell_masked(C_tang)
+        rt = mg_t.mg_setup(plan, K_cell.to(torch.float32))
+
+        def M32(r):
+            z = mg_t.vcycle(plan, rt, torch.where(mask, 0.0, r), gamma_coarse=fp._mg_gamma)
+            return torch.where(mask, r, z)
+
+        return mg_t.ir_pcg(mg_t.ebe_matvec(K_cell, plan["ebe"]), rt["mv0"], M32, b, rtol,
+                           fp.cg_maxiter, **inner)
+
+    return solve
+
+
+@pytest.mark.parametrize("mode", ["dia", "node"])
+def test_kept_workspace_matches_a_fresh_hierarchy(mode):
+    """The fused step's AMG-CG through its kept workspace (``mg.AMGCG``) on
+    the 8x8 slope over ``LOADS``: every update's dx and inner count, the
+    Newton list and Du bit for bit those of a fresh ``mg_setup`` and
+    ``ir_pcg`` at every update."""
+    runs = []
+    for fresh in (False, True):
+        fp = _port_step(8, mg_opts={"mv0_mode": mode})
+        assert fp._mg_mv0_mode == mode
+        updates, solve = [], _fresh_mg_solve(fp) if fresh else fp._mg_solve
+
+        def logged(C_tang, b, rtol, solve=solve, updates=updates):
+            dx, k = solve(C_tang, b, rtol)
+            updates.append((dx.clone(), k))
+            return dx, k
+
+        fp._mg_solve = logged
+        runs.append((_schedule(fp), updates))
+    ((du, its, inner), updates), ((du_f, its_f, inner_f), updates_f) = runs
+    assert (its, inner) == (its_f, inner_f) and sum(its) > 0 and all(k > 0 for k in inner)
+    assert all(np.array_equal(a, b) for a, b in zip(du, du_f))
+    assert len(updates) == len(updates_f) == sum(its)
+    assert all(k == k_f and torch.equal(dx, dx_f)
+               for (dx, k), (dx_f, k_f) in zip(updates, updates_f))
 
 
 # inner iterations of the 25x25 AMG-CG schedule: the JAX package's on the

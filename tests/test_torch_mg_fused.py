@@ -18,8 +18,9 @@
 * The bodies updating their vectors in place give the bits of an update
   into fresh buffers, and PCG (b) at length 0 still writes its scalars.
 * ``_chebyshev``, ``_pcg_iterations`` and ``ir_pcg`` on CPU tensors run
-  the torch chains and count no launch; the launchers refuse CPU tensors
-  and malformed operands.
+  the torch chains and count no launch, ``ir_pcg`` with and without
+  ``graphs`` giving the bits of a read every iteration; the launchers
+  refuse CPU tensors and malformed operands.
 
 The card's kernels against the torch chains on the same CUDA tensors are
 in ``tests/test_torch_cuda.py``.  This file imports no JAX.
@@ -33,6 +34,7 @@ from dolfinx_external_operator_torch.models import von_mises as vm
 from dolfinx_external_operator_torch.ops import mg_cycle as mgc
 from dolfinx_external_operator_torch.parallel import mg
 from dolfinx_external_operator_torch.utils import profiling
+from test_torch_cylinder_problem import _ir_pcg_read_each_iteration
 
 F32 = torch.float32
 # the lc = 0.02 cylinder's smoothed levels: 0 (element-blocked), 1 and 2 (dense)
@@ -216,11 +218,11 @@ def test_cpu_tensors_take_the_torch_chains_and_count_nothing():
             assert all(same_bits(got[k], want[k]) for k in got)
         else:
             assert same_bits(got, want)
-    b64 = b.double()
+    args = (lambda v: mv(v.float()).double(), mv, lambda r: dinv * r, b.double(), 1e-10, 500)
+    x_ref, k_ref = _ir_pcg_read_each_iteration(*args)
     for graphs in (None, {}):
-        x, k = mg.ir_pcg(lambda v: mv(v.float()).double(), mv, lambda r: dinv * r, b64, 1e-10,
-                         500, graphs=graphs)
-        assert k > 0
+        x, k = mg.ir_pcg(*args, graphs=graphs)
+        assert k == k_ref > 0 and same_bits(x, x_ref)
     counted = profiling.counters()
     assert all(counted[f"launches.{name}"] == 0
                for name in ("chebyshev_step", "pcg_xr", "pcg_p"))
